@@ -1,0 +1,175 @@
+"""The port's four-pass run_test against the JAX package's, end to end on
+the CPU, and the port's import isolation from jax and cv2.
+
+Both drivers run on the same synthetic scene (written with cv2 in the
+reference layout, with a vis_comps GT-albedo mirror so that pd_test scales)
+and the same parameters (JAX init, converted by from_jax). Every .npy they
+write must agree at rtol=1e-4 (atol=1e-5, for values in [0, 1]) and every
+PNG within 1 LSB: the 8-bit rounding of a value that differs in its last
+float bits can flip by one.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import cv2
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from tests.test_data_layer import _make_synth_scene
+from tests.test_torch_models import SMALL, jax_params
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LIGHT_H = 4  # 8-pixel-wide probes: cv2 writes them run-length encoded
+
+
+def _scene(tmp_path):
+    data_root, surf_root = _make_synth_scene(
+        str(tmp_path / "data" / "nfr_blender"), light_h=LIGHT_H)
+    rs = np.random.RandomState(3)
+    for i in range(2):
+        d = tmp_path / "data" / "vis_comps" / "scene" / ("val_%03d" % i)
+        os.makedirs(d)
+        cv2.imwrite(str(d / "albedo.png"),
+                    (rs.rand(16, 16, 3) * 255).astype(np.uint8))
+    env_dir = tmp_path / "test_envs"
+    os.makedirs(env_dir)
+    for name in ("city", "studio"):
+        hdr = rs.rand(LIGHT_H, 2 * LIGHT_H, 3).astype(np.float32) * 3
+        cv2.imwrite(str(env_dir / f"{name}.hdr"), hdr[..., ::-1])
+    vali_dir = tmp_path / "vis_vali" / "epoch000000150"
+    os.makedirs(vali_dir / "main_3")
+    return data_root, surf_root, str(env_dir), str(vali_dir)
+
+
+def _files(root):
+    out = set()
+    for d, _, names in os.walk(root):
+        out.update(os.path.relpath(os.path.join(d, n), root) for n in names)
+    return out
+
+
+def test_run_test_matches_jax(tmp_path):
+    from vqnerf_release_tpu.data.shape_dataset import \
+        ShapeDataset as JShapeDataset
+    from vqnerf_release_tpu.models import decomp_common as j_dc
+    from vqnerf_release_tpu.pipelines import test_driver as j_driver
+    from vqnerf_release_torch.data.shape_dataset import \
+        ShapeDataset as TShapeDataset
+    from vqnerf_release_torch.interop.jax_params import from_jax
+    from vqnerf_release_torch.models import decomp_common as t_dc
+    from vqnerf_release_torch.pipelines import test_driver as t_driver
+
+    small = dict(SMALL, light_h=LIGHT_H)
+    jcfg, tcfg = j_dc.DecompConfig(**small), t_dc.DecompConfig(**small)
+    data_root, surf_root, env_dir, vali_dir = _scene(tmp_path)
+    _, vq_np, ref_np = jax_params(light_h=LIGHT_H)
+
+    j_out, t_out = str(tmp_path / "jax"), str(tmp_path / "torch")
+    j_info = j_driver.run_test(
+        jax.tree_util.tree_map(jnp.asarray, ref_np),
+        jax.tree_util.tree_map(jnp.asarray, vq_np), jcfg,
+        JShapeDataset(data_root, surf_root, imh=16, mode="test",
+                      with_ref=True),
+        j_out, env_dir, vali_epoch_dir=vali_dir, data_root=data_root,
+        scene_name="scene")
+    t_info = t_driver.run_test(
+        from_jax(ref_np, "ref_nfr"), from_jax(vq_np, "vq_nfr"), tcfg,
+        TShapeDataset(data_root, surf_root, imh=16, mode="test",
+                      with_ref=True),
+        t_out, env_dir, vali_epoch_dir=vali_dir, data_root=data_root,
+        scene_name="scene", device="cpu")
+
+    assert t_info["n_vq"] == j_info["n_vq"] == 3
+    np.testing.assert_allclose(t_info["opt_scale"], j_info["opt_scale"],
+                               rtol=1e-4)
+    files = _files(j_out)
+    assert _files(t_out) == files
+    assert any(f.endswith("pred_rgb_probes_city.png") for f in files)
+    for f in sorted(files):
+        jp, tp = os.path.join(j_out, f), os.path.join(t_out, f)
+        if f.endswith(".npy"):
+            np.testing.assert_allclose(np.load(tp), np.load(jp), rtol=1e-4,
+                                       atol=1e-5, err_msg=f)
+        elif f.endswith(".png"):
+            want = cv2.imread(jp, cv2.IMREAD_UNCHANGED).astype(int)
+            got = cv2.imread(tp, cv2.IMREAD_UNCHANGED).astype(int)
+            assert got.shape == want.shape, f
+            assert np.abs(got - want).max() <= 1, f
+        else:
+            with open(jp) as a, open(tp) as b:
+                assert json.load(a) == json.load(b), f
+
+
+def test_chunked_embed_matches_jax():
+    """The VQ dropout fill is the largest distance of one call, so the
+    segmentation depends on the chunking: the port chunks as JAX does."""
+    from vqnerf_release_tpu.models import decomp_common as j_dc
+    from vqnerf_release_tpu.models.vq_nfr import vq_fast_embed as j_embed
+    from vqnerf_release_tpu.pipelines import test_driver as j_driver
+    from vqnerf_release_tpu.train.loop import _forward_chunked as j_chunked
+    from vqnerf_release_torch.interop.jax_params import from_jax
+    from vqnerf_release_torch.models import decomp_common as t_dc
+    from vqnerf_release_torch.models.vq_nfr import vq_fast_embed as t_embed
+    from vqnerf_release_torch.pipelines import test_driver as t_driver
+    import torch
+    from tests.test_torch_models import batch_np
+
+    assert t_driver._RAY_CHUNK == j_driver._RAY_CHUNK
+    _, vq_np, _ = jax_params()
+    model = from_jax(vq_np, "vq_nfr")
+    jvq = jax.tree_util.tree_map(jnp.asarray, vq_np)
+    b = batch_np(250, 8)
+    thres = np.array([0.0, 0.0, 1.0, 1.0], np.float32)
+    jcfg, tcfg = j_dc.DecompConfig(**SMALL), t_dc.DecompConfig(**SMALL)
+    want = j_chunked(
+        lambda bb: j_embed(jvq, bb, jcfg, thres=jnp.asarray(thres),
+                           rng=jax.random.PRNGKey(0)),
+        {k: jnp.asarray(v) for k, v in b.items()}, chunk=100)
+    with torch.inference_mode():
+        got = t_driver._forward_chunked(
+            lambda bb: t_embed(model, bb, tcfg, thres=torch.from_numpy(thres),
+                               rng=torch.Generator().manual_seed(0)),
+            {k: torch.from_numpy(v) for k, v in b.items()}, 100)
+    np.testing.assert_array_equal(got["embed"].numpy(), want["embed"])
+    np.testing.assert_array_equal(got["alpha"].numpy(), want["alpha"])
+
+
+_ISOLATION = """
+import json, os, sys, tempfile
+import chip_smoke as cs
+from vqnerf_release_torch.data.shape_dataset import ShapeDataset
+from vqnerf_release_torch.models.decomp_common import DecompConfig
+from vqnerf_release_torch.pipelines.test_driver import run_test
+cfg = DecompConfig(light_h=2, num_embed=4, num_drop=2, z_dim=16,
+                   mlp_width=8, imh=16, thres_str="0.1;0.2")
+with tempfile.TemporaryDirectory() as root:
+    p = cs.write_scene(root, 16, 2, cfg.light_h, 2, 3, 0)
+    ref, vq = cs.build_models(cfg, 0, "cpu")
+    ds = ShapeDataset(p["data_root"], p["surf_root"], imh=16, mode="test",
+                      with_ref=True)
+    out = os.path.join(root, "out")
+    info = run_test(ref, vq, cfg, ds, out, p["env_dir"],
+                    vali_epoch_dir=p["vali_dir"], data_root=p["data_root"],
+                    scene_name="sphere", device="cpu")
+    n = cs.check_outputs(out, cs.expected_files(cfg, p["env_dir"]), 2, 3)
+print(json.dumps({"n_vq": info["n_vq"], "arrays": n, "loaded": sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2"))}))
+"""
+
+
+def test_port_runs_without_jax_or_cv2():
+    """A tiny CPU run_test through the port, from chip_smoke's own scene
+    writer and model builder, loads neither jax nor cv2."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["loaded"] == []
+    assert result["n_vq"] == 3 and result["arrays"] > 0
