@@ -1,31 +1,58 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vqnerf_release_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 1. checks for a CUDA device and prints its name and power limit;
-2. builds the fused render kernel from csrc/ and prints the build time;
+2. builds both CUDA kernels from csrc/ (two nvcc processes side by side)
+   and prints the build time and ptxas' register and spill counts;
 3. writes a synthetic sphere scene in the reference layout to a temporary
-   directory: 2 val views of 512x512 rays with 512-light lvis, the
-   vis_comps GT-albedo mirror, 16 probe .hdr files and a main_5 vali dir;
-4. builds vq_nfr and ref_nfr at the DecompConfig defaults (mlp_width 128,
-   z_dim 256, 512 lights, 15 codes) from a seeded torch.Generator;
-5. runs the port's four-pass run_test on the GPU, with the kernel's launch
-   count reset just before and read just after;
-6. checks the outputs: the kernel launched, every expected file exists,
+   directory: 4 train and 2 val views of 512x512 rays with 512-light lvis,
+   the vis_comps GT-albedo mirror and 16 probe .hdr files;
+4. TRAINS on the GPU at the DecompConfig defaults for every width
+   (mlp_width 128, z_dim 256, 512 lights, 15 codes, 2048 rows per step):
+   train_nfr_unit for 2 epochs, then train_vq_nfr for 2 epochs, with a
+   checkpoint and a validation on one val view after each epoch (k-means
+   init, the staged views, the fused VQ step, the 13-threshold sweep over
+   200,000 rows, the elbow selection and the main_<k> renders); the VQ
+   kernel's launch count is reset just before and must equal the number of
+   vq_nfr steps just after; losses finite, no skipped step, the codebook
+   moved, the checkpoint reloads to equal tensors, the files exist;
+5. SERVES the trained model: the port's four-pass run_test over the 2 val
+   views with the trained vq_nfr, a ref_nfr initialised from it and the
+   main_<k> directory the training wrote, with the render kernel's launch
+   count reset just before and read just after; every expected file exists,
    every written array is finite, embed ids lie in [0, n_vq];
-7. holds the kernel against its plain PyTorch twin on the GPU (a 49,152-ray
-   chunk of a view with lvis, and 1,000 rays without lvis; rtol 2e-4,
-   atol 1e-5, the JAX kernel test's tolerance for a 512-term fp32 sum taken
-   in another order), and the fused vq_fast_render against the eager one;
-8. prints per-pass wall times, the kernel's and the twin's times (CUDA
-   events, median), peak device memory, a {"kernels": [...]} line, and as
-   the last line {"ok": true, "device": {...}}.
+6. holds each kernel against its plain PyTorch version on the GPU, on
+   inputs taken from the trained model:
+     fused_brdf_render: a 49,152-ray chunk of a view with lvis, and 1,000
+       rays without lvis; rtol 2e-4, atol 1e-5 (a 512-term fp32 sum taken
+       in another order), and the fused vq_fast_render against the eager;
+     vq_fused_train: N = 2,048, 65,536 and a ragged 1,000 rows of a train
+       view (strided, so background rows are in), K = 15 and 8, with and
+       without dropped codes, in two stages: (i) indices equal to the plain
+       version's except on rows whose two smallest plain distances lie
+       within 1e-5 of each other, which must be under 1% of the rows;
+       (ii) quantized, counts, hidden_cs, hidden_dw and update against the
+       plain version FED THE KERNEL'S INDICES and evaluated in float64, at
+       rtol 1e-5 / atol 1e-6 (float64 so that the error of the plain
+       version's own 65,536-term fp32 matmul does not enter);
+7. times both kernels and their plain versions (CUDA events, median), one
+   whole vq_nfr step with the kernel and with use_fused_vq=False (host
+   clock around a synchronised step, median), and with --profile prints a
+   torch.profiler table of a few steps;
+8. prints the pass times, peak device memory of training and of serving, a
+   {"kernels": [...]} line with both kernels, and as the last line
+   {"ok": true, "device": {...}}.
+
+Cuts, all of scale and none of width: 4 train views and 1 validation view
+in place of a scene's 100 and 8, 2 epochs in place of 150, 2 served views.
 
 Any failure raises and exits non-zero; without CUDA it exits 1 before doing
 anything.
 """
 
+import copy
 import glob
 import json
 import os
@@ -33,28 +60,43 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from vqnerf_release_torch.data import io as vio
+from vqnerf_release_torch.data.device_store import DeviceViewStore
 from vqnerf_release_torch.data.shape_dataset import ShapeDataset
 from vqnerf_release_torch.kernels import render as render_kernel
+from vqnerf_release_torch.kernels import vq as vq_kernel
 from vqnerf_release_torch.models import decomp_common as dc
 from vqnerf_release_torch.models import vq_nfr
 from vqnerf_release_torch.models.nfr_unit import init_nfr_unit
 from vqnerf_release_torch.models.ref_nfr import init_ref_nfr
-from vqnerf_release_torch.pipelines.test_driver import (_RAY_CHUNK,
+from vqnerf_release_torch.pipelines.test_driver import (_RAY_CHUNK, find_vq,
                                                          load_novel_lights,
                                                          run_test)
+from vqnerf_release_torch.train import decomp_trainer as dt
+from vqnerf_release_torch.train import loop as train_loop
+from vqnerf_release_torch.utils import ckpt as ckpt_util
 
 SCENE = "sphere"
-N_VIEWS = 2
+N_VIEWS = 2  # served val views
+N_TRAIN_VIEWS = 4
+N_VALI_VIEWS = 1
+EPOCHS = 2
 N_PROBES = 16
-N_VQ = 5
 SEED = 0
-RTOL, ATOL = 2e-4, 1e-5
+RTOL, ATOL = 2e-4, 1e-5  # fused_brdf_render against its plain version
+VQ_RTOL, VQ_ATOL = 1e-5, 1e-6  # vq_fused_train, stage (ii)
+VQ_TIE_GAP = 1e-5  # stage (i): rows whose two nearest codes are this close
+VQ_TIE_SHARE = 0.01
 RAGGED_N = 1000
+# peaks of one H100 SXM: HBM bytes/s, and fp32 operations/s outside the
+# tensor cores (both kernels are fp32 CUDA-core code)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def _look_at(eye):
@@ -67,11 +109,14 @@ def _look_at(eye):
     return c2w
 
 
-def write_scene(root, imh, n_views, light_h, n_probes, n_vq, seed):
-    """A unit sphere seen from n_views cameras, in the reference layout.
+def write_scene(root, imh, n_views, light_h, n_probes, n_vq, seed, n_train=0):
+    """A unit sphere seen from n_views val cameras and n_train train
+    cameras, in the reference layout.
 
     Returns dict(data_root, surf_root, env_dir, vali_dir). lvis is seeded
-    uniform noise stored as float16 (the loader casts to float32)."""
+    uniform noise stored as float16 (the loader casts to float32). With
+    n_vq, an empty vis_vali/epoch.../main_<n_vq> directory stands in for a
+    training run's."""
     rs = np.random.default_rng(seed)
     n_lights = light_h * 2 * light_h
     data_root = os.path.join(root, "data", "nfr_blender", SCENE)
@@ -83,9 +128,11 @@ def write_scene(root, imh, n_views, light_h, n_probes, n_vq, seed):
                          np.arange(imh, dtype=np.float64))
     dirs = np.stack(((xs - 0.5 * imh) / fl, -(ys - 0.5 * imh) / fl,
                      -np.ones_like(xs)), axis=-1)
-    for i in range(n_views):
-        vid = "val_%03d" % i
-        phi = 2 * np.pi * i / n_views
+    views = [("val_%03d" % i, 2 * np.pi * i / n_views)
+             for i in range(n_views)]
+    views += [("train_%03d" % i, 2 * np.pi * (i + 0.5) / max(n_train, 1))
+              for i in range(n_train)]
+    for vid, phi in views:
         eye = 4.0 * np.array([np.cos(phi), np.sin(phi), 0.3])
         c2w = _look_at(eye)
         rayd = dirs @ c2w[:3, :3].T
@@ -126,13 +173,15 @@ def write_scene(root, imh, n_views, light_h, n_probes, n_vq, seed):
         vio.write_hdr(os.path.join(env_dir, "probe%02d.hdr" % j),
                       2.0 * rs.random((light_h, 2 * light_h, 3)))
     vali_dir = os.path.join(root, "vis_vali", "epoch000000150")
-    os.makedirs(os.path.join(vali_dir, "main_%d" % n_vq))
+    if n_vq is not None:
+        os.makedirs(os.path.join(vali_dir, "main_%d" % n_vq))
     return {"data_root": data_root, "surf_root": surf_root,
             "env_dir": env_dir, "vali_dir": vali_dir}
 
 
 def build_models(cfg, seed, device):
-    """(ref_nfr, vq_nfr) from the port's init, chained as in training."""
+    """(ref_nfr, vq_nfr) with random weights from the port's init, chained
+    as in training."""
     gen = torch.Generator().manual_seed(seed)
     nfr = init_nfr_unit(gen, cfg)
     centers = torch.rand((cfg.num_embed, cfg.z_dim), generator=gen)
@@ -208,11 +257,407 @@ def kernel_inputs(vq, cfg, batch, lxyz, lareas):
                                      rough, spec, lvis)] + [packed]
 
 
+def build_kernels():
+    """Build both kernels, one nvcc process each, side by side."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        jobs = {"render": pool.submit(render_kernel.build),
+                "vq": pool.submit(vq_kernel.build)}
+        built = {name: job.result() for name, job in jobs.items()}
+    print("kernel builds: %.3f s for both" % (time.perf_counter() - t0))
+    for name, (so, log) in built.items():
+        print("  %s -> %s" % (name, so.name))
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("    ptxas:", line.strip())
+
+
+def _read_log(outdir):
+    with open(os.path.join(outdir, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_log(outdir, what):
+    rows = _read_log(outdir)
+    if len(rows) != EPOCHS:
+        raise AssertionError(f"{what}: {len(rows)} logged epochs")
+    for row in rows:
+        bad = [k for k, v in row.items()
+               if isinstance(v, float) and not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{what}: non-finite {bad} in {row}")
+        if row["skipped_steps"] != 0:
+            raise AssertionError(f"{what}: skipped steps in {row}")
+    return rows
+
+
+def _check_ckpt(outdir, model, opt_count, ema=None):
+    """The latest checkpoint reloads to the tensors of the returned state."""
+    state = ckpt_util.load_ckpt(ckpt_util.latest_ckpt(outdir))
+    if state["epoch"] != EPOCHS:
+        raise AssertionError(f"checkpoint of epoch {state['epoch']}")
+    for k, v in model.state_dict().items():
+        if not torch.equal(state["params"][k], v.cpu()):
+            raise AssertionError(f"checkpoint differs from the model at {k}")
+    if int(state["opt_state"]["count"]) != opt_count:
+        raise AssertionError("optimizer count %d != %d steps"
+                             % (int(state["opt_state"]["count"]), opt_count))
+    if ema is not None:
+        for a, b in zip(state["ema"], ema):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError("checkpoint differs from the EMA state")
+
+
+def train_phase(cfg, paths, root, device):
+    """train_nfr_unit then train_vq_nfr; returns what the later phases
+    need."""
+    train_ds = ShapeDataset(paths["data_root"], paths["surf_root"],
+                            data_type="nerf", imh=cfg.imh, mode="train")
+    vali_ds = ShapeDataset(paths["data_root"], paths["surf_root"],
+                           data_type="nerf", imh=cfg.imh, mode="vali")
+    if len(train_ds) != N_TRAIN_VIEWS or len(vali_ds) < N_VALI_VIEWS:
+        raise AssertionError("dataset has %d train and %d val views"
+                             % (len(train_ds), len(vali_ds)))
+    t0 = time.perf_counter()
+    train_views = [train_ds.load_view(f) for f in train_ds.files]
+    vali_views = [vali_ds.load_view(f)
+                  for f in vali_ds.files[:N_VALI_VIEWS]]
+    print("views loaded: %.3f s (%d train, %d vali)"
+          % (time.perf_counter() - t0, len(train_views), len(vali_views)))
+    n_steps = EPOCHS * len(train_views)
+    nfr_dir, vq_dir = os.path.join(root, "nfr"), os.path.join(root, "vq")
+
+    torch.cuda.reset_peak_memory_stats()
+    vq_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    nfr, nfr_hist = train_loop.train_nfr_unit(
+        cfg, train_views, vali_views, nfr_dir, epochs=EPOCHS, seed=SEED,
+        device=device)
+    torch.cuda.synchronize()
+    t_nfr = time.perf_counter() - t0
+    if vq_kernel.LAUNCHES != 0:
+        raise AssertionError("nfr_unit launched the VQ kernel")
+    t0 = time.perf_counter()
+    vq, ema, vq_hist = train_loop.train_vq_nfr(
+        cfg, nfr, train_views, vali_views, vq_dir, epochs=EPOCHS, seed=SEED,
+        device=device)
+    torch.cuda.synchronize()
+    t_vq = time.perf_counter() - t0
+    launches = vq_kernel.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    if launches != n_steps:
+        raise AssertionError("the VQ kernel launched %d times in %d vq_nfr "
+                             "steps" % (launches, n_steps))
+
+    nfr_rows = _check_log(nfr_dir, "nfr_unit")
+    vq_rows = _check_log(vq_dir, "vq_nfr")
+    centers = np.load(os.path.join(vq_dir, "cluster_centers.npy"))
+    moved = float((vq.codebook.detach().cpu()
+                   - torch.from_numpy(centers).T).abs().max())
+    if not moved > 0:
+        raise AssertionError("the codebook did not move from its k-means "
+                             "centres")
+    if int(ema.counter) != n_steps:
+        raise AssertionError(f"EMA counter {int(ema.counter)} != {n_steps}")
+    _check_ckpt(nfr_dir, nfr, n_steps)
+    _check_ckpt(vq_dir, vq, n_steps, ema)
+    vali_dir = os.path.join(vq_dir, "vis_vali", "epoch%09d" % EPOCHS)
+    n_vq = find_vq(vali_dir)
+    need = [os.path.join(nfr_dir, "vis_vali", "np_light.npy"),
+            os.path.join(nfr_dir, "vis_vali", "pred_light.png"),
+            os.path.join(vq_dir, "vis_vali", "np_light.npy"),
+            os.path.join(vali_dir, "vq_test_loss.json"),
+            os.path.join(vali_dir, "loss.json"),
+            os.path.join(vali_dir, "main_%d" % n_vq, "batch%09d" % 0,
+                         "pred_vq_rgb.png"),
+            os.path.join(vq_dir, "vis_vali", "metas.json")]
+    for path in need:
+        if not os.path.exists(path):
+            raise AssertionError(f"missing {os.path.relpath(path, root)}")
+    n_dirs = len(glob.glob(os.path.join(vali_dir, "*", "batch*")))
+    if n_dirs != (cfg.num_drop + 1) * len(vali_views):
+        raise AssertionError(f"{n_dirs} validation directories")
+    sweep = vio.read_json(os.path.join(vali_dir, "vq_test_loss.json"))
+    if not np.isfinite(sweep["chromaticity"] + sweep["vqrgb"]).all():
+        raise AssertionError("non-finite drop losses")
+
+    print("train_nfr_unit: %.3f s, %d steps, epoch losses %s; epoch wall %s s"
+          % (t_nfr, n_steps, nfr_hist, [r["wall_s"] for r in nfr_rows]))
+    print("train_vq_nfr: %.3f s, %d steps, epoch losses %s; epoch wall %s s"
+          % (t_vq, n_steps, vq_hist, [r["wall_s"] for r in vq_rows]))
+    print("  VQ kernel launches %d in %d steps; codebook moved by up to "
+          "%.3e; elbow main_%d of %s" % (launches, n_steps, moved, n_vq,
+                                         sweep["chromaticity"]))
+    print("peak device memory in training: %d bytes (%.3f GiB)"
+          % (peak, peak / 2**30))
+    return {"vq": vq, "ema": ema, "vali_dir": vali_dir, "n_vq": n_vq,
+            "launches": launches, "peak": peak, "train_views": train_views}
+
+
+def _median_step_ms(step, reps):
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def time_steps(cfg, trained, lxyz, lareas, device, profile):
+    """One whole vq_nfr step with the kernel and with use_fused_vq=False, on
+    copies of the trained model (the trained one is served afterwards)."""
+    store = DeviceViewStore(trained["train_views"], device)
+    rng = np.random.RandomState(SEED)
+    batch = store.gather(0, train_loop.sample_pix(
+        trained["train_views"][0], cfg.n_rays_per_step, rng))
+    # the host's share of a step before anything is launched: the sampler
+    # of each phase, and the gather of the staged view's rows
+    view = trained["train_views"][0]
+    for mode in ("contrast", "random"):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pix = train_loop.sample_pix(view, cfg.n_rays_per_step, rng,
+                                        jitter_mode=mode)
+            times.append(1e3 * (time.perf_counter() - t0))
+        print("sample_pix, %s jitter (host, numpy), %dx%d view: %.3f ms "
+              "(median of 5)" % (mode, view.h, view.w, np.median(times)))
+    print("store.gather of %d rows: %.3f ms (host clock, synchronised, "
+          "median of 10)" % (len(pix), _median_step_ms(
+              lambda: store.gather(0, pix), 10)))
+    thres = torch.as_tensor(cfg.train_thres(), device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    steps = {}
+    for name, fused in (("kernel", None), ("eager", False)):
+        c = dc.DecompConfig(epochs=EPOCHS, use_fused_vq=fused)
+        model = copy.deepcopy(trained["vq"])
+        _, fn = dt.make_vq_nfr_step(model, c, lxyz, lareas)
+        state = {"ema": trained["ema"]}
+
+        def step(fn=fn, state=state):
+            state["ema"], _ = fn(state["ema"], batch, thres, gen, 8)
+        for _ in range(3):
+            step()
+        steps[name] = step
+    ms = {"kernel": [], "eager": []}
+    for name in ("kernel", "eager", "eager", "kernel"):
+        ms[name].append(_median_step_ms(steps[name], 10))
+    print("one vq_nfr step (%d rows x %d lights, host clock, synchronised, "
+          "medians of 10 in the order kernel, eager, eager, kernel): with "
+          "the kernel %s ms, with use_fused_vq=False %s ms"
+          % (2 * cfg.n_rays_per_step, cfg.n_lights,
+             ["%.3f" % t for t in ms["kernel"]],
+             ["%.3f" % t for t in ms["eager"]]))
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                steps["kernel"]()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print("profile of 10 vq_nfr steps with the kernel, %.3f s wall:"
+              % wall)
+        averages = prof.key_averages()
+        print(averages.table(sort_by="cuda_time_total", row_limit=25,
+                             max_name_column_width=60))
+        from torch.autograd import DeviceType
+        kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+
+        def self_us(e):  # the attribute's name differs between versions
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+        device_us = sum(self_us(e) for e in kernels)
+        print("device busy %.3f ms of %.3f ms wall under the profiler: idle "
+              "share %.3f" % (device_us / 1e3, 1e3 * wall,
+                              1 - device_us / 1e6 / wall))
+        for name in ("vq_assign", "vq_finish"):
+            for e in kernels:
+                if name in e.key:
+                    print("  %s: %d launches, %.2f us of device time each"
+                          % (name, e.count, self_us(e) / e.count))
+    return float(np.mean(ms["kernel"])), float(np.mean(ms["eager"]))
+
+
+def vq_kernel_inputs(trained, cfg, n, k, drop, device):
+    """vq_fused_train's arguments from the trained model: z_norm of n rows
+    of a train view, strided over the whole view so that background rows
+    are in, the model's codebook (its first k codes), the trained EMA
+    state, and a usable-code mask with or without dropped codes."""
+    view = trained["train_views"][0]
+    rows = np.linspace(0, view.xyz.shape[0] - 1, n).astype(np.int64)
+    xyz = torch.as_tensor(view.xyz[rows], device=device)
+    rowmask = torch.as_tensor(view.alpha[rows, 0] > 0, device=device).to(
+        torch.float32)
+    vq, ema = trained["vq"], trained["ema"]
+    _, z_norm = vq_nfr.vq_encode(vq, xyz, cfg)
+    cb = dc.get_codebook(vq)[:, :k].contiguous()
+    sel = torch.ones((k,), device=device)
+    if drop:
+        sel[k - k // 3:] = 0.0
+    return [cb, z_norm.contiguous(), rowmask, sel,
+            ema.hidden_cluster_size[:k].contiguous(),
+            ema.hidden_dw[:, :k].contiguous(),
+            (ema.counter + 1).to(torch.float32)]
+
+
+def compare_vq_kernel(out, args, kw, what):
+    """The two-stage comparison of vq_fused_train with its plain version
+    (see the module docstring). Returns (max abs err of stage (ii), rows
+    whose index differs, rows that are near-ties)."""
+    cb, x, _, sel = args[:4]
+    plain = vq_kernel.vq_fused_train_reference(*args, **kw)
+    dist = (torch.sum(x * x, 1, keepdim=True) - 2.0 * (x @ cb)
+            + torch.sum(cb * cb, 0, keepdim=True))
+    dist = torch.where(sel[None] > 0, dist,
+                       torch.full_like(dist, vq_kernel.BIG))
+    two = torch.topk(dist, 2, dim=1, largest=False).values
+    near = (two[:, 1] - two[:, 0]) < VQ_TIE_GAP
+    differ = out["indices"] != plain["indices"]
+    n = x.shape[0]
+    if (differ & ~near).any():
+        raise AssertionError(
+            f"{what}: {int((differ & ~near).sum())} of {n} indices differ "
+            "from the plain version's on rows that are no near-tie")
+    if int(near.sum()) > VQ_TIE_SHARE * n:
+        raise AssertionError(f"{what}: {int(near.sum())} of {n} rows are "
+                             "near-ties, too many for the comparison")
+    if not 0 <= int(out["indices"].min()) <= int(out["indices"].max()) < \
+            cb.shape[1]:
+        raise AssertionError(f"{what}: index out of range")
+    fed = vq_kernel.vq_fused_train_reference(
+        *[a.double() for a in args], **kw, indices=out["indices"])
+    worst = 0.0
+    for key in ("quantized", "counts", "hidden_cs", "hidden_dw", "update"):
+        got, want = out[key].double(), fed[key]
+        err = (got - want).abs()
+        if not torch.isfinite(got).all() or \
+                (err > VQ_ATOL + VQ_RTOL * want.abs()).any():
+            raise AssertionError(
+                f"{what}: {key} outside rtol={VQ_RTOL}, atol={VQ_ATOL} of "
+                f"the plain version fed the kernel's indices; max abs err "
+                f"{float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return worst, int(differ.sum()), int(near.sum())
+
+
+def check_render_kernel(vq, cfg, view, lxyz, lareas, device):
+    """Kernel 1 against its plain version; returns the kernels-line entry
+    without its launch count."""
+    batch = {k: torch.as_tensor(x, device=device)
+             for k, x in view.as_batch().items() if k != "ref"}
+    # a chunk through the middle rows of the view, where the sphere is
+    chunk = {k: v[2 * _RAY_CHUNK:3 * _RAY_CHUNK] for k, v in batch.items()}
+    args = kernel_inputs(vq, cfg, chunk, lxyz, lareas)
+    ragged = [a[:RAGGED_N] for a in args[:6]] + [None, args[7]]
+    err = 0.0
+    for what, a in (("chunk %dx%d" % (_RAY_CHUNK, cfg.n_lights), args),
+                    ("ragged %d, no lvis" % RAGGED_N, ragged)):
+        got = render_kernel.fused_brdf_render(*a)
+        want = render_kernel.fused_brdf_render_reference(*a)
+        torch.cuda.synchronize()
+        e = _compare(got, want, what)
+        print("fused_brdf_render vs plain version, %s: max abs err %.3e"
+              % (what, e))
+        err = max(err, e)
+
+    fused = vq_nfr.vq_fast_render(vq, chunk, cfg, lxyz, lareas)
+    eager = vq_nfr.vq_fast_render(
+        vq, chunk, dc.DecompConfig(use_fused_render=False), lxyz, lareas)
+    e = _compare(fused["rgb"], eager["rgb"], "vq_fast_render fused/eager")
+    print("vq_fast_render rgb, fused vs eager: max abs err %.3e" % e)
+
+    ms = _time_ms(lambda: render_kernel.fused_brdf_render(*args))
+    plain_ms = _time_ms(
+        lambda: render_kernel.fused_brdf_render_reference(*args))
+    n, l = _RAY_CHUNK, cfg.n_lights
+    # every input read once, the output written once; about 60 fp32
+    # operations per ray-light pair (the count in the kernel's source)
+    nbytes = 4 * (n * (5 * 3 + 1) + n * l + 8 * l + n * 3)
+    ops = 60 * n * l
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / FP32_OPS_PER_S
+    print("fused_brdf_render at %d rays x %d lights: kernel %.4f ms, plain "
+          "version %.4f ms, bound %.4f ms (%d bytes: %.4f ms; %d operations: "
+          "%.4f ms)" % (n, l, ms, plain_ms, max(bytes_ms, ops_ms), nbytes,
+                        bytes_ms, ops, ops_ms))
+    return {
+        "name": "fused_brdf_render", "route": "cuda",
+        "source": "vqnerf_release_torch/csrc/render_kernel.cu",
+        "replaces": "vqnerf_release_tpu/ops/pallas/render_kernel.py:133",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call computes it
+    }
+
+
+def check_vq_kernel(trained, cfg, device):
+    """Kernel 2 against its plain version; returns the kernels-line entry
+    without its launch count."""
+    kw = dict(decay=cfg.vq_decay, epsilon=1e-5)
+    err = 0.0
+    n_step, k_all = 2 * cfg.n_rays_per_step, cfg.num_embed
+    k_small = min(8, k_all)  # the reduced presets' codebook
+    for n, k, drop in ((n_step, k_all, True), (n_step, k_all, False),
+                       (65536, k_all, True), (RAGGED_N, k_all, True),
+                       (n_step, k_small, True), (RAGGED_N, k_small, False)):
+        args = vq_kernel_inputs(trained, cfg, n, k, drop, device)
+        what = "N %d, K %d, %s" % (n, k, "dropped codes" if drop
+                                   else "all codes")
+        out = vq_kernel.vq_fused_train(*args, **kw)
+        again = vq_kernel.vq_fused_train(*args, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(out[key], again[key]) for key in out):
+            raise AssertionError(f"{what}: two launches disagree")
+        e, differ, near = compare_vq_kernel(out, args, kw, what)
+        print("vq_fused_train vs plain version, %s: (i) %d indices differ, "
+              "%d of %d rows near-ties (gap < %g); (ii) max abs err %.3e "
+              "(rtol %g, atol %g, float64 plain version fed the kernel's "
+              "indices); foreground rows %d"
+              % (what, differ, near, n, VQ_TIE_GAP, e, VQ_RTOL, VQ_ATOL,
+                 int(args[2].sum())))
+        err = max(err, e)
+
+    n, d, k = n_step, cfg.z_dim, k_all
+    args = vq_kernel_inputs(trained, cfg, n, k, True, device)
+    ms = _time_ms(lambda: vq_kernel.vq_fused_train(*args, **kw), reps=31)
+    plain_ms = _time_ms(
+        lambda: vq_kernel.vq_fused_train_reference(*args, **kw), reps=31)
+    # x, rowmask, sel, cb, hcs, hdw, counter read once; indices, quantized,
+    # counts, hidden_cs, hidden_dw, update written once. Distances and dw
+    # are 2 N D K operations each.
+    nbytes = 4 * (n * d + n + k + d * k + k + d * k + 1
+                  + n + n * d + k + k + 2 * d * k)
+    ops = 4 * n * d * k
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / FP32_OPS_PER_S
+    print("vq_fused_train at %d x %d x %d: kernel %.4f ms (2 CUDA launches), "
+          "plain version %.4f ms, bound %.5f ms (%d bytes: %.5f ms; %d "
+          "operations: %.5f ms)" % (n, d, k, ms, plain_ms,
+                                    max(bytes_ms, ops_ms), nbytes, bytes_ms,
+                                    ops, ops_ms))
+    return {
+        "name": "vq_fused_train", "route": "cuda",
+        "source": "vqnerf_release_torch/csrc/vq_kernel.cu",
+        "replaces": "vqnerf_release_tpu/ops/pallas/vq_kernel.py:136",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call computes it
+    }
+
+
 def main():
+    profile = "--profile" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false")
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     print("device:", name, flush=True)
@@ -222,20 +667,27 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print("nvidia-smi:", smi, flush=True)
 
-    t0 = time.perf_counter()
-    so, log = render_kernel.build()
-    print("kernel build: %.3f s -> %s" % (time.perf_counter() - t0, so.name))
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    build_kernels()
 
-    cfg = dc.DecompConfig()
+    cfg = dc.DecompConfig(epochs=EPOCHS)
+    print("cuts: %d train views, %d validation view, %d epochs per phase, "
+          "%d served views; every width is DecompConfig's default"
+          % (N_TRAIN_VIEWS, N_VALI_VIEWS, EPOCHS, N_VIEWS))
     with tempfile.TemporaryDirectory(prefix="vqnerf_smoke_") as root:
         t0 = time.perf_counter()
         paths = write_scene(root, cfg.imh, N_VIEWS, cfg.light_h, N_PROBES,
-                            N_VQ, SEED)
-        print("scene written: %.3f s" % (time.perf_counter() - t0))
-        ref, vq = build_models(cfg, SEED, device)
+                            None, SEED, n_train=N_TRAIN_VIEWS)
+        print("scene written: %.3f s" % (time.perf_counter() - t0), flush=True)
+
+        # ---- the training half of the main path ---------------------------
+        trained = train_phase(cfg, paths, os.path.join(root, "train"), device)
+        vq, n_vq = trained["vq"], trained["n_vq"]
+        sys.stdout.flush()
+
+        # ---- the serving half, with the trained model ---------------------
+        ref = init_ref_nfr(torch.Generator().manual_seed(SEED), cfg,
+                           copy.deepcopy(vq).cpu(),
+                           vq.light.detach().cpu()).to(device)
         ds = ShapeDataset(paths["data_root"], paths["surf_root"],
                           data_type="nerf", imh=cfg.imh, mode="test",
                           with_ref=True)
@@ -247,69 +699,41 @@ def main():
         render_kernel.LAUNCHES = 0
         t0 = time.perf_counter()
         info = run_test(ref, vq, cfg, ds, outroot, paths["env_dir"],
-                        vali_epoch_dir=paths["vali_dir"],
+                        vali_epoch_dir=trained["vali_dir"],
                         data_root=paths["data_root"], scene_name=SCENE,
                         device=device)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        launches = render_kernel.LAUNCHES
+        render_launches = render_kernel.LAUNCHES
         peak = torch.cuda.max_memory_allocated()
-        if launches <= 0:
+        if render_launches <= 0:
             raise AssertionError("run_test never launched the render kernel")
-        if info["n_vq"] != N_VQ:
-            raise AssertionError(f"n_vq {info['n_vq']} != {N_VQ}")
+        if info["n_vq"] != n_vq:
+            raise AssertionError(f"n_vq {info['n_vq']} != {n_vq}")
         n_arrays = check_outputs(
-            outroot, expected_files(cfg, paths["env_dir"]), N_VIEWS, N_VQ)
+            outroot, expected_files(cfg, paths["env_dir"]), N_VIEWS, n_vq)
         print("run_test: %.3f s total, opt_scale %s, %d arrays checked"
               % (total, info["opt_scale"], n_arrays))
         for phase, sec in info["seconds"].items():
             print("  pass %-8s %.3f s (%.3f s per %dx%d view)"
                   % (phase, sec, sec / N_VIEWS, cfg.imh, cfg.imh))
         print("peak device memory in run_test: %d bytes (%.3f GiB)"
-              % (peak, peak / 2**30))
+              % (peak, peak / 2**30), flush=True)
 
         view = ds.load_view(ds.files[0])
 
+    # ---- each kernel against its plain version, and the timings ----------
     lxyz, lareas = dc.light_constants(cfg, device)
-    batch = {k: torch.as_tensor(x, device=device)
-             for k, x in view.as_batch().items() if k != "ref"}
     with torch.inference_mode():
-        # a chunk through the middle rows of the view, where the sphere is
-        chunk = {k: v[2 * _RAY_CHUNK:3 * _RAY_CHUNK] for k, v in batch.items()}
-        args = kernel_inputs(vq, cfg, chunk, lxyz, lareas)
-        ragged = [a[:RAGGED_N] for a in args[:6]] + [None, args[7]]
-        err = 0.0
-        for what, a in (("chunk %dx%d" % (_RAY_CHUNK, cfg.n_lights), args),
-                        ("ragged %d, no lvis" % RAGGED_N, ragged)):
-            got = render_kernel.fused_brdf_render(*a)
-            want = render_kernel.fused_brdf_render_reference(*a)
-            torch.cuda.synchronize()
-            e = _compare(got, want, what)
-            print("kernel vs plain twin, %s: max abs err %.3e" % (what, e))
-            err = max(err, e)
+        render_entry = check_render_kernel(vq, cfg, view, lxyz, lareas, device)
+        vq_entry = check_vq_kernel(trained, cfg, device)
+    time_steps(cfg, trained, lxyz, lareas, device, profile)
 
-        fused = vq_nfr.vq_fast_render(vq, chunk, cfg, lxyz, lareas)
-        eager = vq_nfr.vq_fast_render(
-            vq, chunk, dc.DecompConfig(use_fused_render=False), lxyz, lareas)
-        e = _compare(fused["rgb"], eager["rgb"], "vq_fast_render fused/eager")
-        print("vq_fast_render rgb, fused vs eager: max abs err %.3e" % e)
-
-        ms = _time_ms(lambda: render_kernel.fused_brdf_render(*args))
-        plain_ms = _time_ms(
-            lambda: render_kernel.fused_brdf_render_reference(*args))
-    print("time at %d rays x %d lights: kernel %.4f ms, plain twin %.4f ms"
-          % (_RAY_CHUNK, cfg.n_lights, ms, plain_ms))
-
-    print(json.dumps({"kernels": [{
-        "name": "fused_brdf_render",
-        "route": "cuda",
-        "source": "vqnerf_release_torch/csrc/render_kernel.cu",
-        "replaces": "vqnerf_release_tpu/ops/pallas/render_kernel.py:133",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    render_entry["launches"] = render_launches
+    vq_entry["launches"] = trained["launches"]
+    print("total: %.1f s" % (time.perf_counter() - t_start))
+    print(json.dumps({"kernels": [render_entry, vq_entry]}))
+    print("nvidia-smi:", smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -7,17 +7,29 @@ neither jax nor cv2, so it runs on a machine that has only PyTorch:
 
 (--noconftest because tests/conftest.py configures jax.)
 
-Tolerance rtol=2e-4, atol=1e-5: the JAX kernel test's own
-(tests/test_pallas_render.py), for a sum over L lights in another order.
+Tolerance of the render kernel, rtol=2e-4, atol=1e-5: the JAX kernel test's
+own (tests/test_pallas_render.py), for a sum over L lights in another order.
+
+The VQ kernel is held to its plain version in two stages, so that a
+near-tie does not look like a fault: (i) equal indices except on rows whose
+two smallest plain distances lie within 1e-5 of each other; (ii) every other
+output against the plain version fed the kernel's indices and evaluated in
+float64, at rtol 1e-5 / atol 1e-6.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vqnerf_release_tpu.ops.light import gen_light_xyz  # numpy only
+from vqnerf_release_torch.ops.light import gen_light_xyz
 from vqnerf_release_torch.kernels import render as kr
+from vqnerf_release_torch.kernels import vq as kv
+from vqnerf_release_torch.models import decomp_common as dc
+from vqnerf_release_torch.models.nfr_unit import init_nfr_unit
+from vqnerf_release_torch.models.vq_nfr import init_vq_nfr
 from vqnerf_release_torch.ops.render import fused_render_equation
+from vqnerf_release_torch.ops.vq import VqEmaState, init_vq_ema_state
+from vqnerf_release_torch.train.decomp_trainer import make_vq_nfr_step
 
 RTOL, ATOL = 2e-4, 1e-5
 
@@ -96,3 +108,158 @@ def test_kernel_rejects_bad_inputs(cuda_device):
     bad[0] = args[0].T.contiguous().T
     with pytest.raises(ValueError, match="contiguous"):
         kr.fused_brdf_render(*bad)
+
+
+def _vq_inputs(n, d, k, device, drop, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    z = torch.rand((n, d), generator=g)
+    c = torch.rand((d, k), generator=g)
+    sel = torch.ones(k)
+    if drop:
+        sel[k // 2:] = (torch.rand(k - k // 2, generator=g) > 0.5).float()
+    args = (c / c.norm(dim=0, keepdim=True), z / z.norm(dim=1, keepdim=True),
+            (torch.rand((n,), generator=g) > 0.3).float(), sel,
+            torch.rand(k, generator=g) * 100,
+            torch.rand((d, k), generator=g) * 10, torch.tensor(37.0))
+    return [t.to(device) for t in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k,drop", [
+    (2048, 256, 15, True), (2048, 256, 15, False), (65536, 256, 15, True),
+    (1000, 256, 15, True), (2048, 256, 8, True), (7, 16, 4, False),
+    (1, 48, 3, True)])
+def test_vq_kernel_matches_plain_version(cuda_device, n, d, k, drop):
+    args = _vq_inputs(n, d, k, cuda_device, drop)
+    kw = dict(decay=0.999, epsilon=1e-5)
+    launches = kv.LAUNCHES
+    out = kv.vq_fused_train(*args, **kw)
+    again = kv.vq_fused_train(*args, **kw)
+    torch.cuda.synchronize()
+    assert kv.LAUNCHES == launches + 2
+    for key in out:  # no atomics: the same bits from run to run
+        assert torch.equal(out[key], again[key]), key
+    plain = kv.vq_fused_train_reference(*args, **kw)
+    cb, x, _, sel = args[:4]
+    dist = (torch.sum(x * x, 1, keepdim=True) - 2.0 * (x @ cb)
+            + torch.sum(cb * cb, 0, keepdim=True))
+    dist = torch.where(sel[None] > 0, dist, torch.full_like(dist, kv.BIG))
+    two = torch.topk(dist, 2, dim=1, largest=False).values
+    near = (two[:, 1] - two[:, 0]) < 1e-5
+    differ = out["indices"] != plain["indices"]
+    assert not (differ & ~near).any()
+    assert int(near.sum()) <= max(1, n // 100)
+    fed = kv.vq_fused_train_reference(*[a.double() for a in args], **kw,
+                                      indices=out["indices"])
+    for key in ("quantized", "counts", "hidden_cs", "hidden_dw", "update"):
+        torch.testing.assert_close(out[key].double(), fed[key], rtol=1e-5,
+                                   atol=1e-6, msg=key)
+
+
+@pytest.mark.cuda
+def test_vq_kernel_fma_contraction_stays_within_tolerance(cuda_device,
+                                                          monkeypatch):
+    """The kernel is built with nvcc's default FMA contraction. Built with
+    -fmad=false beside it, it gives the same indices and statistics within
+    the same tolerance of the float64 plain version: nothing here is as
+    ill-conditioned as the render kernel's GGX peak. Run with -s to see
+    the two builds' errors and times."""
+    args = _vq_inputs(65536, 256, 15, cuda_device, True)
+    kw = dict(decay=0.999, epsilon=1e-5)
+    outs = {}
+    for name, flags in (("fma", ()), ("no fma", ("-fmad=false",))):
+        monkeypatch.setattr(kv, "_lib", kv.load(kv.build(flags)[0]))
+        outs[name] = kv.vq_fused_train(*args, **kw)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            kv.vq_fused_train(*args, **kw)
+        end.record()
+        end.synchronize()
+        fed = kv.vq_fused_train_reference(
+            *[a.double() for a in args], **kw, indices=outs[name]["indices"])
+        errs = {}
+        for key in ("counts", "hidden_cs", "hidden_dw", "update"):
+            torch.testing.assert_close(outs[name][key].double(), fed[key],
+                                       rtol=1e-5, atol=1e-6, msg=key)
+            errs[key] = float((outs[name][key].double() - fed[key]).abs().max())
+        print("%s: %.4f ms a call at 65536 x 256 x 15, max abs errs %s"
+              % (name, start.elapsed_time(end) / 20, errs))
+    differ = int((outs["fma"]["indices"] != outs["no fma"]["indices"]).sum())
+    print("indices that differ between the builds: %d of 65536" % differ)
+    assert differ <= 65
+
+
+@pytest.mark.cuda
+def test_vq_kernel_rejects_bad_inputs(cuda_device):
+    args = _vq_inputs(64, 32, 4, cuda_device, False)
+    kw = dict(decay=0.999, epsilon=1e-5)
+    bad = list(args)
+    bad[1] = args[1].double()
+    with pytest.raises(ValueError, match="float32"):
+        kv.vq_fused_train(*bad, **kw)
+    bad = list(args)
+    bad[2] = args[2][:-1]
+    with pytest.raises(ValueError, match="shape"):
+        kv.vq_fused_train(*bad, **kw)
+    bad = list(args)
+    bad[0] = args[0].T.contiguous().T
+    with pytest.raises(ValueError, match="contiguous"):
+        kv.vq_fused_train(*bad, **kw)
+    wide = _vq_inputs(8, 512, 4, cuda_device, False)
+    with pytest.raises(ValueError, match="D <="):
+        kv.vq_fused_train(*wide, **kw)
+
+
+@pytest.mark.cuda
+def test_fused_vq_training_step_cuda_matches_cpu(cuda_device):
+    """One vq_nfr training step with the kernel on the card against the
+    same step on the CPU (the plain version): losses, parameters, codebook
+    and EMA state. rtol 1e-3 / atol 1e-5: the two devices round rsqrt, exp
+    and the matmuls differently, and amsgrad's first step moves every
+    parameter by lr whatever its gradient's size."""
+    cfg = dc.DecompConfig(light_h=4, num_embed=6, num_drop=3, z_dim=64,
+                          mlp_width=32, thres_str="0.1;0.2;0.3")
+    gen = torch.Generator().manual_seed(0)
+    nfr = init_nfr_unit(gen, cfg)
+    centers = torch.rand((cfg.num_embed, cfg.z_dim), generator=gen)
+    model_cpu, _ = init_vq_nfr(gen, cfg, nfr, centers)
+    rs = np.random.RandomState(1)
+    n = 256
+    normal = rs.randn(n, 3)
+    batch = dict(
+        rayo=np.tile([0.0, 0.0, 3.0], (n, 1)), xyz=rs.rand(n, 3) - 0.5,
+        normal=normal / np.linalg.norm(normal, axis=1, keepdims=True),
+        alpha=(rs.rand(n, 1) > 0.2), rgb=rs.rand(n, 3),
+        lvis=rs.rand(n, cfg.n_lights),
+        _roll=rs.rand(1, cfg.num_embed))
+    batch = {k: torch.as_tensor(np.asarray(v, np.float32))
+             for k, v in batch.items()}
+    results = {}
+    for device in (torch.device("cpu"), cuda_device):
+        import copy
+        model = copy.deepcopy(model_cpu).to(device)
+        _, step = make_vq_nfr_step(model, cfg,
+                                   *dc.light_constants(cfg, device))
+        ema = init_vq_ema_state(cfg.z_dim, cfg.num_embed, device)
+        launches = kv.LAUNCHES
+        ema, ld = step(ema, {k: v.to(device) for k, v in batch.items()},
+                       torch.as_tensor(cfg.train_thres(), device=device),
+                       None, 0)
+        assert kv.LAUNCHES == launches + (device.type == "cuda")
+        results[device.type] = (
+            {k: float(v) for k, v in ld.items()},
+            {k: v.cpu() for k, v in model.state_dict().items()},
+            VqEmaState(*(t.cpu() for t in ema)))
+    (ld_c, sd_c, ema_c), (ld_g, sd_g, ema_g) = results["cpu"], results["cuda"]
+    assert ld_g["nonfinite_grads"] == 0.0
+    for k in ld_c:
+        np.testing.assert_allclose(ld_g[k], ld_c[k], rtol=1e-3, atol=1e-7,
+                                   err_msg=k)
+    for k in sd_c:
+        torch.testing.assert_close(sd_g[k], sd_c[k], rtol=1e-3, atol=1e-5,
+                                   msg=k)
+    for a, b in zip(ema_g, ema_c):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)

@@ -148,4 +148,36 @@ def test_resize_rejects_other_factors():
     with pytest.raises(NotImplementedError):
         t_io.resize(img, new_h=20)  # 1.5x down
     with pytest.raises(NotImplementedError):
-        t_io.resize(img, new_h=60)  # up
+        t_io.resize(img.astype(np.uint8), new_h=60)  # an integer image up
+    with pytest.raises(NotImplementedError):
+        t_io.resize(img, new_h=60, new_w=30)  # up one way, down the other
+
+
+@pytest.mark.parametrize("shape,new_h", [
+    ((16, 32, 3), 256), ((4, 8, 3), 10), ((5, 7), 13)])
+def test_resize_matches_cv2_linear(shape, new_h):
+    """A float upscale is bilinear with the border replicated, as
+    cv2.INTER_LINEAR (the light map's 16 -> 256 rows in pred_light.png)."""
+    rs = np.random.RandomState(5)
+    img = rs.rand(*shape).astype(np.float32)
+    got = t_io.resize(img, new_h=new_h)
+    want = j_io.resize(img, new_h=new_h)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    light = t_io.vis_light(3 * img, h=new_h)
+    assert np.abs(light.astype(int)
+                  - j_io.vis_light(3 * img, h=new_h).astype(int)).max() <= 1
+
+
+def test_write_apng_frames_read_back(tmp_path):
+    from PIL import Image
+    rs = np.random.RandomState(6)
+    a = (rs.rand(8, 9, 3) * 255).astype(np.uint8)
+    path = str(tmp_path / "flip.apng")
+    t_io.write_apng(path, [a, 255 - a])
+    im = Image.open(path)
+    assert im.n_frames == 2
+    for i, want in enumerate((a, 255 - a)):
+        im.seek(i)
+        np.testing.assert_array_equal(np.array(im.convert("RGB")), want)
+    np.testing.assert_array_equal(t_io.read_png(path), a)

@@ -144,11 +144,13 @@ import json, os, sys, tempfile
 import chip_smoke as cs
 from vqnerf_release_torch.data.shape_dataset import ShapeDataset
 from vqnerf_release_torch.models.decomp_common import DecompConfig
-from vqnerf_release_torch.pipelines.test_driver import run_test
+from vqnerf_release_torch.pipelines.test_driver import find_vq, run_test
+from vqnerf_release_torch.train.loop import train_nfr_unit, train_vq_nfr
 cfg = DecompConfig(light_h=2, num_embed=4, num_drop=2, z_dim=16,
-                   mlp_width=8, imh=16, thres_str="0.1;0.2")
+                   mlp_width=8, imh=16, thres_str="0.1;0.2", epochs=2,
+                   n_rays_per_step=16, total_sample_vq=64)
 with tempfile.TemporaryDirectory() as root:
-    p = cs.write_scene(root, 16, 2, cfg.light_h, 2, 3, 0)
+    p = cs.write_scene(root, 16, 2, cfg.light_h, 2, 3, 0, n_train=2)
     ref, vq = cs.build_models(cfg, 0, "cpu")
     ds = ShapeDataset(p["data_root"], p["surf_root"], imh=16, mode="test",
                       with_ref=True)
@@ -157,14 +159,30 @@ with tempfile.TemporaryDirectory() as root:
                     vali_epoch_dir=p["vali_dir"], data_root=p["data_root"],
                     scene_name="sphere", device="cpu")
     n = cs.check_outputs(out, cs.expected_files(cfg, p["env_dir"]), 2, 3)
-print(json.dumps({"n_vq": info["n_vq"], "arrays": n, "loaded": sorted(
-    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2"))}))
+
+    views = {}
+    for mode in ("train", "vali"):
+        sd = ShapeDataset(p["data_root"], p["surf_root"], imh=16, mode=mode)
+        views[mode] = [sd.load_view(f) for f in sd.files]
+    nfr, h1 = train_nfr_unit(cfg, views["train"], views["vali"][:1],
+                             os.path.join(root, "nfr"), epochs=1,
+                             device="cpu")
+    _, ema, h2 = train_vq_nfr(cfg, nfr, views["train"], views["vali"][:1],
+                              os.path.join(root, "vq"), epochs=1,
+                              device="cpu")
+    k = find_vq(os.path.join(root, "vq", "vis_vali", "epoch000000001"))
+print(json.dumps({"n_vq": info["n_vq"], "arrays": n, "trained_k": k,
+                  "steps": int(ema.counter), "losses": h1 + h2,
+                  "loaded": sorted(
+    m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "cv2", "optax", "orbax", "vqnerf_release_tpu"))}))
 """
 
 
 def test_port_runs_without_jax_or_cv2():
     """A tiny CPU run_test through the port, from chip_smoke's own scene
-    writer and model builder, loads neither jax nor cv2."""
+    writer and ``build_models``, and a 1-epoch CPU training of nfr_unit and
+    vq_nfr, load neither jax nor cv2 nor any module of the JAX package."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -173,3 +191,28 @@ def test_port_runs_without_jax_or_cv2():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["loaded"] == []
     assert result["n_vq"] == 3 and result["arrays"] > 0
+    assert result["steps"] == 2 and 2 <= result["trained_k"] <= 4
+    assert len(result["losses"]) == 2 and np.isfinite(result["losses"]).all()
+
+
+def test_port_sources_do_not_import_the_jax_package():
+    """No file of the port, nor chip_smoke.py, has an import of jax, optax,
+    orbax, cv2 or the JAX package."""
+    import ast
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(REPO, "vqnerf_release_torch")):
+        paths += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(paths) > 30
+    banned = {"jax", "jaxlib", "optax", "orbax", "cv2", "vqnerf_release_tpu"}
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            bad = [m for m in mods if m.split(".")[0] in banned]
+            assert not bad, f"{path} imports {bad}"

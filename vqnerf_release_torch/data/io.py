@@ -8,8 +8,9 @@ vqnerf_release_tpu/data/io.py, which reads and writes through cv2).
     a flat writer, with OpenCV's RGBE conversion (rgbe.c: value =
     mantissa * 2^(exponent - 136), no half-step offset).
   * ``resize``: the same size passes through; an integer-factor
-    downscale is a block mean, which is what cv2.INTER_AREA gives there.
-    Other factors raise NotImplementedError.
+    downscale is a block mean, which is what cv2.INTER_AREA gives there; a
+    float image is upscaled bilinearly, as cv2.INTER_LINEAR does. Other
+    cases raise NotImplementedError.
 """
 
 import glob
@@ -21,9 +22,10 @@ import zlib
 import numpy as np
 
 __all__ = [
-    "read_png", "write_png", "load_img_f32", "write_img", "read_hdr",
-    "write_hdr", "read_envmap", "resize", "alpha_blend", "read_json",
-    "write_json", "sortglob",
+    "read_png", "write_png", "write_apng", "load_img_f32", "write_img",
+    "read_hdr",
+    "write_hdr", "read_envmap", "resize", "vis_light", "alpha_blend",
+    "read_json", "write_json", "sortglob",
 ]
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
@@ -125,31 +127,62 @@ def read_png(path):
     return img[..., 0] if ch == 1 else img
 
 
-def write_png(path, img):
-    """uint8 or uint16 [H, W] or [H, W, C] (C in 1-4, RGB order) -> PNG."""
+def _png_chunk(kind, data):
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def _png_parts(img, what):
+    """(IHDR chunk, zlib stream of the filter-0 scanlines, (w, h))."""
     img = np.asarray(img)
     if img.dtype not in (np.uint8, np.uint16):
-        raise ValueError(f"write_png takes uint8 or uint16, got {img.dtype}")
+        raise ValueError(f"{what} takes uint8 or uint16, got {img.dtype}")
     if img.ndim == 2:
         img = img[..., None]
     h, w, ch = img.shape
     if ch not in _PNG_COLOR_TYPE:
-        raise ValueError(f"write_png takes 1-4 channels, got {ch}")
+        raise ValueError(f"{what} takes 1-4 channels, got {ch}")
     depth = 8 * img.dtype.itemsize
     body = img.astype(img.dtype.newbyteorder(">")).tobytes()
     stride = w * ch * img.dtype.itemsize
     rows = np.frombuffer(body, np.uint8).reshape(h, stride)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
-
-    def chunk(kind, data):
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
     ihdr = struct.pack(">IIBBBBB", w, h, depth, _PNG_COLOR_TYPE[ch], 0, 0, 0)
+    return (_png_chunk(b"IHDR", ihdr), zlib.compress(raw.tobytes(), 6),
+            (w, h))
+
+
+def write_png(path, img):
+    """uint8 or uint16 [H, W] or [H, W, C] (C in 1-4, RGB order) -> PNG."""
+    ihdr, data, _ = _png_parts(img, "write_png")
     with open(path, "wb") as f:
-        f.write(_PNG_SIG + chunk(b"IHDR", ihdr)
-                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                + chunk(b"IEND", b""))
+        f.write(_PNG_SIG + ihdr + _png_chunk(b"IDAT", data)
+                + _png_chunk(b"IEND", b""))
+
+
+def write_apng(path, frames, duration_ms=1000):
+    """Frames of one shape and dtype -> an animated PNG that loops forever;
+    the first frame is also the still image."""
+    parts = [_png_parts(f, "write_apng") for f in frames]
+    ihdr, _, (w, h) = parts[0]
+    if any(p[0] != ihdr for p in parts):
+        raise ValueError("write_apng: frames differ in shape or dtype")
+    out = [_PNG_SIG, ihdr,
+           _png_chunk(b"acTL", struct.pack(">II", len(parts), 0))]
+    seq = 0
+    for i, (_, data, _) in enumerate(parts):
+        out.append(_png_chunk(b"fcTL", struct.pack(
+            ">IIIIIHHBB", seq, w, h, 0, 0, duration_ms, 1000, 0, 0)))
+        seq += 1
+        if i == 0:
+            out.append(_png_chunk(b"IDAT", data))
+        else:
+            out.append(_png_chunk(b"fdAT", struct.pack(">I", seq) + data))
+            seq += 1
+    out.append(_png_chunk(b"IEND", b""))
+    os.makedirs(os.path.dirname(str(path)) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
 
 
 def load_img_f32(path):
@@ -271,9 +304,27 @@ def read_envmap(path, new_h=None):
 # ---------------------------------------------------------------------------
 
 
+def _bilinear_axis(img, new_n, axis):
+    """Linear interpolation along one axis with pixel centres at half
+    integers and the border replicated (cv2.INTER_LINEAR)."""
+    n = img.shape[axis]
+    src = (np.arange(new_n, dtype=np.float64) + 0.5) * (n / new_n) - 0.5
+    lo = np.floor(src).astype(np.int64)
+    frac = (src - lo).astype(np.float32)
+    frac[lo < 0] = 0.0
+    i0 = np.clip(lo, 0, n - 1)
+    i1 = np.clip(lo + 1, 0, n - 1)
+    shape = [1] * img.ndim
+    shape[axis] = new_n
+    frac = frac.reshape(shape)
+    return (np.take(img, i0, axis=axis) * (1.0 - frac)
+            + np.take(img, i1, axis=axis) * frac)
+
+
 def resize(img, new_h=None, new_w=None):
     """Passthrough at the same size; integer-factor area downscale (block
-    mean, as cv2.INTER_AREA). Any other factor raises."""
+    mean, as cv2.INTER_AREA); bilinear upscale of float images (as
+    cv2.INTER_LINEAR). Any other case raises."""
     h, w = img.shape[:2]
     if new_h is not None and new_w is None:
         new_w = int(w / h * new_h)
@@ -281,18 +332,35 @@ def resize(img, new_h=None, new_w=None):
         new_h = int(h / w * new_w)
     if (new_h, new_w) == (h, w):
         return img
+    img = np.asarray(img)
+    if new_h >= h and new_w >= w and np.issubdtype(img.dtype, np.floating):
+        out = _bilinear_axis(img.astype(np.float32), new_w, 1)
+        return _bilinear_axis(out, new_h, 0).astype(img.dtype)
     if new_h > h or new_w > w or h % new_h or w % new_w:
         raise NotImplementedError(
             f"resize {h}x{w} -> {new_h}x{new_w}: only integer-factor "
-            "downscales are ported (a cv2-equal general resize is later "
-            "work)")
+            "downscales and float upscales are ported (a cv2-equal general "
+            "resize is later work)")
     fy, fx = h // new_h, w // new_w
-    img = np.asarray(img)
     blocks = img.reshape((new_h, fy, new_w, fx) + img.shape[2:])
     out = blocks.astype(np.float64).mean(axis=(1, 3))
     if np.issubdtype(img.dtype, np.integer):
         return np.round(out).astype(img.dtype)
     return out.astype(img.dtype)
+
+
+def vis_light(light, outpath=None, h=None):
+    """Tonemap an HDR envmap for viewing: clip by the max, gamma 1/2.2, to
+    uint8; optionally resized to height h and written to outpath."""
+    light = np.asarray(light, np.float32)
+    if h is not None and light.shape[0] != h:
+        light = resize(light, new_h=h)
+    maxv = max(float(light.max()), 1e-8)
+    tonemapped = np.power(np.clip(light / maxv, 0, 1), 1.0 / 2.2)
+    img = (tonemapped * 255).astype(np.uint8)
+    if outpath is not None:
+        write_img(img, outpath)
+    return img
 
 
 def alpha_blend(fg, alpha, bg):

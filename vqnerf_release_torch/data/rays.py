@@ -1,0 +1,95 @@
+"""Camera rays for stage 2's two camera conventions (the port's own copy of
+what it uses from vqnerf_release_tpu/data/rays.py, numpy only; tests hold the
+two bit for bit).
+
+  * NeRF convention (c2w + fov): pixel directions ((x-cx)/f, -(y-cy)/f, -1)
+    rotated into world; stage 2 leaves them unnormalized.
+  * DTU convention (world/scale projection matrices): P = world_mat @
+    scale_mat decomposed into K and c2w; directions are K^-1 pixel,
+    normalized in camera space, then rotated.
+"""
+
+import numpy as np
+
+__all__ = ["nerf_rays", "dtu_rays", "decompose_projection"]
+
+
+def nerf_rays(c2w, cam_angle_x, imh, imw, cx=None, cy=None, normalize=False):
+    """Rays for the NeRF/Blender convention.
+
+    c2w: [4,4]; cam_angle_x: horizontal FOV. Returns (rayo [h,w,3],
+    rayd [h,w,3]). ``normalize=True`` matches stage 1 (nerfset.py:105);
+    stage 2 leaves directions unnormalized (shape_unit.py:290-291).
+    """
+    c2w = np.asarray(c2w, np.float64)
+    fl = 0.5 * imw / np.tan(0.5 * cam_angle_x)
+    if cx is None:
+        cx = 0.5 * imw
+    if cy is None:
+        cy = 0.5 * imh
+    xs, ys = np.meshgrid(
+        np.arange(imw, dtype=np.float64), np.arange(imh, dtype=np.float64))
+    dirs = np.stack(
+        ((xs - cx) / fl, -(ys - cy) / fl, -np.ones_like(xs)), axis=-1)
+    rayd = np.einsum("hwk,rk->hwr", dirs, c2w[:3, :3])
+    if normalize:
+        rayd = rayd / np.linalg.norm(rayd, axis=-1, keepdims=True)
+    rayo = np.broadcast_to(c2w[:3, 3], rayd.shape).copy()
+    return rayo.astype(np.float32), rayd.astype(np.float32)
+
+
+def decompose_projection(P):
+    """K, c2w from a 3x4 projection matrix (shape_unit.py:295-312).
+
+    Pure-numpy RQ decomposition replacing cv2.decomposeProjectionMatrix:
+    P[:, :3] = K R where K is upper-triangular with positive diagonal and R
+    is a rotation; camera center c solves P [c;1] = 0.
+    """
+    P = np.asarray(P, np.float64)
+    M = P[:3, :3]
+    # RQ decomposition via QR of the flipped transpose
+    flip = np.flipud(np.eye(3))
+    q, r = np.linalg.qr((flip @ M).T)
+    K = flip @ r.T @ flip
+    R = flip @ q.T
+    # enforce positive diagonal on K
+    signs = np.sign(np.diag(K))
+    signs[signs == 0] = 1
+    K = K * signs[None, :]
+    R = R * signs[:, None]
+    if np.linalg.det(R) < 0:
+        K, R = -K, -R
+    K = K / K[2, 2]
+    # camera center: -M^-1 p4
+    c = -np.linalg.inv(M) @ P[:3, 3]
+    intrinsics = np.eye(4)
+    intrinsics[:3, :3] = K
+    pose = np.eye(4)
+    pose[:3, :3] = R.T
+    pose[:3, 3] = c
+    return intrinsics, pose
+
+
+def dtu_rays(world_mat, scale_mat, imh_meta, imw_meta, imh, cx_scale=None):
+    """Rays for the DTU projection-matrix convention (shape_unit.py:158-171).
+
+    The metadata image size (imh_meta, imw_meta) is rescaled to target imh;
+    intrinsics rows 0:2 scale with k = imh / imh_meta.
+    Returns (rayo [h,w,3], rayd [h,w,3]) with camera-space-normalized dirs.
+    """
+    k = imh / imh_meta
+    imw = int(k * imw_meta)
+    P = (np.asarray(world_mat) @ np.asarray(scale_mat))[0:3, 0:4]
+    intrinsic, c2w = decompose_projection(P)
+    intrinsic = intrinsic.copy()
+    intrinsic[:2, :3] *= k
+    intrinsic_inv = np.linalg.inv(intrinsic)
+
+    xs, ys = np.meshgrid(
+        np.arange(imw, dtype=np.float64), np.arange(imh, dtype=np.float64))
+    p = np.stack((xs, ys, np.ones_like(xs)), axis=-1)
+    p = np.einsum("rk,hwk->hwr", intrinsic_inv[:3, :3], p)
+    rayd = p / np.linalg.norm(p, axis=-1, keepdims=True)
+    rayd = np.einsum("rk,hwk->hwr", c2w[:3, :3], rayd)
+    rayo = np.broadcast_to(c2w[:3, 3], rayd.shape).copy()
+    return rayo.astype(np.float32), rayd.astype(np.float32)

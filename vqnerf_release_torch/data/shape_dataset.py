@@ -7,7 +7,7 @@ Each view is loaded whole into host numpy arrays with the same fixes as the
 JAX loader: collapsed xyz moved 0.1 along the ray, zero normals set to
 (0, 1, 0) and renormalized, RGB alpha-blended onto the background, and in
 test mode the ground-truth alpha replaced by the predicted one. Rays come
-from the JAX package's numpy-only ``data/rays.py``.
+from the port's own ``data/rays.py``.
 """
 
 import glob
@@ -18,7 +18,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from vqnerf_release_tpu.data import rays as vrays  # numpy only
+from . import rays as vrays
 
 from . import io as vio
 

@@ -1,5 +1,6 @@
-"""Convert between the JAX package's parameter pytrees and the port's
-modules, for ``nfr_unit``, ``vq_nfr`` and ``ref_nfr``.
+"""Convert between the JAX package's pytrees and the port's state: the
+parameters of ``nfr_unit``, ``vq_nfr`` and ``ref_nfr``, the VQ EMA state,
+and the amsgrad optimizer state.
 
 A pytree here is what the JAX ``init_*`` functions return, held as nested
 dicts and lists of numpy arrays (``jax.tree_util.tree_map(np.asarray, p)``):
@@ -7,7 +8,14 @@ a skip-MLP is a list of {"w": [d_in, d_out], "b": [d_out]} dicts, every
 other leaf is an array. ``nn.Linear`` stores its weight [d_out, d_in]; the
 transposes happen here and nowhere else. The activations and skips of each
 MLP are fixed by the model and named in ``_MLPS``.
+
+The JAX optimizer state is {"count", "m", "v", "vhat"} with one tree like
+the parameters under each of the last three (clipnorm and clipvalue off, as
+shipped). The port's ``KerasAmsgrad`` keeps each as one flat vector in the
+order of ``model.parameters()``, so the conversions take the model.
 """
+
+import copy
 
 import numpy as np
 import torch
@@ -17,8 +25,10 @@ from ..models.nfr_unit import NfrUnit
 from ..models.ref_nfr import RGB_ENC_ACTS, RefNfr
 from ..models.vq_nfr import VqNfr
 from ..ops.nn import SkipMLP
+from ..ops.vq import VqEmaState
 
-__all__ = ["from_jax", "to_jax"]
+__all__ = ["from_jax", "to_jax", "ema_from_jax", "ema_to_jax",
+           "opt_state_from_jax", "opt_state_to_jax"]
 
 _ENC = {"fine_enc": (dc.ENC_ACTS, dc.ENC_SKIP),
         "bottleneck": (dc.BOTTLENECK_ACTS, ())}
@@ -91,3 +101,49 @@ def to_jax(module, kind):
         return {"frozen": _parts_to_jax(module.frozen),
                 "train": _parts_to_jax(module.trainable)}
     raise ValueError(f"unknown kind {kind!r}")
+
+
+def ema_from_jax(state):
+    """JAX VqEmaState (hidden_cluster_size, hidden_dw, counter) -> the
+    port's, on the CPU."""
+    hcs, hdw, counter = state
+    return VqEmaState(
+        torch.as_tensor(np.array(hcs, np.float32)),
+        torch.as_tensor(np.array(hdw, np.float32)),
+        torch.as_tensor(np.array(counter, np.int32)))
+
+
+def ema_to_jax(state):
+    """The port's VqEmaState -> {field: numpy array}, the keyword arguments
+    of the JAX VqEmaState."""
+    return {name: t.detach().cpu().numpy().copy()
+            for name, t in zip(VqEmaState._fields, state)}
+
+
+@torch.no_grad()
+def opt_state_from_jax(state, model, kind):
+    """JAX amsgrad state -> ``KerasAmsgrad.state`` for ``model`` (tensors on
+    the model's device)."""
+    device = next(model.parameters()).device
+    out = {"count": torch.as_tensor(np.array(state["count"], np.int32),
+                                    device=device)}
+    for key in ("m", "v", "vhat"):
+        by_name = dict(from_jax(state[key], kind).named_parameters())
+        out[key] = torch.cat([by_name[name].reshape(-1)
+                              for name, _ in model.named_parameters()]
+                             ).to(device)
+    return out
+
+
+@torch.no_grad()
+def opt_state_to_jax(state, model, kind):
+    """``KerasAmsgrad.state`` of ``model`` -> the JAX amsgrad state, numpy
+    leaves."""
+    out = {"count": state["count"].cpu().numpy().copy()}
+    sizes = [p.numel() for p in model.parameters()]
+    for key in ("m", "v", "vhat"):
+        holder = copy.deepcopy(model)
+        for p, flat in zip(holder.parameters(), state[key].split(sizes)):
+            p.copy_(flat.view_as(p))
+        out[key] = to_jax(holder, kind)
+    return out

@@ -3,9 +3,8 @@ wrapper, and its plain PyTorch twin.
 
 The kernel (``csrc/render_kernel.cu``) replaces the Pallas TPU kernel
 ``vqnerf_release_tpu/ops/pallas/render_kernel.py::fused_brdf_render``.
-It is compiled by ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface, at first use, into ``vqnerf_release_torch/_build/``
-under a name keyed by a hash of the source, and bound with ``ctypes``.
+``kernels/build.py`` compiles it with ``nvcc`` for ``sm_90a`` at first use
+and binds it with ``ctypes``.
 
 ``fused_brdf_render`` takes the plain twin ``fused_brdf_render_reference``
 only for CPU tensors. For CUDA tensors it launches the kernel or raises.
@@ -13,77 +12,39 @@ only for CPU tensors. For CUDA tensors it launches the kernel or raises.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "build", "pack_lights", "fused_brdf_render",
+from . import build as kbuild
+
+__all__ = ["LAUNCHES", "SOURCE", "build", "pack_lights", "fused_brdf_render",
            "fused_brdf_render_reference"]
 
 LAUNCHES = 0
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "render_kernel.cu"
-BUILD_DIR = _PKG / "_build"
+SOURCE = kbuild.CSRC_DIR / "render_kernel.cu"
 # the light table [8, L] must fit the default 48 KB of dynamic shared memory
 MAX_LIGHTS = 48 * 1024 // (8 * 4)
 
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v"]
+# without FMA contraction, so that the kernel rounds as its plain twin does
+_EXTRA_FLAGS = ("-fmad=false",)
 
 _lib = None
 
 
-def _nvcc():
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    path = shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the "
-            "fused render kernel needs the CUDA toolkit to build")
-    return path
-
-
 def build():
-    """Compile the kernel unless the library of this source and these flags
-    exists.
-
-    Returns (path of the .so, compiler output; empty if nothing was
-    built). Raises RuntimeError with nvcc's output if the build fails."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"librender_{key.hexdigest()[:16]}.so"
-    if so.exists():
-        return so, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, so)
-    return so, log
+    """Compile the kernel unless its library exists; see ``build.build``."""
+    return kbuild.build(SOURCE, "render", _EXTRA_FLAGS)
 
 
 def _library():
     global _lib
     if _lib is None:
         so, _ = build()
-        lib = ctypes.CDLL(str(so))
-        fn = lib.fused_brdf_render_launch
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = kbuild.load(so, {"fused_brdf_render_launch":
+                                [ctypes.c_void_p] * 9
+                                + [ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p]})
     return _lib
 
 
@@ -156,18 +117,6 @@ def fused_brdf_render_reference(xyz, normal, surf2c, albedo, rough, f0, lvis,
     return torch.stack(out, dim=1)
 
 
-def _check(name, t, shape):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got "
-                         f"{tuple(t.shape)}")
-
-
 def fused_brdf_render(xyz, normal, surf2c, albedo, rough, f0, lvis,
                       lights_packed):
     """Fused render; returns pre-gamma rgb [N, 3].
@@ -191,12 +140,9 @@ def fused_brdf_render(xyz, normal, surf2c, albedo, rough, f0, lvis,
             ("surf2c", surf2c, (n, 3)), ("albedo", albedo, (n, 3)),
             ("rough", rough, (n, 1)), ("f0", f0, (n, 3)),
             ("lights_packed", lights_packed, (8, l))):
-        _check(name, t, shape)
+        kbuild.check_tensor(name, t, shape, torch.float32, xyz.device)
     if lvis is not None:
-        _check("lvis", lvis, (n, l))
-    for t in (normal, surf2c, albedo, rough, f0, lvis, lights_packed):
-        if t is not None and t.device != xyz.device:
-            raise ValueError(f"inputs on {xyz.device} and {t.device}")
+        kbuild.check_tensor("lvis", lvis, (n, l), torch.float32, xyz.device)
     out = torch.empty((n, 3), dtype=torch.float32, device=xyz.device)
     if n == 0:
         return out

@@ -14,17 +14,19 @@ parameter pytree (``fine_enc``, ``bottleneck``, heads, ``light``,
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
-from vqnerf_release_tpu.ops.light import gen_light_xyz  # numpy only
+from ..ops.light import gen_light_xyz
 
 from ..ops.embed import posenc, posenc_dim
 from ..ops.math import clip_preserve_gradient, safe_l2_normalize
 from ..ops.nn import SkipMLP, mlp_init
 
 __all__ = [
-    "DecompConfig", "ParamModule", "fused_render_enabled", "light_constants",
+    "DecompConfig", "ParamModule", "fused_render_enabled",
+    "fused_vq_enabled", "light_constants",
     "init_encoder", "init_head", "apply_encoder",
     "calc_ldir", "calc_vdir", "normal_correct",
     "get_light", "get_gamma", "get_codebook",
@@ -75,10 +77,17 @@ class DecompConfig:
     # through the fused CUDA kernel (kernels/render.py). None = auto: on
     # when the tensors are on CUDA, off on the CPU.
     use_fused_render: Optional[bool] = None
-    # The remaining fields steer the JAX package's training paths; the port
-    # keeps them so that configs convert field for field.
+    # Training: route VQ assignment, EMA statistics and the codebook update
+    # through the fused CUDA kernel (kernels/vq.py). None = auto: on when
+    # the tensors are on CUDA, off on the CPU.
     use_fused_vq: Optional[bool] = None
+    # 'auto' stages all train views on the device once when they fit the
+    # memory budget (data/device_store.py) and ships only ray indices per
+    # step; 'on' forces staging, 'off' gathers every batch on the host.
     device_views: str = "auto"
+    # The remaining fields steer the JAX package's scanned-epoch dispatch,
+    # which the port does not have; it keeps them so that configs convert
+    # field for field, and the trainers ignore them with a notice.
     epoch_scan: Optional[bool] = None
     epoch_scan_chunk: Optional[int] = None
     device_sampling: bool = False
@@ -95,12 +104,44 @@ class DecompConfig:
     def n_lights(self) -> int:
         return self.light_h * 2 * self.light_h
 
+    def train_thres(self):
+        """Per-code dropout thresholds used in training: 0 for the codes
+        that are never dropped, then thres_str's values."""
+        makeups = [0.0] * (self.num_embed - self.num_drop)
+        if self.thres_str != "-":
+            out = np.array(
+                makeups + [float(x) for x in self.thres_str.split(";")],
+                np.float32)
+        else:
+            out = np.array(makeups, np.float32)
+        assert out.shape[0] == self.num_embed, (
+            "thres_str must supply num_drop thresholds "
+            f"(got {out.shape[0]} != num_embed {self.num_embed})")
+        return out
+
+    def val_thres_list(self):
+        """Deterministic keep-first-k masks, from the fewest codes to all
+        codes."""
+        lst = [
+            np.array([0.0] * (self.num_embed - i) + [1.0] * i, np.float32)
+            for i in range(self.num_drop + 1)
+        ]
+        lst.reverse()
+        return lst
+
 
 def fused_render_enabled(cfg: DecompConfig, device: torch.device) -> bool:
     """Resolve use_fused_render: None -> on for CUDA tensors only."""
     if cfg.use_fused_render is None:
         return device.type == "cuda"
     return bool(cfg.use_fused_render)
+
+
+def fused_vq_enabled(cfg: DecompConfig, device: torch.device) -> bool:
+    """Resolve use_fused_vq: None -> on for CUDA tensors only."""
+    if cfg.use_fused_vq is None:
+        return device.type == "cuda"
+    return bool(cfg.use_fused_vq)
 
 
 def light_constants(cfg: DecompConfig, device):

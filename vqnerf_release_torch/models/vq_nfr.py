@@ -1,22 +1,31 @@
-"""vq_nfr: BRDF decomposition with a VQ material codebook (counterpart of
-vqnerf_release_tpu/models/vq_nfr.py), inference side: init, encode, the
-fast render with edits, albedo scale and probe/OLAT relighting, and the
-segmentation embed. Training comes with the trainer port.
+"""vq_nfr: BRDF decomposition with an EMA vector-quantised material codebook
+(counterpart of vqnerf_release_tpu/models/vq_nfr.py).
+
+  * two decode paths: the continuous heads inherited from nfr_unit on
+    z_enc, and fresh *_vq heads on the quantised z;
+  * the codebook is read clipped to [0, 1] and column-normalised; its EMA
+    update is assigned to the raw parameter outside the gradients;
+  * the training loss: combine-weighted RGB, vq RGB, commitment,
+    chromaticity, chroma-gated smoothness over jitter pairs, the codebook's
+    log-min-distance term and the Lambert prior;
+  * the fast render with edits, albedo scale and probe/OLAT relighting,
+    the segmentation embed, and the drop-loss pass ``vq_test``.
 """
 
 import copy
 
 import torch
 
-from ..ops.colorspace import linear2srgb
-from ..ops.math import safe_l2_normalize
+from ..ops.colorspace import linear2srgb, srgb2linear
+from ..ops.math import (clip_preserve_gradient, rgb2chromaticity,
+                        safe_l2_normalize)
 from ..ops.microfacet import microfacet_brdf
 from ..ops.render import fused_render_equation, render_equation
-from ..ops.vq import init_vq_ema_state, vq_lookup
+from ..ops.vq import init_vq_ema_state, vq_ema_apply, vq_lookup
 from . import decomp_common as dc
 
-__all__ = ["VqNfr", "init_vq_nfr", "vq_encode", "vq_fast_render",
-           "vq_fast_embed"]
+__all__ = ["VqNfr", "init_vq_nfr", "vq_encode", "vq_nfr_forward",
+           "vq_nfr_loss", "vq_fast_render", "vq_fast_embed", "vq_test"]
 
 
 class VqNfr(dc.ParamModule):
@@ -58,6 +67,11 @@ def _decode_main(model, z, cfg):
     return basecolor, ks, rough, ks * basecolor, (1.0 - ks) * basecolor
 
 
+def _decode_vq(model, z_vq, cfg):
+    vq_albedo = cfg.albedo_slope * model.diff_vq(z_vq) + cfg.albedo_bias
+    return vq_albedo, model.spec_vq(z_vq), model.rough_vq(z_vq)
+
+
 def _geom(batch, cfg, lxyz):
     mask = (batch["alpha"][:, 0] > 0).to(torch.float32)
     xyz, normal, rayo = batch["xyz"], batch["normal"], batch["rayo"]
@@ -72,6 +86,195 @@ def vq_encode(model, xyz, cfg):
     """xyz -> (z_enc, z_norm)."""
     z_enc = dc.apply_encoder(model, xyz, cfg)
     return z_enc, safe_l2_normalize(z_enc, axis=1)
+
+
+def vq_nfr_forward(model, ema_state, batch, cfg: dc.DecompConfig, lxyz,
+                   lareas, mode="train", thres=None, rng=None, roll=None):
+    """Training/validation forward.
+
+    Returns (pred, aux, new_ema_state). In training mode
+    ``aux["codebook_update"]`` holds the EMA-updated raw codebook; the
+    caller assigns it to the model AFTER the gradient step. rng: a
+    torch.Generator on the batch's device for the code dropout; roll:
+    explicit [1, K] uniforms in its place.
+    """
+    mask, xyz, surf2c, surf2l, normal_pred, lvis = _geom(batch, cfg, lxyz)
+    train = mode == "train"
+
+    z_enc, z_norm = vq_encode(model, xyz, cfg)
+    vq_outs, new_ema = vq_ema_apply(
+        dc.get_codebook(model), z_norm, ema_state,
+        commitment_cost=cfg.commitment_cost, decay=cfg.vq_decay,
+        is_training=train, thres=thres, rng=rng, mask=mask, roll=roll,
+        use_fused=train and dc.fused_vq_enabled(cfg, xyz.device))
+    z_vq = vq_outs["quantize"]
+    embed_ind = vq_outs["encoding_indices"] + 1  # 0 is the background
+
+    basecolor, ks, rough, spec, albedo = _decode_main(model, z_enc, cfg)
+    brdf, brdf_spec, brdf_diff = microfacet_brdf(
+        surf2l, surf2c, normal_pred, albedo=albedo, rough=rough, f0=spec)
+
+    light = dc.get_light(model)
+    gamma = None if cfg.is_nerf else dc.get_gamma(model)
+    rgb_pred = render_equation(
+        brdf, surf2l, normal_pred, lareas, light, light_vis=lvis, gamma=gamma)
+
+    vq_albedo, vq_spec, vq_rough = _decode_vq(model, z_vq, cfg)
+    vq_brdf, _, _ = microfacet_brdf(
+        surf2l, surf2c, normal_pred, albedo=vq_albedo, rough=vq_rough,
+        f0=vq_spec)
+    vq_rgb = render_equation(
+        vq_brdf, surf2l, normal_pred, lareas, light, light_vis=lvis,
+        gamma=gamma)
+
+    # masked per-code usage; the fused path returns counts in place of the
+    # [N, K] one-hot
+    if "counts" in vq_outs:
+        usage = vq_outs["counts"] > 0
+    else:
+        usage = torch.amax(vq_outs["encodings"], dim=0) > 0
+    aux = {
+        "mask": mask,
+        "rgb_gt": batch["rgb"],
+        "rgb_pred_linear": rgb_pred,
+        "vq_rgb_linear": vq_rgb,
+        "vq_loss": vq_outs["loss"],
+        "z_vq": z_vq,
+        "spec": spec,
+        "rough": rough,
+        "perplexity": vq_outs["perplexity"],
+        "usage": usage.to(torch.float32),
+    }
+    if train:
+        aux["codebook_update"] = vq_outs["update"]
+
+    m = mask[:, None]
+    pred = {
+        "rgb": (linear2srgb(rgb_pred) if cfg.is_nerf else rgb_pred) * m,
+        "normal": normal_pred * m,
+        "albedo": albedo * m,
+        "spec": spec * m,
+        "rough": rough * m,
+        "ks": ks * m,
+        "alpha": batch.get("pred_alpha", batch["alpha"]),
+        "embed": embed_ind.to(torch.int32) * mask.to(torch.int32),
+    }
+    if not train:
+        # the component renders stay linear, also for CG scenes
+        pred["rgb_diff"] = render_equation(
+            brdf_diff, surf2l, normal_pred, lareas, light, light_vis=lvis,
+            gamma=gamma) * m
+        pred["rgb_spec"] = render_equation(
+            brdf_spec, surf2l, normal_pred, lareas, light, light_vis=lvis,
+            gamma=gamma) * m
+        pred["vq_rgb"] = (linear2srgb(vq_rgb) if cfg.is_nerf else vq_rgb) * m
+        pred["vq_albedo"] = vq_albedo * m
+        pred["vq_spec"] = vq_spec * m
+        pred["vq_rough"] = vq_rough * m
+    return pred, aux, new_ema
+
+
+def _masked_mean(per_ray, mask):
+    return torch.sum(per_ray * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _mse(a, b):
+    return torch.mean((a - b) ** 2, dim=-1)
+
+
+def vq_nfr_loss(model, aux, cfg: dc.DecompConfig, mode="train"):
+    """The seven-term training loss, or the three-term validation loss;
+    returns (loss, loss dict)."""
+    mask = aux["mask"]
+    rgb_gt = aux["rgb_gt"]
+    rgb_pred = aux["rgb_pred_linear"]
+    vq_rgb = aux["vq_rgb_linear"]
+
+    if cfg.is_nerf:
+        linear_gt = srgb2linear(rgb_gt)
+        srgb_pred = linear2srgb(rgb_pred)
+    else:
+        linear_gt, srgb_pred = rgb_gt, rgb_pred
+
+    loss_dict = {}
+    if mode != "train":
+        # sRGB-domain reconstruction, vq reconstruction and chromaticity
+        loss_dict["rgb"] = _masked_mean(_mse(rgb_gt, srgb_pred), mask)
+        vq_srgb = linear2srgb(vq_rgb) if cfg.is_nerf else vq_rgb
+        loss_dict["vqrgb"] = _masked_mean(_mse(rgb_gt, vq_srgb), mask)
+        loss_dict["chromaticity"] = _masked_mean(
+            _mse(rgb2chromaticity(linear_gt), rgb2chromaticity(vq_rgb)), mask)
+        loss = (loss_dict["rgb"] + loss_dict["vqrgb"]
+                + loss_dict["chromaticity"])
+        loss_dict["loss"] = loss
+        return loss, loss_dict
+
+    loss_dict["rgb"] = cfg.combine_weight * _masked_mean(
+        _mse(linear_gt, rgb_pred), mask)
+    loss = loss_dict["rgb"]
+
+    loss_dict["vqrgb"] = _masked_mean(_mse(linear_gt, vq_rgb), mask)
+    loss = loss + loss_dict["vqrgb"]
+
+    loss_dict["vqloss"] = cfg.vq_loss_weight * aux["vq_loss"]
+    loss = loss + loss_dict["vqloss"]
+
+    if cfg.chromaticity_loss_weight > 0:
+        loss_dict["chromaticity"] = (
+            cfg.chromaticity_loss_weight * _masked_mean(
+                _mse(rgb2chromaticity(linear_gt), rgb2chromaticity(vq_rgb)),
+                mask))
+        loss = loss + loss_dict["chromaticity"]
+
+    # Chroma-gated smoothness over the jitter pairs [p, p_jit, p, p_jit,
+    # ...]; the GT chromaticity in the raw domain (sRGB for CG data).
+    if cfg.mat_sloss_weight > 0:
+        schr_gt = rgb2chromaticity(rgb_gt)
+        chr1, chr2 = schr_gt[::2], schr_gt[1::2]
+        chr_e = torch.sqrt(torch.sum(torch.square(chr1 - chr2), dim=-1))
+        chr_e = torch.where(chr_e > cfg.chr_thres, chr_e,
+                            torch.zeros_like(chr_e))
+        w_chr = torch.exp(-cfg.chr_alpha * chr_e)
+        z_vq = aux["z_vq"]
+        mat1, mat2 = z_vq[::2], z_vq[1::2]
+        pair_sl = w_chr * (1.0 - torch.sum(mat1 * mat2, dim=-1))
+        pair_mask = mask[::2] * mask[1::2]
+        loss_dict["chr_smooth"] = cfg.mat_sloss_weight * _masked_mean(
+            pair_sl, pair_mask)
+        loss = loss + loss_dict["chr_smooth"]
+
+    # Codebook anti-collapse: -log(min pairwise distance). The reference
+    # assigns the EMA update to the codebook DURING the forward, so this
+    # term reads the UPDATED codebook, and the optimizer then applies its
+    # gradient on top of that update. Both are kept: the term is evaluated
+    # at aux["codebook_update"] while its gradient goes to the raw codebook
+    # parameter.
+    if cfg.sim_loss_weight > 0:
+        raw_cb = model.codebook
+        if "codebook_update" in aux:
+            raw_cb = raw_cb + (aux["codebook_update"] - raw_cb).detach()
+        cb = clip_preserve_gradient(raw_cb, 0.0, 1.0)
+        codebook = safe_l2_normalize(cb, axis=0).T  # [K, D]
+        diff = codebook[:, None, :] - codebook[None, :, :]
+        dist = torch.sqrt(torch.sum(torch.square(diff), dim=-1) + 1e-12)
+        eye = torch.eye(cfg.num_embed, device=dist.device)
+        masked = dist * (1 - eye) + eye * torch.max(dist)
+        loss_dict["sim_smooth"] = cfg.sim_loss_weight * (
+            -torch.log(torch.min(masked)))
+        loss = loss + loss_dict["sim_smooth"]
+
+    # Lambert prior: penalise high spec where the (detached) rough is high
+    if cfg.lambert_weight > 0:
+        sg_rough = aux["rough"].detach()
+        sg_rough = torch.where(sg_rough < 0.5, torch.zeros_like(sg_rough),
+                               2.0 * sg_rough - 1.0)
+        lambert = torch.amax(aux["spec"], dim=-1) * sg_rough[:, 0]
+        loss_dict["lambert"] = cfg.lambert_weight * _masked_mean(
+            lambert, mask)
+        loss = loss + loss_dict["lambert"]
+
+    loss_dict["loss"] = loss
+    return loss, loss_dict
 
 
 def _edit(src, val, em):
@@ -169,3 +372,48 @@ def vq_fast_embed(model, batch, cfg: dc.DecompConfig, thres=None, rng=None):
     look = vq_lookup(dc.get_codebook(model), z_norm, thres=thres, rng=rng)
     embed = (look["encoding_indices"].to(torch.int32) + 1) * mask
     return {"embed": embed, "alpha": batch.get("pred_alpha", alpha)}
+
+
+def vq_test(model, batch, cfg: dc.DecompConfig, lxyz, lareas, thres=None,
+            rng=None, render_chunk=None):
+    """The drop-loss evaluation pass: render through the *vq heads* under a
+    code-dropout threshold; the caller computes the validation loss on the
+    result.
+
+    The VQ lookup is ONE call over all rows, because the dropout fill is
+    the largest distance of the call. The decode, BRDF and render after it
+    are per row and run in chunks of ``render_chunk`` rows (None: all at
+    once), with identical results.
+    """
+    alpha = batch["alpha"]
+    mask = (alpha[:, 0] > 0).to(torch.float32)
+    _, z_norm = vq_encode(model, batch["xyz"], cfg)
+    outs, _ = vq_ema_apply(
+        dc.get_codebook(model), z_norm,
+        init_vq_ema_state(cfg.z_dim, cfg.num_embed, z_norm.device),
+        commitment_cost=cfg.commitment_cost, is_training=False,
+        thres=thres, rng=rng, mask=mask)
+    z_vq = outs["quantize"]
+    light = dc.get_light(model)
+    gamma = None if cfg.is_nerf else dc.get_gamma(model)
+
+    n = z_vq.shape[0]
+    step = n if render_chunk is None else render_chunk
+    parts = []
+    for i in range(0, n, step):
+        chunk = {k: v[i:i + step] for k, v in batch.items()}
+        _, _, surf2c, surf2l, normal_pred, lvis = _geom(chunk, cfg, lxyz)
+        vq_albedo, vq_spec, vq_rough = _decode_vq(model, z_vq[i:i + step], cfg)
+        vq_brdf, _, _ = microfacet_brdf(
+            surf2l, surf2c, normal_pred, albedo=vq_albedo, rough=vq_rough,
+            f0=vq_spec)
+        parts.append(render_equation(
+            vq_brdf, surf2l, normal_pred, lareas, light, light_vis=lvis,
+            gamma=gamma))
+    usage = (torch.amax(outs["encodings"], dim=0) > 0).to(torch.float32)
+    return {
+        "mask": mask,
+        "rgb_gt": batch["rgb"],
+        "vq_rgb_linear": parts[0] if len(parts) == 1 else torch.cat(parts),
+        "usage": usage,
+    }

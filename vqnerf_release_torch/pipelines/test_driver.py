@@ -20,7 +20,7 @@ from os.path import basename, join
 import numpy as np
 import torch
 
-from vqnerf_release_tpu.ops.light import olat_envmaps  # numpy only
+from ..ops.light import olat_envmaps
 
 from ..data import io as vio
 from ..models import decomp_common as dc

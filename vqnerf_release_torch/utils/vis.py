@@ -1,12 +1,13 @@
 """Per-view output writers (counterpart of vis_view / vis_embed_map in
 vqnerf_release_tpu/utils/vis.py), without OpenCV.
 
-Writes, per view directory, the same files as the JAX writer in test mode:
+Writes, per view directory, the same files as the JAX writer:
 pred_rgb.png / gt_rgb.png (alpha-blended), pred_{albedo,spec,rough,ks,
 basecolor}.{png,npy}, pred_normal.png, pred_rgb_probes_<name>.png,
-pred_rgb_olat_<name>.png, embed_map.png with pred_embed.npy, and
-metadata.json. The validation-mode outputs (PSNR, flipbook, component
-renders, xyz and lvis maps) come with training.
+pred_rgb_olat_<name>.png, embed_map.png with pred_embed.npy, the linear
+component renders pred_rgb_{diff,spec}.{png,npy}, and metadata.json. In
+validation mode the metadata carries the PSNR and luma PSNR of pred_rgb
+against gt_rgb, and a two-frame pred-vs-gt_rgb.apng flipbook is written.
 """
 
 import os
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ..data import io as vio
+from ..eval.metrics import psnr, psnr_luma
 
 __all__ = ["EMBED_COLORS", "vis_embed_map", "vis_view"]
 
@@ -55,10 +57,6 @@ def vis_view(to_vis, hw, outdir, view_id, white_bg=True, mode="test",
              probe_names=None, olat_names=None, alpha_thres=0.8):
     """to_vis: dict of [N, ...] ray arrays or tensors keyed pred_*/gt_*.
     Returns the written images (uint8) by key."""
-    if mode not in ("test", "render"):
-        raise NotImplementedError(
-            f"vis_view(mode={mode!r}): the validation-mode metrics come "
-            "with the trainer port")
     h, w = hw
     os.makedirs(outdir, exist_ok=True)
     data = {}
@@ -100,8 +98,24 @@ def vis_view(to_vis, hw, outdir, view_id, white_bg=True, mode="test",
         elif k.endswith("embed"):
             np.save(join(outdir, k + ".npy"), v.astype(np.int16))
             img_dict[k] = vis_embed_map(v, join(outdir, "embed_map.png"))
+        elif k.endswith(("rgb_diff", "rgb_spec")):
+            np.save(join(outdir, k + ".npy"), v)
+            img = _blend(v, alpha, white_bg)
+            img_dict[k] = vio.write_img(img, join(outdir, k + ".png"))
+        elif k.endswith("xyz"):
+            np.save(join(outdir, k + ".npy"), v)
         elif k.endswith("alpha"):
             img_dict[k] = vio.write_img(v, join(outdir, k + ".png"))
+        elif k.endswith("lvis"):
+            img = _blend(np.mean(v, axis=2), alpha, white_bg)
+            img_dict[k] = vio.write_img(img, join(outdir, k + ".png"))
 
-    vio.write_json({"id": str(view_id)}, join(outdir, "metadata.json"))
+    metadata = {"id": str(view_id)}
+    if mode not in ("test", "render") and "gt_rgb" in img_dict \
+            and "pred_rgb" in img_dict:
+        gt, pred = img_dict["gt_rgb"], img_dict["pred_rgb"]
+        metadata["psnr"] = psnr(gt, pred)
+        metadata["psnr_luma"] = psnr_luma(gt, pred)
+        vio.write_apng(join(outdir, "pred-vs-gt_rgb.apng"), [gt, pred])
+    vio.write_json(metadata, join(outdir, "metadata.json"))
     return img_dict
