@@ -3,9 +3,13 @@
 
     python3 chip_smoke.py [--profile]
 
+(--profile adds torch.profiler tables of the training step and of the
+fast-vis shadow pass.)
+
 1. checks for a CUDA device and prints its name and power limit;
-2. builds both CUDA kernels from csrc/ (two nvcc processes side by side)
-   and prints the build time and ptxas' register and spill counts;
+2. builds the three CUDA sources of csrc/ (three nvcc processes side by
+   side; four kernels) and prints the build time and ptxas' register and
+   spill counts;
 3. writes a synthetic sphere scene in the reference layout to a temporary
    directory: 4 train and 2 val views of 512x512 rays with 512-light lvis,
    the vis_comps GT-albedo mirror and 16 probe .hdr files;
@@ -23,7 +27,22 @@
    main_<k> directory the training wrote, with the render kernel's launch
    count reset just before and read just after; every expected file exists,
    every written array is finite, embed ids lie in [0, n_vq];
-6. holds each kernel against its plain PyTorch version on the GPU, on
+6. EXTRACTS stage-1 geometry: writes a synthetic NeRF-convention scene
+   (transforms_{train,val}.json, 16-bit rgba.png, cameras on a circle of
+   radius 2 looking at the origin), takes init_neus(seed) at the default
+   NeuSConfig widths (SDF 39 -> 256x8 -> 257, colour net 4x256), whose
+   geometric init is a sphere of radius about 0.5, and runs the port's
+   extraction entry run_gen_geo on the GPU with the defaults a user gets:
+   sampler 64+64r4, 512 lights, fast_vis on, n_coarse 16, fast_vis_refine
+   64, vis_point_batch 64. The SDF kernels' launch counts are reset just
+   before and must both have risen just after. Checks: all 8 files of every
+   view, finite, lvis in [0, 1]; on foreground pixels |sdf(xyz)| small and
+   normals within a stated angle of xyz/|xyz|; lvis near 1 for front-lit,
+   non-grazing lights and exactly 0 for back-facing ones. Then, on a few
+   hundred foreground points x 512 lights, _lvis_full through the kernels
+   against _lvis_fast and against _lvis_full with use_fused_sdf=False, and
+   one neus_render with the up-sample chain through the kernel and without;
+7. holds each kernel against its plain PyTorch version on the GPU, on
    inputs taken from the trained model:
      fused_brdf_render: a 49,152-ray chunk of a view with lvis, and 1,000
        rays without lvis; rtol 2e-4, atol 1e-5 (a 512-term fp32 sum taken
@@ -37,16 +56,18 @@
        plain version FED THE KERNEL'S INDICES and evaluated in float64, at
        rtol 1e-5 / atol 1e-6 (float64 so that the error of the plain
        version's own 65,536-term fp32 matmul does not enter);
-7. times both kernels and their plain versions (CUDA events, median), one
+8. times all four kernels and their plain versions (CUDA events, median), one
    whole vq_nfr step with the kernel and with use_fused_vq=False (host
    clock around a synchronised step, median), and with --profile prints a
    torch.profiler table of a few steps;
-8. prints the pass times, peak device memory of training and of serving, a
-   {"kernels": [...]} line with both kernels, and as the last line
-   {"ok": true, "device": {...}}.
+9. prints the pass times, peak device memory of training, of serving and of
+   extraction, a {"kernels": [...]} line with all four kernels, and as the
+   last line {"ok": true, "device": {...}}.
 
 Cuts, all of scale and none of width: 4 train views and 1 validation view
-in place of a scene's 100 and 8, 2 epochs in place of 150, 2 served views.
+in place of a scene's 100 and 8, 2 epochs in place of 150, 2 served views;
+for the extraction 2 train views and 1 val view of 256x256 in place of a
+scene's 100 and 8 of 512x512 (or larger).
 
 Any failure raises and exits non-zero; without CUDA it exits 1 before doing
 anything.
@@ -69,11 +90,16 @@ from vqnerf_release_torch.data import io as vio
 from vqnerf_release_torch.data.device_store import DeviceViewStore
 from vqnerf_release_torch.data.shape_dataset import ShapeDataset
 from vqnerf_release_torch.kernels import render as render_kernel
+from vqnerf_release_torch.kernels import sdf as sdf_kernel
 from vqnerf_release_torch.kernels import vq as vq_kernel
 from vqnerf_release_torch.models import decomp_common as dc
-from vqnerf_release_torch.models import vq_nfr
+from vqnerf_release_torch.models import fields, vq_nfr
+from vqnerf_release_torch.models.neus import (NeuSConfig, init_neus,
+                                              neus_render)
 from vqnerf_release_torch.models.nfr_unit import init_nfr_unit
 from vqnerf_release_torch.models.ref_nfr import init_ref_nfr
+from vqnerf_release_torch.data.neus_dataset import NerfSceneDataset
+from vqnerf_release_torch.pipelines import gen_geo
 from vqnerf_release_torch.pipelines.test_driver import (_RAY_CHUNK, find_vq,
                                                          load_novel_lights,
                                                          run_test)
@@ -93,6 +119,27 @@ VQ_RTOL, VQ_ATOL = 1e-5, 1e-6  # vq_fused_train, stage (ii)
 VQ_TIE_GAP = 1e-5  # stage (i): rows whose two nearest codes are this close
 VQ_TIE_SHARE = 0.01
 RAGGED_N = 1000
+# stage-1 extraction: a CG scene's name (lvis is extracted for those), the
+# cuts of scale, and the tolerances of its checks
+GEO_SCENE = "lego_3072"
+GEO_IMH = 256
+GEO_TRAIN_VIEWS, GEO_VAL_VIEWS = 2, 1
+GEO_NEAR, GEO_FAR = 0.5, 3.5
+GEO_GT_RADIUS = 0.33  # silhouette of the train views' GT masks
+SDF_RTOL, SDF_ATOL = 1e-4, 1e-5  # SDF kernels against their plain versions
+SDF_AUTO_RTOL, SDF_AUTO_ATOL = 3e-3, 3e-4  # ... against autograd
+SDF_RAYS = 8192  # vis_point_batch 64 x light_tile 128
+SDF_RAGGED_N = 131072 + 77
+LVIS_POINTS = 300
+LVIS_KERNEL_ATOL = 2e-3  # lvis, kernel path against plain path
+LVIS_FAST_ATOL = 0.05  # lvis, fast against full (the JAX test's own gate)
+RENDER_FUSED_ATOL = 2e-3  # neus_render, up-sample chain fused against not
+# the untrained SDF renders soft (inv_s = exp(3) = 20), so its composited
+# surface point lies up to 0.12 inside the zero level and its normal up to
+# 23 degrees off radial at grazing pixels (measured on the CPU at 32x32)
+SURF_SDF_ATOL = 0.2  # |sdf(xyz)| on foreground pixels
+NORMAL_MAX_DEG = 35.0  # angle between normal.npy and xyz/|xyz|
+LIT_COS, LIT_MIN = 0.5, 0.9  # lights with cos > LIT_COS have lvis > LIT_MIN
 # peaks of one H100 SXM: HBM bytes/s, and fp32 operations/s outside the
 # tensor cores (both kernels are fp32 CUDA-core code)
 HBM_BYTES_PER_S = 3.35e12
@@ -236,13 +283,13 @@ def _time_ms(fn, reps=7):
     return float(np.median(times))
 
 
-def _compare(got, want, what):
+def _compare(got, want, what, rtol=RTOL, atol=ATOL):
     err = (got - want).abs()
-    bad = err > ATOL + RTOL * want.abs()
+    bad = err > atol + rtol * want.abs()
     if not torch.isfinite(got).all() or bad.any():
         raise AssertionError(
             f"{what}: {int(bad.sum())} of {got.numel()} values outside "
-            f"rtol={RTOL}, atol={ATOL}; max abs err {float(err.max())}")
+            f"rtol={rtol}, atol={atol}; max abs err {float(err.max())}")
     return float(err.max())
 
 
@@ -258,13 +305,15 @@ def kernel_inputs(vq, cfg, batch, lxyz, lareas):
 
 
 def build_kernels():
-    """Build both kernels, one nvcc process each, side by side."""
+    """Build the three sources, one nvcc process each, side by side."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         jobs = {"render": pool.submit(render_kernel.build),
-                "vq": pool.submit(vq_kernel.build)}
+                "vq": pool.submit(vq_kernel.build),
+                "sdf": pool.submit(sdf_kernel.build)}
         built = {name: job.result() for name, job in jobs.items()}
-    print("kernel builds: %.3f s for both" % (time.perf_counter() - t0))
+    print("kernel builds: %.3f s for all three sources"
+          % (time.perf_counter() - t0))
     for name, (so, log) in built.items():
         print("  %s -> %s" % (name, so.name))
         for line in log.splitlines():
@@ -651,6 +700,358 @@ def check_vq_kernel(trained, cfg, device):
     }
 
 
+def write_stage1_scene(root, imh, n_train, n_val, seed):
+    """A NeRF-convention stage-1 scene: transforms_{train,val}.json and a
+    16-bit rgba.png per view, cameras on a circle of radius 2 (height 0.3)
+    looking at the origin. The alpha channel is the silhouette of a sphere
+    of radius GEO_GT_RADIUS, inside the rendered silhouette of the
+    geometric-init SDF (whose soft density composites to a radius of about
+    0.38)."""
+    rs = np.random.default_rng(seed)
+    angle_x = 0.8
+    fl = 0.5 * imh / np.tan(0.5 * angle_x)
+    xs, ys = np.meshgrid(np.arange(imh, dtype=np.float64),
+                         np.arange(imh, dtype=np.float64))
+    dirs = np.stack(((xs - imh // 2) / fl, -(ys - imh // 2) / fl,
+                     -np.ones_like(xs)), axis=-1)
+    for mode, n in (("train", n_train), ("val", n_val)):
+        frames = []
+        for i in range(n):
+            ang = 2 * np.pi * (i + (0.5 if mode == "val" else 0.0)) / max(n, 1)
+            eye = np.array([2.0 * np.sin(ang), 0.3, 2.0 * np.cos(ang)])
+            fwd = -eye / np.linalg.norm(eye)
+            right = np.cross(fwd, [0.0, 1.0, 0.0])
+            right /= np.linalg.norm(right)
+            c2w = np.eye(4)
+            c2w[:3, 0], c2w[:3, 1] = right, np.cross(right, fwd)
+            c2w[:3, 2], c2w[:3, 3] = -fwd, eye
+            frames.append({"transform_matrix": c2w.tolist()})
+            rayd = dirs @ c2w[:3, :3].T
+            rayd /= np.linalg.norm(rayd, axis=-1, keepdims=True)
+            b = rayd @ eye
+            hit = b * b - (eye @ eye - GEO_GT_RADIUS**2) > 0
+            rgba = np.empty((imh, imh, 4))
+            rgba[..., :3] = np.where(hit[..., None], [0.8, 0.5, 0.3], 1.0) \
+                * (0.9 + 0.1 * rs.random((imh, imh, 1)))
+            rgba[..., 3] = hit
+            d = os.path.join(root, "%s_%03d" % (mode, i))
+            os.makedirs(d)
+            vio.write_png(os.path.join(d, "rgba.png"),
+                          (rgba * 65535).astype(np.uint16))
+        vio.write_json({"camera_angle_x": angle_x, "frames": frames},
+                       os.path.join(root, "transforms_%s.json" % mode))
+    return root
+
+
+def check_geo_view(view_dir, model, cfg, lxyz, gt_mask, device):
+    """The written buffers of one extracted view against the geometric-init
+    sphere; returns a dict of what was measured."""
+    for f in gen_geo.VIEW_FILES_CG:
+        if not os.path.exists(os.path.join(view_dir, f)):
+            raise AssertionError(f"missing {f} in {view_dir}")
+    xyz = np.load(os.path.join(view_dir, "xyz.npy"))
+    normal = np.load(os.path.join(view_dir, "normal.npy"))
+    lvis = np.load(os.path.join(view_dir, "lvis.npy"))
+    alpha = vio.read_png(os.path.join(view_dir, "alpha.png"))
+    for name, arr in (("xyz", xyz), ("normal", normal), ("lvis", lvis)):
+        if not np.isfinite(arr).all():
+            raise AssertionError(f"non-finite {name} in {view_dir}")
+    if lvis.shape != xyz.shape[:2] + (lxyz.shape[0],):
+        raise AssertionError(f"lvis shape {lvis.shape}")
+    if lvis.min() < 0.0 or lvis.max() > 1.0:
+        raise AssertionError("lvis outside [0, 1]")
+    fg = alpha > 0
+    if gt_mask is not None:  # lvis of a train view covers the GT mask
+        fg &= gt_mask > 0
+    if fg.sum() < 0.1 * fg.size:
+        raise AssertionError(f"only {int(fg.sum())} foreground pixels")
+    p = xyz[fg]
+    with torch.no_grad():
+        sdf = fields.sdf_only(model.sdf, torch.as_tensor(p, device=device),
+                              cfg.sdf).abs().cpu().numpy()
+    radial = p / np.linalg.norm(p, axis=-1, keepdims=True)
+    n = normal[fg]
+    deg = np.degrees(np.arccos(np.clip(np.sum(n * radial, -1), -1, 1)))
+    s2l = lxyz[None] - p[:, None]
+    s2l /= np.linalg.norm(s2l, axis=-1, keepdims=True)
+    cos = np.einsum("plk,pk->pl", s2l, n)
+    lv = lvis[fg]
+    lit = lv[cos > LIT_COS]
+    if sdf.max() > SURF_SDF_ATOL:
+        raise AssertionError(f"|sdf(xyz)| up to {sdf.max()} on foreground")
+    if deg.max() > NORMAL_MAX_DEG:
+        raise AssertionError(f"normals up to {deg.max()} deg off radial")
+    if lit.min() < LIT_MIN:
+        raise AssertionError(f"front-lit lvis down to {lit.min()}")
+    if (lv[cos < -1e-4] != 0).any():
+        raise AssertionError("lvis of a back-facing light is not 0")
+    return {"fg": int(fg.sum()), "sdf_max": float(sdf.max()),
+            "deg_max": float(deg.max()), "lit_min": float(lit.min()),
+            "radius_mean": float(np.linalg.norm(p, axis=-1).mean())}
+
+
+def extraction_phase(root, device, profile=False):
+    """Stage-1 geometry extraction through run_gen_geo, its checks, and the
+    lvis and render comparisons; returns what the kernel checks need."""
+    data_root = write_stage1_scene(
+        os.path.join(root, "stage1", GEO_SCENE), GEO_IMH, GEO_TRAIN_VIEWS,
+        GEO_VAL_VIEWS, SEED)
+    out_root = os.path.join(root, "stage1_out")
+    print("extraction cuts: %d train + %d val views of %dx%d; widths, the "
+          "64+64r4 sampler and the 512 lights are the defaults"
+          % (GEO_TRAIN_VIEWS, GEO_VAL_VIEWS, GEO_IMH, GEO_IMH))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in sdf_kernel.LAUNCHES:
+        sdf_kernel.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    done = gen_geo.run_gen_geo(GEO_SCENE, data_root, out_root, seed=SEED,
+                               near=GEO_NEAR, far=GEO_FAR, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(sdf_kernel.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"extraction launched {launches}")
+    if (len(done["train"]), len(done["val"])) != (GEO_TRAIN_VIEWS,
+                                                  GEO_VAL_VIEWS):
+        raise AssertionError(f"extracted {done}")
+
+    # the model and dataset that run_gen_geo built, rebuilt for the checks
+    cfg, tcfg, meta = gen_geo.vcfg.neus_configs_for_scene(
+        GEO_SCENE, n_samples=64, n_importance=64, up_sample_steps=4,
+        occ_res=0)
+    if cfg != NeuSConfig(perturb=cfg.perturb):
+        raise AssertionError(f"not the default NeuS widths: {cfg}")
+    model = init_neus(SEED, cfg).to(device)
+    ds = NerfSceneDataset(data_root, is_train=True, near=GEO_NEAR,
+                          far=GEO_FAR)
+    ex = gen_geo.GeoExtractor(model, cfg, ds, os.path.join(root, "unused"),
+                              fast_vis=True, device=device)
+    lxyz = ex.lxyz.cpu().numpy()
+    n_fg = 0
+    for mode in ("train", "val"):
+        for i, view_dir in enumerate(done[mode]):
+            gt = ds.masks[i][..., 0] if mode == "train" else None
+            got = check_geo_view(view_dir, model, cfg, lxyz, gt, device)
+            n_fg += got["fg"]
+            print("  %s: %s" % (os.path.basename(view_dir), got))
+    print("run_gen_geo: %.3f s for %d views (%.3f s a view), %d foreground "
+          "pixels x %d lights = %d shadow rays; kernel launches %s; peak "
+          "device memory %d bytes (%.3f GiB)"
+          % (seconds, GEO_TRAIN_VIEWS + GEO_VAL_VIEWS,
+             seconds / (GEO_TRAIN_VIEWS + GEO_VAL_VIEWS), n_fg, ex.n_lights,
+             n_fg * ex.n_lights, launches, peak, peak / 2**30))
+    print("  host-clock seconds by phase, each closed where the host waits "
+          "for the device: %s"
+          % {k: round(v, 3) for k, v in done["seconds"].items()})
+
+    # lvis on a few hundred foreground points: full through the kernels,
+    # fast, and full on the plain path
+    xyz = np.load(os.path.join(done["val"][0], "xyz.npy"))
+    normal = np.load(os.path.join(done["val"][0], "normal.npy"))
+    fg = vio.read_png(os.path.join(done["val"][0], "alpha.png")) > 0
+    pick = np.linspace(0, fg.sum() - 1, LVIS_POINTS).astype(np.int64)
+    surf_fg, normal_fg = xyz[fg][pick], normal[fg][pick]
+    before = dict(sdf_kernel.LAUNCHES)
+    t0 = time.perf_counter()
+    full = ex._lvis_full(surf_fg, normal_fg)
+    t_full = time.perf_counter() - t0
+    mid = dict(sdf_kernel.LAUNCHES)
+    t0 = time.perf_counter()
+    fast = ex._lvis_fast(surf_fg, normal_fg)
+    t_fast = time.perf_counter() - t0
+    ex_plain = gen_geo.GeoExtractor(
+        model, cfg, ds, os.path.join(root, "unused"), use_fused_sdf=False,
+        vis_point_batch=16, device=device)
+    after = dict(sdf_kernel.LAUNCHES)
+    t0 = time.perf_counter()
+    plain = ex_plain._lvis_full(surf_fg, normal_fg)
+    t_plain = time.perf_counter() - t0
+    if sdf_kernel.LAUNCHES != after:
+        raise AssertionError("use_fused_sdf=False launched an SDF kernel")
+    n_batches = -(-LVIS_POINTS // ex.vis_point_batch) * (ex.n_lights
+                                                         // ex.light_tile)
+    want = {"sdf_fwd": before["sdf_fwd"] + 4 * n_batches,
+            "sdf_fwdgrad": before["sdf_fwdgrad"] + n_batches}
+    if mid != want:
+        raise AssertionError(f"_lvis_full launched {mid}, expected {want}")
+    e_kernel = float(np.abs(full - plain).max())
+    e_fast = float(np.abs(fast - full).max())
+    print("lvis of %d points x %d lights: kernel path against plain path max "
+          "|diff| %.3e (tolerance %g); fast against full %.3e (tolerance "
+          "%g); %.3f s full with the kernels, %.3f s fast, %.3f s full on "
+          "the plain path"
+          % (LVIS_POINTS, ex.n_lights, e_kernel, LVIS_KERNEL_ATOL, e_fast,
+             LVIS_FAST_ATOL, t_full, t_fast, t_plain))
+    print("  last_fast_vis_stats:", ex.last_fast_vis_stats)
+    if e_kernel > LVIS_KERNEL_ATOL or e_fast > LVIS_FAST_ATOL:
+        raise AssertionError("lvis paths disagree")
+
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ex._lvis_fast(surf_fg, normal_fg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        averages = prof.key_averages()
+        print("profile of _lvis_fast on %d points x %d lights, %.3f s wall:"
+              % (LVIS_POINTS, ex.n_lights, wall))
+        print(averages.table(sort_by="cuda_time_total", row_limit=12,
+                             max_name_column_width=60))
+        device_us = sum(
+            getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+            for e in averages if e.device_type == DeviceType.CUDA)
+        print("device busy %.3f ms of %.3f ms wall under the profiler: idle "
+              "share %.3f" % (device_us / 1e3, 1e3 * wall,
+                              1 - device_us / 1e6 / wall))
+
+    # neus_render once with the up-sample chain through the kernel, once not
+    ro, rd = ds.gen_rays_at(0)
+    rows = slice(GEO_IMH // 2 * GEO_IMH, GEO_IMH // 2 * GEO_IMH + 2048)
+    ro, rd = ro.reshape(-1, 3)[rows], rd.reshape(-1, 3)[rows]
+    near, far = ds.near_far(ro, rd)
+    args = [torch.as_tensor(x, device=device) for x in (ro, rd, near, far)]
+    before = sdf_kernel.LAUNCHES["sdf_fwd"]
+    with torch.no_grad():
+        r_fused = neus_render(model, cfg, *args, ex.radius,
+                              cos_anneal_ratio=1.0, use_fused_sdf=True)
+        if sdf_kernel.LAUNCHES["sdf_fwd"] != before + cfg.up_sample_steps:
+            raise AssertionError("neus_render did not launch sdf_fwd")
+        r_plain = neus_render(model, cfg, *args, ex.radius,
+                              cos_anneal_ratio=1.0, use_fused_sdf=False)
+    errs = {k: float((r_fused[k] - r_plain[k]).abs().max())
+            for k in ("color_fine", "weight_sum", "surf")}
+    print("neus_render of 2048 rays, up-sample chain fused against plain: "
+          "max |diff| %s (tolerance %g)" % (errs, RENDER_FUSED_ATOL))
+    if max(errs.values()) > RENDER_FUSED_ATOL:
+        raise AssertionError("neus_render fused / plain disagree")
+    return {"ex": ex, "model": model, "cfg": cfg, "launches": launches,
+            "seconds": seconds, "peak": peak,
+            "surf_fg": xyz[fg], "normal_fg": normal[fg]}
+
+
+def shadow_ray_points(ex, surf_fg, n_rays, n_samples, device):
+    """The points that the shadow pass gives the SDF kernels: n_rays rays
+    from foreground points toward the lights, n_samples uniform samples
+    each between the pass's near and far."""
+    rs = np.random.RandomState(SEED)
+    o = torch.as_tensor(surf_fg[rs.randint(0, len(surf_fg), n_rays)],
+                        device=device)
+    d = ex.lxyz[torch.as_tensor(rs.randint(0, ex.n_lights, n_rays),
+                                device=device)] - o
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    near, far = ex._near_far(o, d)
+    z = near + (far - near) * torch.linspace(0.0, 1.0, n_samples,
+                                             device=device)[None]
+    return (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3).contiguous()
+
+
+def _sdf_bound(packed, n, with_grad):
+    """(bound ms, by what, bytes, operations): points read once, weights
+    read once, outputs written once; the operations of flops_per_point."""
+    nbytes = 4 * (3 * n + packed.buffer.numel() + n * (4 if with_grad else 1))
+    ops = sdf_kernel.flops_per_point(packed, with_grad) * n
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / FP32_OPS_PER_S
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
+
+
+def check_sdf_kernels(geo, device):
+    """Kernels 3 and 4 against their plain versions and autograd; returns
+    their two kernels-line entries without the launch counts."""
+    ex, model, cfg = geo["ex"], geo["model"], geo["cfg"]
+    packed = ex._packed
+    pts_fwd = shadow_ray_points(ex, geo["surf_fg"], SDF_RAYS, cfg.n_samples,
+                                device)
+    pts_grad = shadow_ray_points(ex, geo["surf_fg"], SDF_RAYS,
+                                 cfg.n_samples + cfg.n_importance, device)
+    scaled_cfg = fields.SDFConfig(scale=2.0)
+    scaled = fields.init_sdf(SEED + 1, scaled_cfg).to(device)
+    scaled_packed = sdf_kernel.pack_sdf(scaled, scaled_cfg)
+
+    err_fwd = 0.0
+    for what, pk, pts in (
+            ("N %d" % len(pts_fwd), packed, pts_fwd),
+            ("ragged N %d" % SDF_RAGGED_N, packed, pts_fwd[:SDF_RAGGED_N]),
+            ("scale 2, N %d" % (4096 + 5), scaled_packed,
+             pts_fwd[:4096 + 5])):
+        got = sdf_kernel.sdf_fwd(pk, pts)
+        again = sdf_kernel.sdf_fwd(pk, pts)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"sdf_fwd, {what}: two launches disagree")
+        e = _compare(got, sdf_kernel.sdf_fwd_plain(pk, pts),
+                     "sdf_fwd, " + what, SDF_RTOL, SDF_ATOL)
+        print("sdf_fwd vs plain version, %s: max abs err %.3e (rtol %g, atol "
+              "%g)" % (what, e, SDF_RTOL, SDF_ATOL))
+        err_fwd = max(err_fwd, e)
+
+    err_grad = 0.0
+    for what, pk, net, net_cfg, pts in (
+            ("N %d" % len(pts_grad), packed, model.sdf, cfg.sdf, pts_grad),
+            ("ragged N %d" % SDF_RAGGED_N, packed, model.sdf, cfg.sdf,
+             pts_grad[:SDF_RAGGED_N]),
+            ("scale 2, N %d" % (4096 + 5), scaled_packed, scaled, scaled_cfg,
+             pts_grad[:4096 + 5])):
+        sdf, grad = sdf_kernel.sdf_fwdgrad(pk, pts)
+        sdf2, grad2 = sdf_kernel.sdf_fwdgrad(pk, pts)
+        torch.cuda.synchronize()
+        if not (torch.equal(sdf, sdf2) and torch.equal(grad, grad2)):
+            raise AssertionError(f"sdf_fwdgrad, {what}: two launches "
+                                 "disagree")
+        want_sdf, want_grad = sdf_kernel.sdf_fwdgrad_plain(pk, pts)
+        e = max(_compare(sdf, want_sdf, "sdf_fwdgrad sdf, " + what,
+                         SDF_RTOL, SDF_ATOL),
+                _compare(grad, want_grad, "sdf_fwdgrad grad, " + what,
+                         SDF_RTOL, SDF_ATOL))
+        del want_sdf, want_grad
+        auto = torch.cat([fields.sdf_gradient(net, chunk, net_cfg)
+                          for chunk in torch.split(pts, 131072)])
+        e_auto = _compare(grad, auto, "sdf_fwdgrad grad vs autograd, " + what,
+                          SDF_AUTO_RTOL, SDF_AUTO_ATOL)
+        print("sdf_fwdgrad vs plain version, %s: max abs err %.3e (rtol %g, "
+              "atol %g); grad vs autograd fields.sdf_gradient %.3e (rtol %g, "
+              "atol %g)" % (what, e, SDF_RTOL, SDF_ATOL, e_auto,
+                            SDF_AUTO_RTOL, SDF_AUTO_ATOL))
+        err_grad = max(err_grad, e)
+
+    entries = []
+    for name, with_grad, pts, err, line in (
+            ("sdf_fwd", False, pts_fwd, err_fwd, 141),
+            ("sdf_fwdgrad", True, pts_grad, err_grad, 236)):
+        fn = sdf_kernel.sdf_fwdgrad if with_grad else sdf_kernel.sdf_fwd
+        plain = (sdf_kernel.sdf_fwdgrad_plain if with_grad
+                 else sdf_kernel.sdf_fwd_plain)
+        n = len(pts)
+        ms = _time_ms(lambda: fn(packed, pts), reps=5)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        plain_ms = _time_ms(lambda: plain(packed, pts), reps=5)
+        plain_peak = torch.cuda.max_memory_allocated() - base
+        bound_ms, by, nbytes, ops = _sdf_bound(packed, n, with_grad)
+        print("%s at %d points: kernel %.4f ms, plain version %.4f ms (%.3f "
+              "GiB of temporaries), bound %.4f ms by %s (%d bytes; %d "
+              "operations); %.1f%% of the fp32 peak"
+              % (name, n, ms, plain_ms, plain_peak / 2**30, bound_ms, by,
+                 nbytes, ops, 100 * bound_ms / ms))
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "vqnerf_release_torch/csrc/sdf_kernel.cu",
+            "replaces": "vqnerf_release_tpu/ops/pallas/sdf_kernel.py:%d"
+            % line,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None,  # no single PyTorch call computes it
+        })
+    return entries
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -721,18 +1122,27 @@ def main():
               % (peak, peak / 2**30), flush=True)
 
         view = ds.load_view(ds.files[0])
+        sys.stdout.flush()
+
+        # ---- stage-1 geometry extraction ----------------------------------
+        geo = extraction_phase(root, device, profile)
+        sys.stdout.flush()
 
     # ---- each kernel against its plain version, and the timings ----------
     lxyz, lareas = dc.light_constants(cfg, device)
     with torch.inference_mode():
         render_entry = check_render_kernel(vq, cfg, view, lxyz, lareas, device)
         vq_entry = check_vq_kernel(trained, cfg, device)
+    fwd_entry, fwdgrad_entry = check_sdf_kernels(geo, device)
     time_steps(cfg, trained, lxyz, lareas, device, profile)
 
     render_entry["launches"] = render_launches
     vq_entry["launches"] = trained["launches"]
+    fwd_entry["launches"] = geo["launches"]["sdf_fwd"]
+    fwdgrad_entry["launches"] = geo["launches"]["sdf_fwdgrad"]
     print("total: %.1f s" % (time.perf_counter() - t_start))
-    print(json.dumps({"kernels": [render_entry, vq_entry]}))
+    print(json.dumps({"kernels": [render_entry, vq_entry, fwd_entry,
+                                  fwdgrad_entry]}))
     print("nvidia-smi:", smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

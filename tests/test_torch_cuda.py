@@ -15,6 +15,11 @@ near-tie does not look like a fault: (i) equal indices except on rows whose
 two smallest plain distances lie within 1e-5 of each other; (ii) every other
 output against the plain version fed the kernel's indices and evaluated in
 float64, at rtol 1e-5 / atol 1e-6.
+
+The two SDF kernels are held to their plain versions at rtol 1e-4 / atol
+1e-5 (sums of up to 256 fp32 terms taken in another order than cuBLAS takes
+them, through eight layers), and to the autograd gradient at the JAX kernel
+test's own rtol 3e-3 / atol 3e-4.
 """
 
 import numpy as np
@@ -23,7 +28,9 @@ import torch
 
 from vqnerf_release_torch.ops.light import gen_light_xyz
 from vqnerf_release_torch.kernels import render as kr
+from vqnerf_release_torch.kernels import sdf as ks
 from vqnerf_release_torch.kernels import vq as kv
+from vqnerf_release_torch.models import fields
 from vqnerf_release_torch.models import decomp_common as dc
 from vqnerf_release_torch.models.nfr_unit import init_nfr_unit
 from vqnerf_release_torch.models.vq_nfr import init_vq_nfr
@@ -263,3 +270,151 @@ def test_fused_vq_training_step_cuda_matches_cpu(cuda_device):
                                    msg=k)
     for a, b in zip(ema_g, ema_c):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+
+
+SDF_RTOL, SDF_ATOL = 1e-4, 1e-5
+_SDF_NETS = {
+    "default": dict(),
+    "scale2": dict(scale=2.0),
+    "small": dict(d_hidden=32, n_layers=4, skip_in=(2,), multires=2,
+                  d_out=33),
+    "odd": dict(d_hidden=100, n_layers=3, skip_in=(1, 3), multires=4,
+                d_out=7, scale=0.5),
+}
+
+
+def _sdf_net(name, device, seed=0):
+    cfg = fields.SDFConfig(**_SDF_NETS[name])
+    params = fields.init_sdf(seed, cfg).to(device)
+    return cfg, params, ks.pack_sdf(params, cfg)
+
+
+def _sdf_points(n, device, seed=0):
+    rs = np.random.RandomState(seed)
+    return torch.as_tensor(rs.randn(n, 3).astype(np.float32) * 0.5,
+                           device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net,n", [
+    ("default", 524288), ("default", 131072 + 77), ("default", 1),
+    ("default", 63), ("scale2", 4096 + 5), ("small", 1000), ("odd", 777)])
+def test_sdf_fwd_kernel_matches_plain_version(cuda_device, net, n):
+    cfg, params, packed = _sdf_net(net, cuda_device)
+    pts = _sdf_points(n, cuda_device)
+    before = ks.LAUNCHES["sdf_fwd"]
+    got = ks.sdf_fwd(packed, pts)
+    again = ks.sdf_fwd(packed, pts)
+    torch.cuda.synchronize()
+    assert ks.LAUNCHES["sdf_fwd"] == before + 2
+    assert torch.equal(got, again)  # fixed summation order
+    want = ks.sdf_fwd_plain(packed, pts)
+    torch.testing.assert_close(got, want, rtol=SDF_RTOL, atol=SDF_ATOL)
+    with torch.no_grad():
+        auto = fields.sdf_only(params, pts[:4096], cfg)
+    torch.testing.assert_close(got[:4096], auto, rtol=SDF_RTOL,
+                               atol=SDF_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net,n", [
+    ("default", 1048576), ("default", 131072 + 77), ("default", 1),
+    ("default", 15), ("scale2", 4096 + 5), ("small", 1000), ("odd", 777)])
+def test_sdf_fwdgrad_kernel_matches_plain_version(cuda_device, net, n):
+    cfg, params, packed = _sdf_net(net, cuda_device)
+    pts = _sdf_points(n, cuda_device, seed=1)
+    before = ks.LAUNCHES["sdf_fwdgrad"]
+    sdf, grad = ks.sdf_fwdgrad(packed, pts)
+    sdf2, grad2 = ks.sdf_fwdgrad(packed, pts)
+    torch.cuda.synchronize()
+    assert ks.LAUNCHES["sdf_fwdgrad"] == before + 2
+    assert torch.equal(sdf, sdf2) and torch.equal(grad, grad2)
+    want_sdf, want_grad = ks.sdf_fwdgrad_plain(packed, pts)
+    torch.testing.assert_close(sdf, want_sdf, rtol=SDF_RTOL, atol=SDF_ATOL)
+    torch.testing.assert_close(grad, want_grad, rtol=SDF_RTOL, atol=SDF_ATOL)
+    # the second yardstick: autograd, at the JAX kernel test's tolerance
+    auto = fields.sdf_gradient(params, pts[:4096], cfg)
+    torch.testing.assert_close(grad[:4096], auto, rtol=3e-3, atol=3e-4)
+    # the forward kernel gives the same values as the gradient kernel's
+    torch.testing.assert_close(ks.sdf_fwd(packed, pts), sdf, rtol=1e-6,
+                               atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_sdf_kernels_fma_contraction_stays_within_tolerance(cuda_device,
+                                                            monkeypatch):
+    """The SDF kernels are built with nvcc's default FMA contraction (their
+    products are explicit fmaf anyway). Built with -fmad=false beside it,
+    both stay within the same tolerance of the plain versions. Run with -s
+    to see the two builds' errors and times."""
+    cfg, params, packed = _sdf_net("default", cuda_device)
+    pts = _sdf_points(262144, cuda_device, seed=2)
+    want = ks.sdf_fwdgrad_plain(packed, pts)
+    for name, flags in (("fma", ()), ("no fma", ("-fmad=false",))):
+        monkeypatch.setattr(ks, "_lib", ks.load(ks.build(flags)[0]))
+        ms = {}
+        for what, fn in (("fwd", lambda: ks.sdf_fwd(packed, pts)),
+                         ("fwdgrad", lambda: ks.sdf_fwdgrad(packed, pts))):
+            fn()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                fn()
+            end.record()
+            end.synchronize()
+            ms[what] = start.elapsed_time(end) / 3
+        sdf, grad = ks.sdf_fwdgrad(packed, pts)
+        fwd = ks.sdf_fwd(packed, pts)
+        torch.testing.assert_close(fwd, want[0], rtol=SDF_RTOL, atol=SDF_ATOL)
+        torch.testing.assert_close(sdf, want[0], rtol=SDF_RTOL, atol=SDF_ATOL)
+        torch.testing.assert_close(grad, want[1], rtol=SDF_RTOL,
+                                   atol=SDF_ATOL)
+        print("%s: fwd %.3f ms, fwdgrad %.3f ms at 262,144 points; max abs "
+              "err sdf %.3e, grad %.3e"
+              % (name, ms["fwd"], ms["fwdgrad"],
+                 float((sdf - want[0]).abs().max()),
+                 float((grad - want[1]).abs().max())))
+
+
+@pytest.mark.cuda
+def test_sdf_kernel_rejects_bad_inputs(cuda_device):
+    cfg, params, packed = _sdf_net("small", cuda_device)
+    pts = _sdf_points(64, cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        ks.sdf_fwd(packed, pts.double())
+    with pytest.raises(ValueError, match=r"\[N, 3\]"):
+        ks.sdf_fwdgrad(packed, pts[:, :2])
+    with pytest.raises(ValueError, match="contiguous"):
+        ks.sdf_fwd(packed, pts.T.contiguous().T)
+    wide = fields.SDFConfig(d_hidden=300, n_layers=2, skip_in=(), multires=2)
+    with pytest.raises(ValueError, match="widths up to"):
+        ks.pack_sdf(fields.init_sdf(0, wide), wide)
+    assert ks.sdf_fwd(packed, pts[:0]).shape == (0,)
+
+
+@pytest.mark.cuda
+def test_neus_occlusion_fused_matches_plain_path(cuda_device):
+    """The shadow pass with both kernels against the autograd path, at a
+    ragged number of rays that the TPU kernels' gate would have refused."""
+    from vqnerf_release_torch.models.neus import (NeuSConfig, init_neus,
+                                                  neus_occlusion)
+    cfg = NeuSConfig()
+    model = init_neus(0, cfg).to(cuda_device)
+    rs = np.random.RandomState(3)
+    n = 1000 + 37
+    o = rs.randn(n, 3).astype(np.float32)
+    o = 0.55 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rs.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (torch.as_tensor(x, device=cuda_device) for x in (o, d))
+    near = torch.full((n, 1), 0.1, device=cuda_device)
+    far = torch.full((n, 1), 2.0, device=cuda_device)
+    before = dict(ks.LAUNCHES)
+    fused = neus_occlusion(model, cfg, o, d, near, far, 2.5)
+    assert ks.LAUNCHES["sdf_fwd"] == before["sdf_fwd"] + cfg.up_sample_steps
+    assert ks.LAUNCHES["sdf_fwdgrad"] == before["sdf_fwdgrad"] + 1
+    plain = neus_occlusion(model, cfg, o, d, near, far, 2.5,
+                           use_fused_sdf=False)
+    assert ks.LAUNCHES["sdf_fwdgrad"] == before["sdf_fwdgrad"] + 1
+    torch.testing.assert_close(fused, plain, rtol=0, atol=2e-3)

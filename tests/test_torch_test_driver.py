@@ -171,7 +171,26 @@ with tempfile.TemporaryDirectory() as root:
                               os.path.join(root, "vq"), epochs=1,
                               device="cpu")
     k = find_vq(os.path.join(root, "vq", "vis_vali", "epoch000000001"))
+
+    # a tiny stage-1 geometry extraction from the smoke's own scene writer
+    from vqnerf_release_torch.models import fields
+    from vqnerf_release_torch.pipelines import gen_geo
+    data = cs.write_stage1_scene(os.path.join(root, "s1", cs.GEO_SCENE), 12,
+                                 1, 1, 0)
+    small = dict(sdf=fields.SDFConfig(d_hidden=32, n_layers=4, skip_in=(2,),
+                                      multires=2, d_out=33),
+                 color=fields.ColorConfig(d_feature=32, d_hidden=16,
+                                          n_layers=2),
+                 n_samples=8, n_importance=8, up_sample_steps=2)
+    done = gen_geo.run_gen_geo(cs.GEO_SCENE, data, os.path.join(root, "s1o"),
+                               overrides=small, near=cs.GEO_NEAR,
+                               far=cs.GEO_FAR, device="cpu", light_h=2,
+                               vis_point_batch=16, batch_size=64)
+    geo_ok = all(gen_geo.check_finished(d)
+                 for d in done["train"] + done["val"])
 print(json.dumps({"n_vq": info["n_vq"], "arrays": n, "trained_k": k,
+                  "geo_views": len(done["train"] + done["val"]),
+                  "geo_ok": geo_ok,
                   "steps": int(ema.counter), "losses": h1 + h2,
                   "loaded": sorted(
     m for m in sys.modules if m.split(".")[0] in (
@@ -182,7 +201,8 @@ print(json.dumps({"n_vq": info["n_vq"], "arrays": n, "trained_k": k,
 def test_port_runs_without_jax_or_cv2():
     """A tiny CPU run_test through the port, from chip_smoke's own scene
     writer and ``build_models``, and a 1-epoch CPU training of nfr_unit and
-    vq_nfr, load neither jax nor cv2 nor any module of the JAX package."""
+    vq_nfr, and a tiny stage-1 geometry extraction, load neither jax nor
+    cv2 nor any module of the JAX package."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -191,6 +211,7 @@ def test_port_runs_without_jax_or_cv2():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["loaded"] == []
     assert result["n_vq"] == 3 and result["arrays"] > 0
+    assert result["geo_views"] == 2 and result["geo_ok"] is True
     assert result["steps"] == 2 and 2 <= result["trained_k"] <= 4
     assert len(result["losses"]) == 2 and np.isfinite(result["losses"]).all()
 
@@ -202,7 +223,9 @@ def test_port_sources_do_not_import_the_jax_package():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(REPO, "vqnerf_release_torch")):
         paths += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(paths) > 30
+    assert len(paths) > 40
+    assert any(p.endswith(os.path.join("pipelines", "gen_geo.py"))
+               for p in paths)
     banned = {"jax", "jaxlib", "optax", "orbax", "cv2", "vqnerf_release_tpu"}
     for path in paths:
         with open(path) as f:

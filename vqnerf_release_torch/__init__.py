@@ -2,10 +2,12 @@
 
 The JAX package beside it is the reference. This package imports torch and
 never jax, nor anything of the JAX package; its kernels are hand-written for
-NVIDIA Hopper (``csrc/``) and built at first use. The port covers stage 2's
-main path so far: training of nfr_unit and vq_nfr (``train/loop.py``) and
-the four-pass test driver (``pipelines/test_driver.py``) over vq_nfr and
-ref_nfr models.
+NVIDIA Hopper (``csrc/``) and built at first use. The port covers so far:
+stage 2's main path, that is training of nfr_unit and vq_nfr
+(``train/loop.py``) and the four test passes
+(``pipelines/test_driver.py``) over vq_nfr and ref_nfr models; and stage 1's
+geometry extraction (``pipelines/gen_geo.py``) from a NeuS model
+(``models/neus.py``).
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

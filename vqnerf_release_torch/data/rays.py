@@ -1,6 +1,7 @@
-"""Camera rays for stage 2's two camera conventions (the port's own copy of
-what it uses from vqnerf_release_tpu/data/rays.py, numpy only; tests hold the
-two bit for bit).
+"""Camera rays for the two camera conventions, and stage 1's near/far and
+bounding radius (the port's own copy of what it uses from
+vqnerf_release_tpu/data/rays.py, numpy only; tests hold the two bit for
+bit).
 
   * NeRF convention (c2w + fov): pixel directions ((x-cx)/f, -(y-cy)/f, -1)
     rotated into world; stage 2 leaves them unnormalized.
@@ -11,7 +12,8 @@ two bit for bit).
 
 import numpy as np
 
-__all__ = ["nerf_rays", "dtu_rays", "decompose_projection"]
+__all__ = ["nerf_rays", "dtu_rays", "decompose_projection",
+           "near_far_fixed", "near_far_sphere", "max_radius_from_poses"]
 
 
 def nerf_rays(c2w, cam_angle_x, imh, imw, cx=None, cy=None, normalize=False):
@@ -93,3 +95,28 @@ def dtu_rays(world_mat, scale_mat, imh_meta, imw_meta, imh, cx_scale=None):
     rayd = np.einsum("rk,hwk->hwr", c2w[:3, :3], rayd)
     rayo = np.broadcast_to(c2w[:3, 3], rayd.shape).copy()
     return rayo.astype(np.float32), rayd.astype(np.float32)
+
+
+def near_far_fixed(n, near, far):
+    return (np.full((n, 1), near, np.float32),
+            np.full((n, 1), far, np.float32))
+
+
+def near_far_sphere(rays_o, rays_d):
+    """Sphere-mid near/far of the DTU loader (dtuset.py:142-148):
+    mid = -<o, d>; near/far = mid -/+ 1."""
+    a = np.sum(rays_d**2, axis=-1, keepdims=True)
+    b = 2.0 * np.sum(rays_o * rays_d, axis=-1, keepdims=True)
+    mid = 0.5 * (-b) / a
+    return (mid - 1.0).astype(np.float32), (mid + 1.0).astype(np.float32)
+
+
+def max_radius_from_poses(c2ws, near, far):
+    """Max distance of the near/far frustum corners from origin
+    (nerfset.py:138-145)."""
+    bd = np.array([[0.0, 0.0], [0.0, 0.0], [-near, -far], [1.0, 1.0]])
+    r = 0.0
+    for c2w in c2ws:
+        pts = (np.asarray(c2w) @ bd)[:3, :]
+        r = max(r, float(np.max(np.sqrt(np.sum(pts**2, axis=0)))))
+    return r

@@ -1,13 +1,18 @@
 """Convert between the JAX package's pytrees and the port's state: the
-parameters of ``nfr_unit``, ``vq_nfr`` and ``ref_nfr``, the VQ EMA state,
-and the amsgrad optimizer state.
+parameters of ``nfr_unit``, ``vq_nfr``, ``ref_nfr`` and ``neus``, the VQ EMA
+state, and the amsgrad optimizer state.
 
 A pytree here is what the JAX ``init_*`` functions return, held as nested
 dicts and lists of numpy arrays (``jax.tree_util.tree_map(np.asarray, p)``):
 a skip-MLP is a list of {"w": [d_in, d_out], "b": [d_out]} dicts, every
 other leaf is an array. ``nn.Linear`` stores its weight [d_out, d_in]; the
 transposes happen here and nowhere else. The activations and skips of each
-MLP are fixed by the model and named in ``_MLPS``.
+MLP are fixed by the model and named in ``_MLPS``. A NeuS tree is {"sdf":
+[...], "color": [...], "variance": {"variance": x}} and, with a background
+model, "bg": {"pts": [...], "views": [...], "feature", "alpha", "rgb"}; its
+weight-norm layers are {"v", "g", "b"} and its background layers {"w", "b"},
+all [d_in, d_out], and the port keeps those layouts (``ops.nn.WNDense``,
+``ops.nn.Dense``), so nothing is transposed there.
 
 The JAX optimizer state is {"count", "m", "v", "vhat"} with one tree like
 the parameters under each of the last three (clipnorm and clipvalue off, as
@@ -21,10 +26,12 @@ import numpy as np
 import torch
 
 from ..models import decomp_common as dc
+from ..models import fields
+from ..models.neus import NeuS
 from ..models.nfr_unit import NfrUnit
 from ..models.ref_nfr import RGB_ENC_ACTS, RefNfr
 from ..models.vq_nfr import VqNfr
-from ..ops.nn import SkipMLP
+from ..ops.nn import Dense, SkipMLP, WNDense
 from ..ops.vq import VqEmaState
 
 __all__ = ["from_jax", "to_jax", "ema_from_jax", "ema_to_jax",
@@ -78,8 +85,53 @@ def _parts_to_jax(module):
     return tree
 
 
+@torch.no_grad()
+def _layer_from_jax(p):
+    """{"v", "g", "b"} -> WNDense, {"w", "b"} -> Dense."""
+    first = "v" if "v" in p else "w"
+    layer = (WNDense if first == "v" else Dense)(*np.shape(p[first]))
+    for name, param in layer.named_parameters():
+        param.copy_(torch.as_tensor(np.array(p[name], np.float32)))
+    return layer
+
+
+def _layers_from_jax(layers):
+    return torch.nn.ModuleList(_layer_from_jax(p) for p in layers)
+
+
+def _layer_to_jax(layer):
+    return {name: p.detach().cpu().numpy().copy()
+            for name, p in layer.named_parameters()}
+
+
+def _neus_from_jax(tree):
+    bg = None
+    if "bg" in tree:
+        bg = torch.nn.Module()
+        for key, leaf in tree["bg"].items():
+            setattr(bg, key, _layers_from_jax(leaf) if isinstance(leaf, list)
+                    else _layer_from_jax(leaf))
+    return NeuS(_layers_from_jax(tree["sdf"]), _layers_from_jax(tree["color"]),
+                fields.init_variance(float(tree["variance"]["variance"])), bg)
+
+
+def _neus_to_jax(model):
+    tree = {"sdf": [_layer_to_jax(p) for p in model.sdf],
+            "color": [_layer_to_jax(p) for p in model.color],
+            "variance": _layer_to_jax(model.variance)}
+    if model.has_bg:
+        tree["bg"] = {
+            key: ([_layer_to_jax(p) for p in child]
+                  if isinstance(child, torch.nn.ModuleList)
+                  else _layer_to_jax(child))
+            for key, child in model.bg.named_children()}
+    return tree
+
+
 def from_jax(tree, kind):
-    """JAX pytree -> NfrUnit / VqNfr / RefNfr (on the CPU)."""
+    """JAX pytree -> NfrUnit / VqNfr / RefNfr / NeuS (on the CPU)."""
+    if kind == "neus":
+        return _neus_from_jax(tree)
     if kind == "nfr_unit":
         return NfrUnit(**_parts_from_jax(tree, _MLPS[kind]))
     if kind == "vq_nfr":
@@ -94,7 +146,9 @@ def from_jax(tree, kind):
 
 
 def to_jax(module, kind):
-    """NfrUnit / VqNfr / RefNfr -> JAX pytree of numpy arrays."""
+    """NfrUnit / VqNfr / RefNfr / NeuS -> JAX pytree of numpy arrays."""
+    if kind == "neus":
+        return _neus_to_jax(module)
     if kind in ("nfr_unit", "vq_nfr"):
         return _parts_to_jax(module)
     if kind == "ref_nfr":
