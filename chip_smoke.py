@@ -8,8 +8,9 @@ fast-vis shadow pass.)
 
 1. checks for a CUDA device and prints its name and power limit;
 2. builds the three CUDA sources of csrc/ (three nvcc processes side by
-   side; four kernels) and prints the build time and ptxas' register and
-   spill counts;
+   side; four kernels) and prints the build time, ptxas' register and
+   spill counts, and the count of tensor-core instructions (HGMMA / HMMA)
+   that cuobjdump -sass finds in the SDF library, which must not be 0;
 3. writes a synthetic sphere scene in the reference layout to a temporary
    directory: 4 train and 2 val views of 512x512 rays with 512-light lvis,
    the vis_comps GT-albedo mirror and 16 probe .hdr files;
@@ -140,10 +141,15 @@ RENDER_FUSED_ATOL = 2e-3  # neus_render, up-sample chain fused against not
 SURF_SDF_ATOL = 0.2  # |sdf(xyz)| on foreground pixels
 NORMAL_MAX_DEG = 35.0  # angle between normal.npy and xyz/|xyz|
 LIT_COS, LIT_MIN = 0.5, 0.9  # lights with cos > LIT_COS have lvis > LIT_MIN
-# peaks of one H100 SXM: HBM bytes/s, and fp32 operations/s outside the
-# tensor cores (both kernels are fp32 CUDA-core code)
+# peaks of one H100 SXM: HBM bytes/s, fp32 operations/s outside the tensor
+# cores (kernels 1 and 2, and the earlier design of kernels 3 and 4), and
+# dense TF32 operations/s on the tensor cores. Kernels 3 and 4 split every
+# product in three TF32 products to keep fp32's accuracy, so their peak is
+# a third of the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+SDF_TF32_PRODUCTS = 3
 
 
 def _look_at(eye):
@@ -319,6 +325,12 @@ def build_kernels():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("    ptxas:", line.strip())
+    n_mma = sdf_kernel.tensor_core_instructions(built["sdf"][0])
+    print("  sdf: %d tensor-core instructions (HGMMA / HMMA) in cuobjdump "
+          "-sass of %s" % (n_mma, built["sdf"][0].name))
+    if n_mma <= 0:
+        raise AssertionError("the SDF library holds no tensor-core "
+                             "instruction")
 
 
 def _read_log(outdir):
@@ -952,14 +964,20 @@ def shadow_ray_points(ex, surf_fg, n_rays, n_samples, device):
 
 
 def _sdf_bound(packed, n, with_grad):
-    """(bound ms, by what, bytes, operations): points read once, weights
-    read once, outputs written once; the operations of flops_per_point."""
+    """(bound ms, by what, bytes, operations, CUDA-core bound ms): points
+    read once, the packed weights read once, outputs written once; the
+    operations of flops_per_point, each product taken three times at the
+    TF32 tensor-core peak, which is the route the kernel takes. The last
+    value is the same operations once at the fp32 CUDA-core peak, the
+    bound of the design before this one."""
     nbytes = 4 * (3 * n + packed.buffer.numel() + n * (4 if with_grad else 1))
     ops = sdf_kernel.flops_per_point(packed, with_grad) * n
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * ops / FP32_OPS_PER_S
+    ops_ms = 1e3 * SDF_TF32_PRODUCTS * ops / TF32_OPS_PER_S
+    cuda_core_ms = max(bytes_ms, 1e3 * ops / FP32_OPS_PER_S)
     return (max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops,
+            cuda_core_ms)
 
 
 def check_sdf_kernels(geo, device):
@@ -1034,12 +1052,17 @@ def check_sdf_kernels(geo, device):
         base = torch.cuda.memory_allocated()
         plain_ms = _time_ms(lambda: plain(packed, pts), reps=5)
         plain_peak = torch.cuda.max_memory_allocated() - base
-        bound_ms, by, nbytes, ops = _sdf_bound(packed, n, with_grad)
+        bound_ms, by, nbytes, ops, cuda_core_ms = _sdf_bound(packed, n,
+                                                             with_grad)
         print("%s at %d points: kernel %.4f ms, plain version %.4f ms (%.3f "
               "GiB of temporaries), bound %.4f ms by %s (%d bytes; %d "
-              "operations); %.1f%% of the fp32 peak"
+              "operations, each product as %d TF32 products at %.0f "
+              "TFLOP/s): %.1f%% of the split-TF32 tensor-core peak; the "
+              "fp32 CUDA-core bound is %.4f ms (%.1f%% of that peak)"
               % (name, n, ms, plain_ms, plain_peak / 2**30, bound_ms, by,
-                 nbytes, ops, 100 * bound_ms / ms))
+                 nbytes, ops, SDF_TF32_PRODUCTS, TF32_OPS_PER_S / 1e12,
+                 100 * bound_ms / ms, cuda_core_ms,
+                 100 * cuda_core_ms / ms))
         entries.append({
             "name": name, "route": "cuda",
             "source": "vqnerf_release_torch/csrc/sdf_kernel.cu",
@@ -1047,6 +1070,8 @@ def check_sdf_kernels(geo, device):
             % line,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by,
+            "bound_peak": "tensor cores, TF32 / %d" % SDF_TF32_PRODUCTS,
+            "bound_cuda_cores_ms": cuda_core_ms,
             "library_ms": None,  # no single PyTorch call computes it
         })
     return entries

@@ -17,10 +17,14 @@ output against the plain version fed the kernel's indices and evaluated in
 float64, at rtol 1e-5 / atol 1e-6.
 
 The two SDF kernels are held to their plain versions at rtol 1e-4 / atol
-1e-5 (sums of up to 256 fp32 terms taken in another order than cuBLAS takes
-them, through eight layers), and to the autograd gradient at the JAX kernel
+1e-5 (sums of up to 256 terms taken in another order than cuBLAS takes
+them, each product split in three TF32 products on the tensor cores,
+through eight layers), and to the autograd gradient at the JAX kernel
 test's own rtol 3e-3 / atol 3e-4.
 """
+
+import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -298,7 +302,9 @@ def _sdf_points(n, device, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("net,n", [
     ("default", 524288), ("default", 131072 + 77), ("default", 1),
-    ("default", 63), ("scale2", 4096 + 5), ("small", 1000), ("odd", 777)])
+    ("default", 63), ("scale2", 4096 + 5), ("small", 1000), ("odd", 777),
+    ("default", ks.TILE_ROWS - 1), ("default", ks.TILE_ROWS),
+    ("default", ks.TILE_ROWS + 1), ("odd", ks.TILE_ROWS + 1)])
 def test_sdf_fwd_kernel_matches_plain_version(cuda_device, net, n):
     cfg, params, packed = _sdf_net(net, cuda_device)
     pts = _sdf_points(n, cuda_device)
@@ -319,7 +325,9 @@ def test_sdf_fwd_kernel_matches_plain_version(cuda_device, net, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("net,n", [
     ("default", 1048576), ("default", 131072 + 77), ("default", 1),
-    ("default", 15), ("scale2", 4096 + 5), ("small", 1000), ("odd", 777)])
+    ("default", 15), ("scale2", 4096 + 5), ("small", 1000), ("odd", 777),
+    ("default", ks.TILE_ROWS // 4 - 1), ("default", ks.TILE_ROWS // 4),
+    ("default", ks.TILE_ROWS // 4 + 1), ("odd", ks.TILE_ROWS // 4 + 1)])
 def test_sdf_fwdgrad_kernel_matches_plain_version(cuda_device, net, n):
     cfg, params, packed = _sdf_net(net, cuda_device)
     pts = _sdf_points(n, cuda_device, seed=1)
@@ -344,9 +352,10 @@ def test_sdf_fwdgrad_kernel_matches_plain_version(cuda_device, net, n):
 def test_sdf_kernels_fma_contraction_stays_within_tolerance(cuda_device,
                                                             monkeypatch):
     """The SDF kernels are built with nvcc's default FMA contraction (their
-    products are explicit fmaf anyway). Built with -fmad=false beside it,
-    both stay within the same tolerance of the plain versions. Run with -s
-    to see the two builds' errors and times."""
+    products run on the tensor cores; the flag touches the epilogue and the
+    last layer's dot product). Built with -fmad=false beside it, both stay
+    within the same tolerance of the plain versions. Run with -s to see the
+    two builds' errors and times."""
     cfg, params, packed = _sdf_net("default", cuda_device)
     pts = _sdf_points(262144, cuda_device, seed=2)
     want = ks.sdf_fwdgrad_plain(packed, pts)
@@ -375,6 +384,181 @@ def test_sdf_kernels_fma_contraction_stays_within_tolerance(cuda_device,
               % (name, ms["fwd"], ms["fwdgrad"],
                  float((sdf - want[0]).abs().max()),
                  float((grad - want[1]).abs().max())))
+
+
+def _event_ms(fn, reps=3):
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@pytest.mark.cuda
+def test_sdf_kernels_three_tf32_products_against_one(cuda_device,
+                                                     monkeypatch):
+    """The precision study: the port's build (each product split in three
+    TF32 products) beside the single-product build (-DSDF_TF32_PASSES=1),
+    on sdf, the gradient, and lvis of 300 points x 512 lights through
+    GeoExtractor._lvis_full. Only the port's build is held to the
+    tolerances; run with -s to see both builds' times and errors."""
+    from vqnerf_release_torch.models.neus import NeuSConfig, init_neus
+    from vqnerf_release_torch.pipelines.gen_geo import GeoExtractor
+    cfg = NeuSConfig()
+    model = init_neus(0, cfg).to(cuda_device)
+    packed = ks.pack_sdf(model.sdf, cfg.sdf)
+    pts = _sdf_points(262144, cuda_device, seed=2)
+    want = ks.sdf_fwdgrad_plain(packed, pts)
+    rs = np.random.RandomState(4)
+    normal = rs.randn(300, 3).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    surf = 0.5 * normal  # the geometric init is a sphere of radius 0.5
+    ds = types.SimpleNamespace(max_radius=1.0)
+    lvis_plain = GeoExtractor(model, cfg, ds, "unused", use_fused_sdf=False,
+                              vis_point_batch=16, device=cuda_device
+                              )._lvis_full(surf, normal)
+    errs = {}
+    for name, flags in (("three products", ()),
+                        ("one product", ("-DSDF_TF32_PASSES=1",))):
+        monkeypatch.setattr(ks, "_lib", ks.load(ks.build(flags)[0]))
+        ms_fwd = _event_ms(lambda: ks.sdf_fwd(packed, pts))
+        ms_grad = _event_ms(lambda: ks.sdf_fwdgrad(packed, pts))
+        sdf, grad = ks.sdf_fwdgrad(packed, pts)
+        ex = GeoExtractor(model, cfg, ds, "unused", device=cuda_device)
+        assert ex.use_fused_sdf
+        lvis = ex._lvis_full(surf, normal)
+        errs[name] = (float((sdf - want[0]).abs().max()),
+                      float((grad - want[1]).abs().max()),
+                      float(np.abs(lvis - lvis_plain).max()))
+        print("%s: fwd %.3f ms, fwdgrad %.3f ms at 262,144 points; max abs "
+              "err sdf %.3e, grad %.3e, lvis (300 x 512) %.3e"
+              % ((name, ms_fwd, ms_grad) + errs[name]))
+        if not flags:
+            torch.testing.assert_close(sdf, want[0], rtol=SDF_RTOL,
+                                       atol=SDF_ATOL)
+            torch.testing.assert_close(grad, want[1], rtol=SDF_RTOL,
+                                       atol=SDF_ATOL)
+            assert errs[name][2] <= 2e-3
+    # the split is what buys the accuracy
+    assert errs["three products"][0] < errs["one product"][0]
+
+
+@pytest.mark.cuda
+def test_sdf_kernels_where_the_time_goes(cuda_device, monkeypatch):
+    """A study, run with -s: both kernels' times at the main path's sizes
+    for the port's build, with the epilogue's arithmetic compiled out (the
+    products alone; wrong results), and with a weight ring of 3 stages in
+    place of 6 (equal bits); then 60 calls of the gradient kernel on end
+    with the card's clock and power sampled beside them."""
+    import threading
+    import time
+    cfg, params, packed = _sdf_net("default", cuda_device)
+    pts_fwd = _sdf_points(524288, cuda_device, seed=5)
+    pts_grad = _sdf_points(1048576, cuda_device, seed=6)
+    outputs = {}
+    for name, flags in (("port's build", ()),
+                        ("no activation", ("-DSDF_SKIP_ACTIVATION",)),
+                        ("3 stages", ("-DSDF_STAGES=3",))):
+        monkeypatch.setattr(ks, "_lib", ks.load(ks.build(flags)[0]))
+        ms_fwd = _event_ms(lambda: ks.sdf_fwd(packed, pts_fwd), reps=5)
+        ms_grad = _event_ms(lambda: ks.sdf_fwdgrad(packed, pts_grad), reps=5)
+        outputs[name] = ks.sdf_fwdgrad(packed, pts_grad[:4096])
+        print("%s: fwd %.3f ms at 524,288 points, fwdgrad %.3f ms at "
+              "1,048,576 points" % (name, ms_fwd, ms_grad))
+    for got, want in zip(outputs["3 stages"], outputs["port's build"]):
+        assert torch.equal(got, want)
+    monkeypatch.setattr(ks, "_lib", ks.load(ks.build()[0]))
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            samples.append(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip())
+            time.sleep(0.1)
+    thread = threading.Thread(target=sample)
+    thread.start()
+    ms = _event_ms(lambda: ks.sdf_fwdgrad(packed, pts_grad), reps=60)
+    stop.set()
+    thread.join()
+    print("60 calls on end: %.3f ms a call; clocks.sm, power.draw: %s"
+          % (ms, samples))
+
+
+@pytest.mark.cuda
+def test_sdf_library_holds_tensor_core_instructions(cuda_device):
+    """Both kernels' products are wgmma instructions in the built library's
+    machine code: three a depth-8 step, in two kernels."""
+    so, _ = ks.build()
+    count = ks.tensor_core_instructions(so)
+    print("tensor-core instructions in", so.name, ":", count)
+    assert count >= 6
+
+
+def _wgmma_probe(a, w):
+    """a [64, 8 steps] times w [8 steps, out <= 256] through the SDF
+    kernel's own wgmma path (csrc/wgmma_probe.cu) and pack_sdf's tiling."""
+    import ctypes
+    so, _ = ks.kbuild.build(ks.kbuild.CSRC_DIR / "wgmma_probe.cu", "probe")
+    ptr = ctypes.c_void_p
+    lib = ks.kbuild.load(so, {"wgmma_probe": [ptr, ptr, ptr, ctypes.c_int,
+                                              ptr]})
+    tiles = ks._tile_weights(w).reshape(-1)
+    d = torch.empty((64, ks.MAX_WIDTH), device=a.device)
+    err = lib.wgmma_probe(a.contiguous().data_ptr(), tiles.data_ptr(),
+                          d.data_ptr(), a.shape[1] // ks.TILE_K,
+                          torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    return d[:, :w.shape[1]]
+
+
+@pytest.mark.cuda
+def test_packed_tiles_descriptor_and_fragments_give_the_product(cuda_device):
+    """Small integers are exact in TF32 and in the sums, so the product
+    through the packed tiles, the matrix descriptor and the register
+    fragments must equal a @ w bit for bit."""
+    rs = np.random.RandomState(7)
+    a = torch.as_tensor(rs.randint(-4, 5, (64, 40)).astype(np.float32),
+                        device=cuda_device)
+    w = torch.as_tensor(rs.randint(-4, 5, (40, 217)).astype(np.float32),
+                        device=cuda_device)
+    assert torch.equal(_wgmma_probe(a, w), a @ w)
+
+
+@pytest.mark.cuda
+def test_tensor_core_accumulator_rounding(cuda_device):
+    """How the fp32 accumulator of a TF32 wgmma rounds: 1 + 0.75 ulp and
+    1 + 1.75 ulp, within one instruction and across two. Round to nearest
+    would give 1 and 2 ulp; the H100 truncates (0 and 1 ulp across
+    instructions), which is why the split-TF32 kernels' error is above
+    that of fp32 FMAs. Only the envelope is asserted; run with -s."""
+    ulp = 2.0**-23
+    for what, rows in (
+            ("one instruction, 1 + 0.75 ulp", [[1.0, 0.75 * ulp]]),
+            ("one instruction, 1 + 0.5 ulp + 0.5 ulp",
+             [[1.0, 0.5 * ulp, 0.5 * ulp]]),
+            ("two instructions, 1 then + 0.75 ulp", [[1.0], [0.75 * ulp]]),
+            ("two instructions, 1 then + 1.75 ulp", [[1.0], [1.75 * ulp]]),
+            ("two instructions, -1 then - 0.75 ulp",
+             [[-1.0], [-0.75 * ulp]])):
+        a = torch.zeros((64, 8 * len(rows)), device=cuda_device)
+        w = torch.zeros((8 * len(rows), 8), device=cuda_device)
+        for step, vals in enumerate(rows):
+            for k, v in enumerate(vals):
+                a[0, 8 * step + k] = v
+                w[8 * step + k, 0] = 1.0
+        got = float(_wgmma_probe(a, w)[0, 0])
+        exact = sum(sum(vals) for vals in rows)
+        off = (abs(got) - 1.0) / ulp
+        print("%s: 1 %+g ulp (exact %+g ulp)"
+              % (what, off, (abs(exact) - 1.0) / ulp))
+        assert abs(got - exact) < ulp  # truncated or rounded, never worse
 
 
 @pytest.mark.cuda

@@ -27,6 +27,8 @@ NETS = {
     "scale2": dict(scale=2.0),
     "small": dict(d_hidden=32, n_layers=4, skip_in=(2,), multires=2,
                   d_out=33),
+    "odd": dict(d_hidden=100, n_layers=3, skip_in=(1, 3), multires=4,
+                d_out=7, scale=0.5),
 }
 
 
@@ -37,6 +39,17 @@ def _pair(name, seed=0):
     tp = from_jax({"sdf": jax.tree_util.tree_map(np.asarray, jp),
                    "color": [], "variance": {"variance": 0.3}}, "neus").sdf
     return jp, jcfg, tp, tcfg, ks.pack_sdf(tp, tcfg)
+
+
+def _hidden_tiles(packed, l):
+    """(W_hi, W_lo) [256, 8 tiles] of hidden layer ``l``, read back from the
+    packed buffer: the inverse of pack_sdf's tiling, n by k."""
+    tiles = -(-packed.in_dim[l] // ks.TILE_K)
+    flat = packed.buffer[packed.w_off[l]:
+                         packed.w_off[l] + tiles * ks.TILE_FLOATS]
+    t = flat.reshape(tiles, 2, 2, ks.MAX_WIDTH, ks.TILE_K // 2)
+    return tuple(t[:, i].permute(2, 0, 1, 3).reshape(ks.MAX_WIDTH, -1)
+                 for i in range(2))
 
 
 def _pts(n, seed, spread):
@@ -106,17 +119,94 @@ def test_pack_layout_and_flops():
     assert sum(w.numel() for w, _ in packed.layers) == 524544  # 2.1 MB fp32
     assert list(packed.skip) == [0, 0, 0, 0, 1, 0, 0, 0, 0]
     assert all(off % 4 == 0 for off in packed.w_off)
-    # hidden weights zero-padded to 256 columns; the last layer's column 0
-    w3 = packed.buffer[packed.w_off[3]:packed.w_off[3] + 256 * 256]
-    w3 = w3.reshape(256, 256)
-    assert torch.equal(w3[:, :217], packed.layers[3][0])
-    assert not w3[:, 217:].any()
+    # hidden weights as depth-8 tiles of W^T, hi then lo, n by k inside a
+    # tile; zero rows past the layer's width; the last layer's column 0
+    assert ks.TILE_FLOATS * 4 == 16384
+    assert packed.b_off[3] - packed.w_off[3] == 32 * ks.TILE_FLOATS
+    assert packed.b_off[0] - packed.w_off[0] == 5 * ks.TILE_FLOATS
+    tile = packed.buffer[packed.w_off[3] + 2 * ks.TILE_FLOATS:
+                         packed.w_off[3] + 3 * ks.TILE_FLOATS]
+    tile = tile.reshape(2, 2, 256, 4)  # [hi | lo][k // 4][n][k % 4]
+    w3 = packed.layers[3][0]
+    hi, lo = ks.split_tf32(w3)
+    assert torch.equal(tile[0, 1, 5], hi[20:24, 5])
+    assert torch.equal(tile[1, 0, 216], lo[16:20, 216])
+    assert not tile[:, :, 217:].any()
+    w3_hi, w3_lo = _hidden_tiles(packed, 3)
+    assert torch.equal(w3_hi[:217], hi.T) and torch.equal(w3_lo[:217], lo.T)
+    assert packed.buffer.numel() == 940256  # 3.8 MB: hi and lo of 8 layers
     last = packed.buffer[packed.w_off[8]:packed.w_off[8] + 256]
     assert torch.equal(last, packed.layers[8][0][:, 0])
     assert float(packed.buffer[packed.b_off[8]]) == \
         float(packed.layers[8][1][0])
     assert ks.flops_per_point(packed, False) == 918016
     assert ks.flops_per_point(packed, True) == 4 * 918016
+
+
+def _low_bits(t):
+    return t.contiguous().view(torch.int32) & 0x1FFF
+
+
+def test_split_tf32_rounds_to_nearest_and_keeps_the_rest():
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy(np.concatenate([
+        rs.randn(4096) * 10.0 ** rs.randint(-6, 6, 4096),
+        [0.0, 1.0, -1.0, 1.0 + 2.0**-11, -1.0 - 2.0**-11, 1.0 + 2.0**-12,
+         3.0e-30, 1.0e30]]).astype(np.float32))
+    hi, lo = ks.split_tf32(x)
+    assert not _low_bits(hi).any() and not _low_bits(lo).any()
+    # to nearest at 10 mantissa bits, ties away from zero
+    assert (hi.double() - x.double()).abs().le(
+        x.double().abs() * 2.0**-11).all()
+    assert float(hi[-5]) == 1.0 + 2.0**-10
+    assert float(hi[-4]) == -1.0 - 2.0**-10
+    assert float(hi[-3]) == 1.0 and float(lo[-3]) == 2.0**-12
+    back = hi.double() + lo.double()
+    assert (back - x.double()).abs().le(x.double().abs() * 2.0**-21).all()
+
+
+def test_three_tf32_products_keep_fp32_accuracy_and_one_does_not():
+    """The kernel's a_lo b_hi + a_hi b_lo + a_hi b_hi, emulated in fp32 on
+    the widest layer of the default net, against the fp64 product."""
+    packed = _pair("default")[4]
+    w = packed.layers[5][0]  # [256, 256]
+    a = torch.from_numpy(np.random.RandomState(6).randn(64, 256)
+                         .astype(np.float32) * 0.05)
+    want = a.double() @ w.double()
+    size = (a.double().abs() @ w.double().abs()).max(dim=1, keepdim=True)[0]
+    a_hi, a_lo = ks.split_tf32(a)
+    w_hi, w_lo = ks.split_tf32(w)
+    three = (a_lo @ w_hi + a_hi @ w_lo) + a_hi @ w_hi
+    one = a_hi @ w_hi
+    err3 = ((three.double() - want).abs() / size).max()
+    err1 = ((one.double() - want).abs() / size).max()
+    assert float(err3) < 1e-6
+    assert float(err1) > 2e-5
+
+
+@pytest.mark.parametrize("net", ["default", "small", "odd"])
+def test_packed_tiles_reconstruct_every_hidden_layer(net):
+    packed = _pair(net)[4]
+    assert packed.buffer.dtype == torch.float32
+    assert packed.buffer.is_contiguous()
+    n = len(packed.layers)
+    for l, (w, b) in enumerate(packed.layers[:-1]):
+        d_in, d_out = w.shape
+        tiles = -(-d_in // ks.TILE_K)
+        # 16-byte offsets for the bulk copies, whole tiles, then the bias
+        assert packed.w_off[l] % 4 == 0 and packed.b_off[l] % 4 == 0
+        assert packed.b_off[l] == packed.w_off[l] + tiles * ks.TILE_FLOATS
+        assert torch.equal(
+            packed.buffer[packed.b_off[l]:packed.b_off[l] + d_out], b)
+        w_hi, w_lo = _hidden_tiles(packed, l)
+        assert w_hi.shape == (ks.MAX_WIDTH, tiles * ks.TILE_K)
+        assert not _low_bits(w_hi).any() and not _low_bits(w_lo).any()
+        back = (w_hi.double() + w_lo.double())[:d_out, :d_in].T
+        assert (back - w.double()).abs().le(w.double().abs() * 2.0**-21).all()
+        for part in (w_hi, w_lo):  # zero past the widths
+            assert not part[d_out:].any() and not part[:, d_in:].any()
+    assert packed.in_dim[n - 1] == packed.layers[-1][0].shape[0]
+    assert packed.b_off[n - 1] + 1 <= packed.buffer.numel()
 
 
 @pytest.mark.parametrize("kw,match", [

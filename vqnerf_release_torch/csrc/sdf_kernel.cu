@@ -12,50 +12,106 @@
 // Output: sdf = h[:, 0] / scale [N]. The gradient kernel carries, beside the
 // value, the tangents d/dx, d/dy, d/dz: the encoding's analytic derivatives,
 // dpre = dh @ W, dh = dpre * sigmoid(100 pre); it writes grad [N, 3] =
-// dh[:, 0] (the input scaling and the output's 1/scale cancel). All fp32,
-// sinf/cosf/expf/log1pf in full precision. Forward only, as the TPU kernels.
+// dh[:, 0] (the input scaling and the output's 1/scale cancel). Forward
+// only, as the TPU kernels.
 //
-// What bounds it on an H100: operations. The default net (39 -> 256 x 8 ->
-// column 0 of the last layer) is 2 x 459,008 = 918,016 fp32 operations a
-// point and row; the gradient kernel runs four rows a point. At 67 TFLOP/s
-// that is 7.2 ms for 524,288 points forward and 57.5 ms for 1,048,576 points
-// with the gradient, against 8 and 17 MB of points and outputs (microseconds
-// at 3.35 TB/s). Only column 0 of the last layer is computed, since nothing
-// else is returned.
+// What bounds it on an H100: operations, on the tensor cores. The default
+// net (39 -> 256 x 8 -> column 0 of the last layer) is 2 x 459,008 = 918,016
+// operations a point and row; the gradient kernel runs four rows a point.
+// Single TF32 keeps three decimal digits, too few for an SDF that goes
+// through inv_s of several hundred (measured: 1.2e-3 on sdf against 3.0e-5),
+// so every product is split in three TF32 products into one fp32
+// accumulator, a_lo b_hi + a_hi b_lo + a_hi b_hi, where x_hi = tf32(x)
+// (cvt.rna) and x_lo = tf32(x - x_hi): a third of the TF32 rate, 495 / 3 =
+// 165 TFLOP/s, against 67 TFLOP/s on the CUDA cores. That bound is 2.9 ms
+// for 524,288 points forward and 23.3 ms for 1,048,576 points with the
+// gradient; points and outputs are 8 and 17 MB (microseconds at 3.35 TB/s).
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py): 6.1-6.2
+// ms and 42.0-42.1 ms, 47% and 55% of that bound, where the CUDA-core design
+// before it took 15.6-15.8 and 111.7-112.5 ms. The card draws its 700 W and
+// clocks down to 1.5-1.9 GHz meanwhile. The split inputs are exact to 2^-21,
+// but the tensor core's fp32 accumulator truncates where an FMA rounds to
+// nearest (tests/test_torch_cuda.py::test_tensor_core_accumulator_rounding),
+// 96 times a layer, so the error against the plain versions is 2e-5 to 3e-5
+// where fp32 FMAs gave 1e-6: inside rtol 1e-4 / atol 1e-5. Only column 0 of
+// the last layer is computed, on the CUDA cores, since nothing else is
+// returned.
 //
-// Design. The TPU kernels keep all weights in VMEM (2.1 MB for the default
-// net) and work on blocks of 256 points. A CUDA block has 227 KB of shared
-// memory, so here:
-//   * a block of 256 threads owns TILE_M = 64 rows: 64 points forward, or 16
-//     points x (value, d/dx, d/dy, d/dz) with the gradient, row = point * C
-//     + channel. The tangent rows multiply the same W as the value row, so
-//     the four channels are simply a taller matrix product;
-//   * the block's activations stay in shared memory from the encoding to the
-//     output, transposed ([feature][row], 64 KB), so that a thread reads its
-//     8 rows of one feature as two float4;
-//   * each layer's weights stream from global memory (they stay in the 50 MB
-//     L2) through two shared tiles of 16 x 256, the next tile prefetched
-//     into registers while the current one is multiplied;
-//   * warp w owns rows 8w..8w+7 and lane l the columns 4l..4l+3 and
-//     128+4l..128+4l+3: an 8 x 8 register tile a thread, 64 FMAs for four
-//     16-byte shared loads. Rows are read and written by their own warp
-//     only, so a layer updates the activations in place;
-//   * hidden weights are packed [in][256] with zero columns past the layer's
-//     width, so every tile load is an aligned float4; the last layer is
-//     packed as its column 0 alone and computed as a dot product per row;
-//   * the ragged tail is masked: rows past N read a zero point and store
+// Design.
+//   * A block owns TILE_M = 128 rows: two consumer warpgroups of 64 rows
+//     each, and a producer warpgroup of which one lane works; setmaxnreg
+//     moves its registers to the consumers (40 and 232 a thread). Rows are
+//     points forward, and point * 4 + (value, d/dx, d/dy, d/dz) with the
+//     gradient: the tangent rows multiply the same W as the value row, so
+//     the four channels are simply a taller matrix product.
+//   * Products: wgmma m64n256k8 (TF32, fp32 accumulator of 128 registers a
+//     thread), A from registers, B from shared memory through a matrix
+//     descriptor. The activations stay in shared memory in fp32,
+//     [row][feature] with a row stride of 260 floats (no bank conflicts on
+//     the fragment loads); a thread loads its four A values of a depth-8
+//     step, splits them into hi and lo in registers and starts the three
+//     products. A warp reads and writes only its own 16 rows, so a layer
+//     updates the activations in place behind a __syncwarp.
+//   * Weights are split into hi and lo and tiled once, at pack time
+//     (kernels/sdf.py::pack_sdf): for each hidden layer and each depth-8
+//     step one contiguous tile of 16 KB, [hi, lo][k / 4][n 256][k % 4],
+//     which is wgmma's K-major layout without swizzle (8 x 16-byte core
+//     matrices 128 bytes apart along n, 4 KB apart along k). Rows past the
+//     layer's width and depth past its input are zero.
+//   * The producer streams the tiles (3.75 MB a block for the default net;
+//     they stay in the 50 MB L2) into a ring of STAGES = 6 stages with one
+//     cp.async.bulk a tile; consumers wait on a stage's "full" mbarrier
+//     and, when the wgmma group that read it has completed, arrive on its
+//     "empty" one. Both warpgroups share every stage, so a block reads the
+//     weights once for 128 rows. The ring is not the limit: 3 stages, and
+//     no copies at all, give the same time.
+//   * Epilogue in fp32 on the CUDA cores from the accumulator registers:
+//     bias, softplus (expf, log1pf in full precision), the sigmoid gate on
+//     the tangent rows, 1/sqrt2 before a skip. In the accumulator layout a
+//     thread holds rows g and g + 8 of its warp's 16 (g = lane / 4); rows
+//     are ordered point * 4 + channel, so the four lanes (lane & ~12) + 0,
+//     4, 8, 12 hold the four channels of two points and only the first
+//     one's elements need expf and log1pf: each of the four lanes takes one
+//     of them (4 shuffles), and the four sigmoid gates go back by 4
+//     shuffles. With every lane running expf and log1pf for the value
+//     rows' sake the gradient kernel took 78 ms in place of 42 ms.
+//   * The encoding is written into the activations by each warp for its own
+//     rows, and computed again at a skip layer (shared memory has no room
+//     to keep it: 96 KB ring + 130 KB activations of the 227 KB).
+//   * The last layer is a dot product per row with column 0, the 32 lanes
+//     of a warp over the features, reduced by shuffles in a fixed order.
+//   * The ragged tail is masked: rows past N read a zero point and store
 //     nothing. Every sum has a fixed order: the same bits from run to run.
-// About 106 KB of shared memory a block (two blocks an SM), set with
-// cudaFuncSetAttribute since it is above the 48 KB default.
+//
+// Three compile-time switches serve the card-only studies of
+// tests/test_torch_cuda.py; the port builds the default of each.
+// -DSDF_TF32_PASSES=1: the single-product variant (hi x hi only).
+// -DSDF_STAGES=n: another depth of the weight ring.
+// -DSDF_SKIP_ACTIVATION: the epilogue's expf, log1pf, gate and shuffles
+// compiled out, to time the products alone; its results are wrong.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#ifndef SDF_TF32_PASSES
+#define SDF_TF32_PASSES 3
+#endif
 
 #define SDF_MAX_LAYERS 16
-#define TILE_M 64
 #define TILE_N 256
-#define TILE_K 16
-#define THREADS 256
+#define TILE_K 8
+#define N_WG 2                         // consumer warpgroups
+#define TILE_M (64 * N_WG)             // rows of a block
+#define THREADS (128 * (N_WG + 1))     // consumers, and the producer's group
+#define ACT_STRIDE 260                 // floats; 260 % 32 == 4
+#ifndef SDF_STAGES
+#define SDF_STAGES 6
+#endif
+#define STAGES SDF_STAGES
+#define HALF_BYTES (TILE_N * TILE_K * 4)   // one of hi / lo: 8 KB
+#define STAGE_BYTES (2 * HALF_BYTES)
+#define COPY_BYTES (SDF_TF32_PASSES == 3 ? STAGE_BYTES : HALF_BYTES)
 #define MAX_EMBED 64
 
 struct SdfNet {
@@ -70,195 +126,454 @@ struct SdfNet {
     float scale;
 };
 
-__device__ __forceinline__ void load_tile(const float* __restrict__ w, int in,
-                                          int k0, int tid, float4 (&reg)[4]) {
+// ---- mbarrier, bulk copy and wgmma, in PTX ---------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// Global -> shared copy of `bytes` (a multiple of 16, both 16-byte aligned)
+// that reports to the mbarrier `bar` when it has landed.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+    return r;
+}
+
+// Matrix descriptor of a [256 n][8 k] TF32 tile stored [k / 4][n][k % 4]:
+// K-major, no swizzle; the 8 x 16-byte core matrices lie 128 bytes apart
+// along n (stride byte offset) and 4096 bytes apart along k (leading byte
+// offset). Fields are in 16-byte units.
+__device__ __forceinline__ uint64_t b_descriptor(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4)
+        | ((uint64_t)((TILE_N * 16) >> 4) << 16)
+        | ((uint64_t)(128 >> 4) << 32);
+}
+
+// d[64 x 256] += a[64 x 8] b[8 x 256]: a from registers (the m16n8k8 TF32
+// fragment of each warp's 16 rows), b from shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[128],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// The four A values of a thread for one depth-8 step, split into hi and lo.
+__device__ __forceinline__ void load_frag(const float* a0, const float* a1,
+                                          int k0, uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+    const float v[4] = {a0[k0], a1[k0], a0[k0 + 4], a1[k0 + 4]};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-        const int j = tid + THREADS * i;  // float4 index in the tile
-        const int row = k0 + (j >> 6);
-        reg[i] = row < in
-            ? *reinterpret_cast<const float4*>(w + (size_t)row * TILE_N
-                                               + 4 * (j & 63))
-            : make_float4(0.f, 0.f, 0.f, 0.f);
+        hi[i] = to_tf32(v[i]);
+        lo[i] = to_tf32(v[i] - __uint_as_float(hi[i]));
     }
 }
 
-__device__ __forceinline__ void store_tile(float* tile, int tid,
-                                           const float4 (&reg)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-        reinterpret_cast<float4*>(tile)[tid + THREADS * i] = reg[i];
+// The ring of weight stages as one consumer sees it.
+struct Ring {
+    uint32_t base, full, empty;  // shared addresses: stages, barriers
+    int stage, prev;
+    uint32_t phase;
+};
+
+// One depth-8 step: wait for the stage, start its products (the small terms
+// first) as one wgmma group, and, unless it is a layer's first step, wait
+// for the group before it and hand that group's stage back to the producer.
+__device__ __forceinline__ void k_step(float (&acc)[128],
+                                       const uint32_t (&hi)[4],
+                                       const uint32_t (&lo)[4], Ring& ring,
+                                       bool first, int lane) {
+    mbar_wait(ring.full + 8 * ring.stage, ring.phase);
+    wgmma_fence();
+    const uint64_t d_hi = b_descriptor(ring.base + ring.stage * STAGE_BYTES);
+#if SDF_TF32_PASSES == 3
+    wgmma_tf32(acc, lo, d_hi);
+    wgmma_tf32(acc, hi, d_hi + (HALF_BYTES >> 4));
+#endif
+    wgmma_tf32(acc, hi, d_hi);
+    wgmma_commit();
+    if (!first) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(ring.empty + 8 * ring.prev);
+    }
+    ring.prev = ring.stage;
+    if (++ring.stage == STAGES) {
+        ring.stage = 0;
+        ring.phase ^= 1;
+    }
 }
 
+// The positional encoding of a warp's 16 rows (and its derivatives in the
+// tangent rows), times `mul`, into columns col0 .. col0 + d_embed - 1 of the
+// activations, and zeros up to the next multiple of 8.
 template <int C>
-__global__ void __launch_bounds__(THREADS, 2)
-sdf_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ wbuf,
-               const SdfNet net, const int n, float* __restrict__ out_sdf,
-               float* __restrict__ out_grad) {
-    extern __shared__ __align__(16) float smem[];
-    float* act = smem;                           // [TILE_N][TILE_M]
-    float* wt = act + TILE_N * TILE_M;           // [2][TILE_K][TILE_N]
-    float* emb = wt + 2 * TILE_K * TILE_N;       // [d_embed][TILE_M]
-    constexpr int P = TILE_M / C;                // points of a block
-    const float inv_sqrt2 = 0.70710678118654752f;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const long long p0 = (long long)blockIdx.x * P;
-
-    // ---- positional encoding, and its derivatives in the tangent rows ----
-    for (int idx = tid; idx < P * 3; idx += THREADS) {
+__device__ __forceinline__ void write_embed(float* act_warp,
+                                            const float* __restrict__ pts,
+                                            long long first_point, int n,
+                                            const SdfNet& net, int col0,
+                                            float mul, int lane) {
+    constexpr int P = 16 / C;  // points of a warp
+    for (int idx = lane; idx < P * 3; idx += 32) {
         const int p = idx / 3, a = idx - 3 * p;
-        const long long gp = p0 + p;
+        const long long gp = first_point + p;
         const float x = gp < n ? pts[gp * 3 + a] * net.scale : 0.f;
-        const int row = p * C;
-        emb[a * TILE_M + row] = x;
+        float* dst = act_warp + p * C * ACT_STRIDE + col0;
+        dst[a] = x * mul;
         if (C == 4) {
 #pragma unroll
             for (int c = 1; c < 4; ++c)
-                emb[a * TILE_M + row + c] = (c - 1 == a) ? 1.f : 0.f;
+                dst[c * ACT_STRIDE + a] = (c - 1 == a) ? mul : 0.f;
         }
         float freq = 1.f;
         for (int i = 0; i < net.n_freqs; ++i, freq *= 2.f) {
             const float s = sinf(x * freq), co = cosf(x * freq);
             const int ks = 3 + 6 * i + a, kc = ks + 3;
-            emb[ks * TILE_M + row] = s;
-            emb[kc * TILE_M + row] = co;
+            dst[ks] = s * mul;
+            dst[kc] = co * mul;
             if (C == 4) {
 #pragma unroll
                 for (int c = 1; c < 4; ++c) {
                     const bool on = (c - 1 == a);
-                    emb[ks * TILE_M + row + c] = on ? co * freq : 0.f;
-                    emb[kc * TILE_M + row + c] = on ? -s * freq : 0.f;
+                    dst[c * ACT_STRIDE + ks] = on ? (co * freq) * mul : 0.f;
+                    dst[c * ACT_STRIDE + kc] = on ? (-s * freq) * mul : 0.f;
                 }
             }
         }
     }
+    const int end = col0 + net.d_embed;
+    const int pad = ((end + TILE_K - 1) & ~(TILE_K - 1)) - end;
+    for (int idx = lane; idx < 16 * pad; idx += 32)
+        act_warp[(idx / pad) * ACT_STRIDE + end + idx % pad] = 0.f;
+}
+
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1)
+sdf_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ wbuf,
+               const SdfNet net, const int n, float* __restrict__ out_sdf,
+               float* __restrict__ out_grad) {
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    float* act = reinterpret_cast<float*>(smem_raw + STAGES * STAGE_BYTES);
+    uint64_t* bars = reinterpret_cast<uint64_t*>(act + TILE_M * ACT_STRIDE);
+    const uint32_t ring_base = smem_addr(smem_raw);
+    const uint32_t full = smem_addr(bars), empty = full + 8 * STAGES;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int last = net.n_layers - 1;
+
+    if (tid == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full + 8 * s, 1);           // the producer's expect_tx
+            mbar_init(empty + 8 * s, 4 * N_WG);   // each consumer warp's lane 0
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
     __syncthreads();
 
-    // ---- hidden layers ---------------------------------------------------
-    const int last = net.n_layers - 1;
+    if (warp >= 4 * N_WG) {
+        // ---- producer: one lane streams every hidden layer's tiles; its
+        // warpgroup hands its registers to the consumers ---------------------
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+        if (warp == 4 * N_WG && lane == 0) {
+            int stage = 0;
+            uint32_t phase = 1;  // a fresh barrier's preceding phase: free
+            for (int l = 0; l < last; ++l) {
+                const int nt = (net.in_dim[l] + TILE_K - 1) / TILE_K;
+                const float* src = wbuf + net.w_off[l];
+                for (int kt = 0; kt < nt; ++kt) {
+                    mbar_wait(empty + 8 * stage, phase);
+                    mbar_expect_tx(full + 8 * stage, COPY_BYTES);
+                    bulk_copy(ring_base + stage * STAGE_BYTES,
+                              src + (size_t)kt * (STAGE_BYTES / 4),
+                              COPY_BYTES, full + 8 * stage);
+                    if (++stage == STAGES) {
+                        stage = 0;
+                        phase ^= 1;
+                    }
+                }
+            }
+        }
+        return;
+    }
+
+    // ---- consumers: warp w of the block owns rows 16 w .. 16 w + 15 ------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const float inv_sqrt2 = 0.70710678118654752f;
+    const int g = lane >> 2, t = lane & 3;
+    float* act_warp = act + 16 * warp * ACT_STRIDE;
+    float* row0 = act_warp + g * ACT_STRIDE;   // the thread's accumulator rows
+    float* row1 = row0 + 8 * ACT_STRIDE;
+    const long long first_row = (long long)blockIdx.x * TILE_M + 16 * warp;
+    const long long first_point = first_row / C;
+    // with the gradient: the thread's channel, the lane that holds its
+    // point's value rows, and where element `ch` of those rows is stored
+    // (element j: row g + 8 (j / 2), column col + j % 2)
+    const int ch = g & 3, vlane = lane & ~12;
+    float* vrow =
+        act_warp + ((g & ~3) + 8 * (ch >> 1)) * ACT_STRIDE + (ch & 1);
+
+    write_embed<C>(act_warp, pts, first_point, n, net, 0, 1.f, lane);
+    __syncwarp();
+
+    Ring ring = {ring_base, full, empty, 0, 0, 0u};
     for (int l = 0; l < last; ++l) {
         const int in = net.in_dim[l], out = net.out_dim[l];
-        const float* A = (l == 0) ? emb : act;
-        const float* W = wbuf + net.w_off[l];
-        float acc[8][8];
+        const int nt = (in + TILE_K - 1) / TILE_K;
+        float acc[128];
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+        for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 
-        const int n_tiles = (in + TILE_K - 1) / TILE_K;
-        float4 reg[4];
-        load_tile(W, in, 0, tid, reg);
-        store_tile(wt, tid, reg);
-        __syncthreads();
-        for (int t = 0; t < n_tiles; ++t) {
-            if (t + 1 < n_tiles) load_tile(W, in, (t + 1) * TILE_K, tid, reg);
-            const float* B = wt + (t & 1) * TILE_K * TILE_N + 4 * lane;
-            const float* At = A + t * TILE_K * TILE_M + 8 * warp;
-            const int kt = min(TILE_K, in - t * TILE_K);
-#pragma unroll 4
-            for (int kk = 0; kk < kt; ++kk) {
-                const float4 a0 =
-                    *reinterpret_cast<const float4*>(At + kk * TILE_M);
-                const float4 a1 =
-                    *reinterpret_cast<const float4*>(At + kk * TILE_M + 4);
-                const float4 b0 =
-                    *reinterpret_cast<const float4*>(B + kk * TILE_N);
-                const float4 b1 =
-                    *reinterpret_cast<const float4*>(B + kk * TILE_N + 128);
-                const float a[8] = {a0.x, a0.y, a0.z, a0.w,
-                                    a1.x, a1.y, a1.z, a1.w};
-                const float b[8] = {b0.x, b0.y, b0.z, b0.w,
-                                    b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-                for (int r = 0; r < 8; ++r)
-#pragma unroll
-                    for (int j = 0; j < 8; ++j)
-                        acc[r][j] = fmaf(a[r], b[j], acc[r][j]);
+        // two sets of A fragments: one feeds the products in flight while
+        // the other is loaded for the next step
+        uint32_t hi_a[4], lo_a[4], hi_b[4], lo_b[4];
+        load_frag(row0 + t, row1 + t, 0, hi_a, lo_a);
+        for (int kt = 0; kt < nt; kt += 2) {
+            k_step(acc, hi_a, lo_a, ring, kt == 0, lane);
+            if (kt + 1 < nt) {
+                load_frag(row0 + t, row1 + t, (kt + 1) * TILE_K, hi_b, lo_b);
+                k_step(acc, hi_b, lo_b, ring, false, lane);
+                if (kt + 2 < nt)
+                    load_frag(row0 + t, row1 + t, (kt + 2) * TILE_K, hi_a,
+                              lo_a);
             }
-            if (t + 1 < n_tiles)
-                store_tile(wt + ((t + 1) & 1) * TILE_K * TILE_N, tid, reg);
-            __syncthreads();
         }
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(ring.empty + 8 * ring.prev);
+#pragma unroll
+        for (int i = 0; i < 128; ++i)
+            asm volatile("" : "+f"(acc[i]) :: "memory");
 
         // bias, softplus on the value rows, the sigmoid gate on the tangent
-        // rows, and the 1/sqrt2 of a skip concat that follows
+        // rows, and the 1/sqrt2 of a skip concat that follows; columns past
+        // the layer's width become the zeros the next layer's depth needs
         const float* bias = wbuf + net.b_off[l];
         const bool to_skip = net.skip[l + 1] != 0;
         const float post = to_skip ? inv_sqrt2 : 1.f;
+        const int next_k =
+            (net.in_dim[l + 1] + TILE_K - 1) & ~(TILE_K - 1);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int col = (j < 4) ? 4 * lane + j : 128 + 4 * lane + (j - 4);
-            if (col < out) {
-                const float bv = bias[col];
-                float o[8];
+        for (int i = 0; i < 32; ++i) {
+            if (8 * i >= next_k) continue;
+            const int col = 8 * i + 2 * t;
+            // the thread's four elements: (row g | g + 8) x (col | col + 1)
+            float o[4] = {0.f, 0.f, 0.f, 0.f};
+            bool store_own = true;
+            if (8 * i < out) {
+                const bool on0 = col < out, on1 = col + 1 < out;
+                const float b0 = on0 ? __ldg(bias + col) : 0.f;
+                const float b1 = on1 ? __ldg(bias + col + 1) : 0.f;
+#ifdef SDF_SKIP_ACTIVATION
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    o[j] = (acc[4 * i + j] + ((j & 1) ? b1 : b0)) * post;
+                    if (!((j & 1) ? on1 : on0)) o[j] = 0.f;
+                }
+#else
                 if (C == 1) {
 #pragma unroll
-                    for (int r = 0; r < 8; ++r) {
-                        const float x = acc[r][j] + bv;
-                        const float e = expf(-fabsf(100.f * x));
-                        o[r] = (fmaxf(x, 0.f) + log1pf(e) / 100.f) * post;
+                    for (int j = 0; j < 4; ++j) {
+                        const float pre = acc[4 * i + j] + ((j & 1) ? b1 : b0);
+                        const float e = expf(-fabsf(100.f * pre));
+                        o[j] = (fmaxf(pre, 0.f) + log1pf(e) * 0.01f) * post;
+                        if (!((j & 1) ? on1 : on0)) o[j] = 0.f;
                     }
                 } else {
+                    // The lanes vlane + 0, 4, 8, 12 hold the four channels
+                    // of two points. Only the value lane's four elements
+                    // need expf and log1pf: each lane of the group takes
+                    // one of them (element ch), stores its softplus into
+                    // the value row itself, and the four gates go back by
+                    // shuffle.
+                    float x = 0.f;
 #pragma unroll
-                    for (int q = 0; q < 8; q += 4) {
-                        const float x = acc[q][j] + bv;
-                        const float e = expf(-fabsf(100.f * x));
-                        const float gate = (x >= 0.f ? 1.f : e) / (1.f + e);
-                        o[q] = (fmaxf(x, 0.f) + log1pf(e) / 100.f) * post;
-#pragma unroll
-                        for (int c = 1; c < 4; ++c)
-                            o[q + c] = acc[q + c][j] * gate * post;
+                    for (int j = 0; j < 4; ++j) {
+                        const float pre = acc[4 * i + j] + ((j & 1) ? b1 : b0);
+                        const float v = __shfl_sync(0xffffffffu, pre, vlane);
+                        if (j == ch) x = v;
                     }
+                    const float e = expf(-fabsf(100.f * x));
+                    const float gate = __fdividef(x >= 0.f ? 1.f : e, 1.f + e);
+                    float sp = (fmaxf(x, 0.f) + log1pf(e) * 0.01f) * post;
+                    if (!((ch & 1) ? on1 : on0)) sp = 0.f;
+                    vrow[col] = sp;
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const float gj =
+                            __shfl_sync(0xffffffffu, gate, vlane + 4 * j);
+                        o[j] = acc[4 * i + j] * gj * post;
+                        if (!((j & 1) ? on1 : on0)) o[j] = 0.f;
+                    }
+                    store_own = ch != 0;  // the value rows are stored above
                 }
-                float4* dst = reinterpret_cast<float4*>(
-                    act + col * TILE_M + 8 * warp);
-                dst[0] = make_float4(o[0], o[1], o[2], o[3]);
-                dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+#endif
             }
-        }
-        if (to_skip) {
-            for (int idx = lane; idx < net.d_embed * 8; idx += 32) {
-                const int k = idx >> 3, r = 8 * warp + (idx & 7);
-                act[(out + k) * TILE_M + r] = emb[k * TILE_M + r] * inv_sqrt2;
+            if (store_own) {
+                *reinterpret_cast<float2*>(row0 + col) =
+                    make_float2(o[0], o[1]);
+                *reinterpret_cast<float2*>(row1 + col) =
+                    make_float2(o[2], o[3]);
             }
         }
         __syncwarp();
+        if (to_skip) {
+            write_embed<C>(act_warp, pts, first_point, n, net, out, inv_sqrt2,
+                           lane);
+            __syncwarp();
+        }
     }
-    __syncthreads();
 
     // ---- last layer: column 0 only, a dot product per row ----------------
     {
         const int in = net.in_dim[last];
-        const float* A = (last == 0) ? emb : act;
         const float* wl = wbuf + net.w_off[last];
-        const int row = tid & (TILE_M - 1), part = tid >> 6;
-        const int chunk = (in + 3) / 4;
-        const int k_end = min(in, (part + 1) * chunk);
-        float s = 0.f;
-        for (int k = part * chunk; k < k_end; ++k)
-            s = fmaf(A[k * TILE_M + row], wl[k], s);
-        wt[part * TILE_M + row] = s;
-        __syncthreads();
-        if (tid < TILE_M) {
-            const float v = (wt[row] + wt[TILE_M + row])
-                + (wt[2 * TILE_M + row] + wt[3 * TILE_M + row]);
-            const int p = row / C, c = row - p * C;
-            const long long gp = p0 + p;
+        float mine = 0.f;
+        for (int r = 0; r < 16; ++r) {
+            const float* a = act_warp + r * ACT_STRIDE;
+            float s = 0.f;
+            for (int k = lane; k < in; k += 32)
+                s = fmaf(a[k], __ldg(wl + k), s);
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+                s += __shfl_xor_sync(0xffffffffu, s, off);
+            if (lane == r) mine = s;
+        }
+        if (lane < 16) {
+            const long long row = first_row + lane;
+            const long long gp = row / C;
+            const int c = (int)(row - gp * C);
             if (gp < n) {
                 if (c == 0)
-                    out_sdf[gp] = (v + wbuf[net.b_off[last]]) / net.scale;
+                    out_sdf[gp] =
+                        (mine + __ldg(wbuf + net.b_off[last])) / net.scale;
                 else
-                    out_grad[gp * 3 + (c - 1)] = v;
+                    out_grad[gp * 3 + (c - 1)] = mine;
             }
         }
     }
 }
 
-// Dynamic shared memory of a block, in bytes.
-static int sdf_smem_bytes(int d_embed) {
-    return (TILE_N * TILE_M + 2 * TILE_K * TILE_N + d_embed * TILE_M)
-        * (int)sizeof(float);
+// Dynamic shared memory of a block, in bytes: the ring, the activations and
+// the 2 x STAGES mbarriers.
+static int sdf_smem_bytes() {
+    return STAGES * STAGE_BYTES + TILE_M * ACT_STRIDE * (int)sizeof(float)
+        + 2 * STAGES * 8;
+}
+
+template <int C>
+static int launch(const float* pts, const float* wbuf, const SdfNet& net,
+                  int n, float* sdf, float* grad, cudaStream_t s) {
+    const int smem = sdf_smem_bytes();
+    cudaError_t err = cudaFuncSetAttribute(
+        sdf_mlp_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = ((long long)n * C + TILE_M - 1) / TILE_M;
+    sdf_mlp_kernel<C><<<(unsigned)blocks, THREADS, smem, s>>>(pts, wbuf, net,
+                                                              n, sdf, grad);
+    return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -272,6 +587,7 @@ int sdf_mlp_launch(const float* pts, const float* wbuf, int n, int n_layers,
                    const int* w_off, const int* b_off, const int* skip,
                    double scale, float* sdf, float* grad, void* stream) {
     if (n_layers < 2 || n_layers > SDF_MAX_LAYERS) return cudaErrorInvalidValue;
+    if ((uintptr_t)wbuf & 15) return cudaErrorInvalidValue;
     SdfNet net;
     net.n_layers = n_layers;
     net.n_freqs = n_freqs;
@@ -295,28 +611,9 @@ int sdf_mlp_launch(const float* pts, const float* wbuf, int n, int n_layers,
             return cudaErrorInvalidValue;
     }
     if (n <= 0) return 0;
-    const int smem = sdf_smem_bytes(net.d_embed);
     cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err;
-    if (grad == nullptr) {
-        err = cudaFuncSetAttribute(sdf_mlp_kernel<1>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem);
-        if (err != cudaSuccess) return (int)err;
-        const int blocks = (n + TILE_M - 1) / TILE_M;
-        sdf_mlp_kernel<1><<<blocks, THREADS, smem, s>>>(pts, wbuf, net, n, sdf,
-                                                        nullptr);
-    } else {
-        err = cudaFuncSetAttribute(sdf_mlp_kernel<4>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem);
-        if (err != cudaSuccess) return (int)err;
-        const int p = TILE_M / 4;
-        const int blocks = (n + p - 1) / p;
-        sdf_mlp_kernel<4><<<blocks, THREADS, smem, s>>>(pts, wbuf, net, n, sdf,
-                                                        grad);
-    }
-    return (int)cudaGetLastError();
+    return grad == nullptr ? launch<1>(pts, wbuf, net, n, sdf, nullptr, s)
+                           : launch<4>(pts, wbuf, net, n, sdf, grad, s);
 }
 
 }  // extern "C"

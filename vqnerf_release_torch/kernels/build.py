@@ -15,7 +15,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load",
-           "check_tensor"]
+           "check_tensor", "count_sass"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -25,17 +25,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _nvcc():
+def _tool(name):
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
+    path = os.path.join(cuda_home, "bin", name)
     if os.path.exists(path):
         return path
-    path = shutil.which("nvcc")
+    path = shutil.which(name)
     if path is None:
         raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the "
+            f"{name} not found (looked in $CUDA_HOME/bin and on PATH); the "
             "port's CUDA kernels need the CUDA toolkit to build")
     return path
+
+
+def _nvcc():
+    return _tool("nvcc")
+
+
+def count_sass(so, *mnemonics):
+    """How often the machine code of a built library names any of
+    ``mnemonics`` (``cuobjdump -sass``)."""
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    return sum(sass.count(m) for m in mnemonics)
 
 
 def build(source, stem, extra_flags=()):

@@ -12,8 +12,14 @@ first use and binds it with ``ctypes``.
 ``pack_sdf`` folds the weight norm and lays the weights out for the kernel
 ONCE (one contiguous buffer and a table of offsets); a caller that evaluates
 many batches, such as the geometry extractor, packs once and passes the
-result to every call. The net may have any layer widths up to 256, any
-``skip_in`` and any ``scale``; N is free, the kernel masks its ragged tail.
+result to every call. The kernel multiplies on the tensor cores in TF32,
+each product split in three (``split_tf32``) so that no input loses its
+fp32 bits, and the buffer holds every hidden layer's weights already split
+into hi and lo and tiled as the kernel's copies and matrix descriptors read
+them. (The tensor cores' fp32 accumulator truncates, so the kernels agree
+with the plain versions to about 3e-5, not to fp32's last bits.) The net
+may have any layer widths up to 256, any ``skip_in`` and any ``scale``; N
+is free, the kernel masks its ragged tail.
 
 ``sdf_fwd`` and ``sdf_fwdgrad`` take the plain versions ``sdf_fwd_plain`` /
 ``sdf_fwdgrad_plain`` only for CPU tensors. For CUDA tensors they launch the
@@ -35,7 +41,8 @@ from . import build as kbuild
 
 __all__ = ["LAUNCHES", "SOURCE", "PackedSDF", "build", "load", "pack_sdf",
            "sdf_fwd", "sdf_fwdgrad", "sdf_fwd_plain", "sdf_fwdgrad_plain",
-           "flops_per_point", "MAX_WIDTH", "MAX_LAYERS"]
+           "split_tf32", "flops_per_point", "tensor_core_instructions",
+           "MAX_WIDTH", "MAX_LAYERS", "TILE_K", "TILE_FLOATS", "TILE_ROWS"]
 
 LAUNCHES = {"sdf_fwd": 0, "sdf_fwdgrad": 0}
 
@@ -43,6 +50,9 @@ SOURCE = kbuild.CSRC_DIR / "sdf_kernel.cu"
 MAX_WIDTH = 256  # widest layer input and hidden output the kernel takes
 MAX_LAYERS = 16
 MAX_FREQS = 10
+TILE_K = 8  # depth of one tensor-core step, and of one weight tile
+TILE_FLOATS = 2 * MAX_WIDTH * TILE_K  # one tile: hi then lo, 16 KB
+TILE_ROWS = 128  # rows (points x channels) of one block of the kernel
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
 _lib = None
@@ -50,8 +60,9 @@ _lib = None
 
 def build(extra_flags=()):
     """Compile the kernels unless their library exists; see ``build.build``.
-    The port builds with nvcc's default FMA contraction; ``extra_flags``
-    lets the card-only tests build with ``-fmad=false`` beside that."""
+    The port builds the split-TF32 kernel (three products a value);
+    ``extra_flags`` lets the card-only tests build the single-product
+    variant (``-DSDF_TF32_PASSES=1``) beside that."""
     return kbuild.build(SOURCE, "sdf", extra_flags)
 
 
@@ -63,6 +74,12 @@ def load(so):
         "sdf_mlp_launch": [ptr, ptr, i32, i32, i32] + [table] * 5
         + [f64, ptr, ptr, ptr],
     })
+
+
+def tensor_core_instructions(so):
+    """Count of tensor-core instructions (HGMMA from wgmma, HMMA from
+    mma.sync) in a built library's machine code."""
+    return kbuild.count_sass(so, "HGMMA", "HMMA")
 
 
 def _library():
@@ -77,10 +94,14 @@ class PackedSDF:
     """An SDF net with the weight norm folded in, ready for both the kernel
     and the plain versions.
 
-    layers: [(W [in, out], b [out])], detached. buffer: the kernel's layout
-    on the layers' device: each hidden layer's W zero-padded to [in, 256]
-    then its b; the last layer as its column 0 then b[0]; every offset a
-    multiple of 4 floats. The tables are ctypes int arrays (host)."""
+    layers: [(W [in, out], b [out])], detached, for the plain versions.
+    buffer: the kernel's layout on the layers' device. Each hidden layer is
+    ceil(in / 8) tiles of ``TILE_FLOATS`` floats, one per depth-8 step:
+    [hi, lo][k // 4][n 256][k % 4] of W^T split by ``split_tf32``, zero
+    past the layer's input and output widths; then its b. The last layer is
+    its column 0 then b[0], in fp32. Every offset is a multiple of 4 floats
+    (the 16 bytes the kernel's bulk copies need). The tables are ctypes int
+    arrays (host)."""
     layers: List[Tuple[torch.Tensor, torch.Tensor]]
     n_freqs: int
     skip_in: Tuple[int, ...]
@@ -143,9 +164,7 @@ def pack_sdf(params, cfg):
             w_off.append(put(w[:, 0]))
             b_off.append(put(b[:1]))
         else:
-            padded = w.new_zeros((d_in, MAX_WIDTH))
-            padded[:, :d_out] = w
-            w_off.append(put(padded))
+            w_off.append(put(_tile_weights(w)))
             b_off.append(put(b))
         in_dim.append(d_in)
         out_dim.append(d_out)
@@ -158,6 +177,32 @@ def pack_sdf(params, cfg):
         buffer=torch.cat(pieces).to(torch.float32).contiguous(),
         in_dim=ints(*in_dim), out_dim=ints(*out_dim), w_off=ints(*w_off),
         b_off=ints(*b_off), skip=ints(*skip))
+
+
+def split_tf32(x):
+    """(hi, lo) of a float32 tensor: hi is x rounded to TF32 (10 mantissa
+    bits, to nearest, ties away from zero, as ``cvt.rna.tf32.f32`` rounds),
+    lo is x - hi rounded the same way. hi + lo equals x to 2^-21 relative,
+    and a b is a_lo b_hi + a_hi b_lo + a_hi b_hi to that accuracy."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _tile_weights(w):
+    """W [in, out] -> [tiles, 2 (hi, lo), 2 (k // 4), 256 (n), 4 (k % 4)]:
+    W^T zero-padded to [256, 8 tiles], split, and cut into depth-8 tiles in
+    the K-major order the tensor cores read from shared memory."""
+    d_in, d_out = w.shape
+    tiles = -(-d_in // TILE_K)
+    wt = w.new_zeros((MAX_WIDTH, tiles * TILE_K), dtype=torch.float32)
+    wt[:d_out, :d_in] = w.t()
+    parts = [part.reshape(MAX_WIDTH, tiles, 2, TILE_K // 2).permute(1, 2, 0, 3)
+             for part in split_tf32(wt)]
+    return torch.stack(parts, dim=1).contiguous()
 
 
 def flops_per_point(packed, with_grad):
