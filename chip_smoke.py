@@ -8,9 +8,10 @@ fast-vis shadow pass.)
 
 1. checks for a CUDA device and prints its name and power limit;
 2. builds the three CUDA sources of csrc/ (three nvcc processes side by
-   side; four kernels) and prints the build time, ptxas' register and
-   spill counts, and the count of tensor-core instructions (HGMMA / HMMA)
-   that cuobjdump -sass finds in the SDF library, which must not be 0;
+   side; four kernels, the render kernel in four instances) and prints the
+   build time, ptxas' register and spill counts, and the count of
+   tensor-core instructions (HGMMA / HMMA) that cuobjdump -sass finds in
+   the SDF library, which must not be 0;
 3. writes a synthetic sphere scene in the reference layout to a temporary
    directory: 4 train and 2 val views of 512x512 rays with 512-light lvis,
    the vis_comps GT-albedo mirror and 16 probe .hdr files;
@@ -26,8 +27,9 @@ fast-vis shadow pass.)
 5. SERVES the trained model: the port's four-pass run_test over the 2 val
    views with the trained vq_nfr, a ref_nfr initialised from it and the
    main_<k> directory the training wrote, with the render kernel's launch
-   count reset just before and read just after; every expected file exists,
-   every written array is finite, embed ids lie in [0, n_vq];
+   counts reset just before and read just after (every launch must be of
+   the 16-byte instance: 512 lights, aligned lvis rows); every expected
+   file exists, every written array is finite, embed ids lie in [0, n_vq];
 6. EXTRACTS stage-1 geometry: writes a synthetic NeRF-convention scene
    (transforms_{train,val}.json, 16-bit rgba.png, cameras on a circle of
    radius 2 looking at the origin), takes init_neus(seed) at the default
@@ -45,9 +47,11 @@ fast-vis shadow pass.)
    one neus_render with the up-sample chain through the kernel and without;
 7. holds each kernel against its plain PyTorch version on the GPU, on
    inputs taken from the trained model:
-     fused_brdf_render: a 49,152-ray chunk of a view with lvis, and 1,000
-       rays without lvis; rtol 2e-4, atol 1e-5 (a 512-term fp32 sum taken
-       in another order), and the fused vq_fast_render against the eager;
+     fused_brdf_render: a 49,152-ray chunk of a view with lvis, 1,000 rays
+       without lvis, and the chunk again with lvis 4 bytes off a 16-byte
+       boundary and with 510 lights (both must run the scalar instance);
+       rtol 2e-4, atol 1e-5 (a 512-term fp32 sum taken in another order),
+       and the fused vq_fast_render against the eager;
      vq_fused_train: N = 2,048, 65,536 and a ragged 1,000 rows of a train
        view (strided, so background rows are in), K = 15 and 8, with and
        without dropped codes, in two stages: (i) indices equal to the plain
@@ -57,13 +61,24 @@ fast-vis shadow pass.)
        plain version FED THE KERNEL'S INDICES and evaluated in float64, at
        rtol 1e-5 / atol 1e-6 (float64 so that the error of the plain
        version's own 65,536-term fp32 matmul does not enter);
-8. times all four kernels and their plain versions (CUDA events, median), one
-   whole vq_nfr step with the kernel and with use_fused_vq=False (host
-   clock around a synchronised step, median), and with --profile prints a
+8. times all four kernels and their plain versions: "ms" is one call on a
+   busy queue (one pair of CUDA events around a run of calls, over their
+   number), which is the host's time where the wrapper takes longer than
+   the kernel; "device_ms" is the kernels' own durations as torch.profiler
+   records them, over the calls, and every share of a bound is taken from
+   it. The profiler also counts the CUDA launches of a call; vq_fused_train
+   must be one. For the render kernel it adds the device time with
+   lvis=None and, from cuobjdump -sass of the built library, the
+   instructions of each instance's light loop and the issue floor they set
+   (pairs / 32 x instructions a pair / (SMs x 4 schedulers x the highest SM
+   clock)), and fails unless the vector instances hold 16-byte loads. Then
+   one whole vq_nfr step with the kernel and with use_fused_vq=False (host
+   clock around a synchronised step, median), and with --profile a
    torch.profiler table of a few steps;
 9. prints the pass times, peak device memory of training, of serving and of
-   extraction, a {"kernels": [...]} line with all four kernels, and as the
-   last line {"ok": true, "device": {...}}.
+   extraction, a {"kernels": [...]} line with all four kernels (each with
+   ms, device_ms, plain_ms, bound_ms), and as the last line
+   {"ok": true, "device": {...}}.
 
 Cuts, all of scale and none of width: 4 train views and 1 validation view
 in place of a scene's 100 and 8, 2 epochs in place of 150, 2 served views;
@@ -78,6 +93,7 @@ import copy
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -90,6 +106,7 @@ import torch
 from vqnerf_release_torch.data import io as vio
 from vqnerf_release_torch.data.device_store import DeviceViewStore
 from vqnerf_release_torch.data.shape_dataset import ShapeDataset
+from vqnerf_release_torch.kernels import build as kbuild
 from vqnerf_release_torch.kernels import render as render_kernel
 from vqnerf_release_torch.kernels import sdf as sdf_kernel
 from vqnerf_release_torch.kernels import vq as vq_kernel
@@ -274,19 +291,47 @@ def check_outputs(outroot, files, n_views, n_vq):
     return len(arrays)
 
 
-def _time_ms(fn, reps=7):
-    """Median of per-call CUDA-event times after one warm-up call."""
+def _time_ms(fn, reps=50):
+    """Time of one call on a busy queue: one pair of CUDA events around
+    ``reps`` calls on end, after a warm-up call. Where the host needs
+    longer to issue a call than the card to run it, this is the host's
+    time; ``_device_ms`` is the card's."""
     fn()
-    times = []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _self_device_us(event):  # the attribute's name differs between versions
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0))
+
+
+def _device_ms(fn, reps=50):
+    """(device time of one call in ms, kernel launches a call): the sum of
+    the durations torch.profiler records for the CUDA kernels that ``reps``
+    calls of ``fn`` launch, over ``reps``. Host time between the launches
+    does not enter."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_us = sum(_self_device_us(e) for e in kernels)
+    if not device_us > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return device_us / 1e3 / reps, sum(e.count for e in kernels) / reps
 
 
 def _compare(got, want, what, rtol=RTOL, atol=ATOL):
@@ -527,19 +572,14 @@ def time_steps(cfg, trained, lxyz, lareas, device, profile):
                              max_name_column_width=60))
         from torch.autograd import DeviceType
         kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
-
-        def self_us(e):  # the attribute's name differs between versions
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
-        device_us = sum(self_us(e) for e in kernels)
+        device_us = sum(_self_device_us(e) for e in kernels)
         print("device busy %.3f ms of %.3f ms wall under the profiler: idle "
               "share %.3f" % (device_us / 1e3, 1e3 * wall,
                               1 - device_us / 1e6 / wall))
-        for name in ("vq_assign", "vq_finish"):
-            for e in kernels:
-                if name in e.key:
-                    print("  %s: %d launches, %.2f us of device time each"
-                          % (name, e.count, self_us(e) / e.count))
+        for e in kernels:
+            if "vq_" in e.key:
+                print("  %s: %d launches, %.2f us of device time each"
+                      % (e.key[:60], e.count, _self_device_us(e) / e.count))
     return float(np.mean(ms["kernel"])), float(np.mean(ms["eager"]))
 
 
@@ -614,16 +654,30 @@ def check_render_kernel(vq, cfg, view, lxyz, lareas, device):
     chunk = {k: v[2 * _RAY_CHUNK:3 * _RAY_CHUNK] for k, v in batch.items()}
     args = kernel_inputs(vq, cfg, chunk, lxyz, lareas)
     ragged = [a[:RAGGED_N] for a in args[:6]] + [None, args[7]]
+    # the same chunk with an lvis whose base is 4 bytes off a 16-byte
+    # boundary, and with 510 lights: both must take the scalar instance
+    flat = torch.empty((args[6].numel() + 1,), device=device)
+    shifted = args[:6] + [flat[1:].view_as(args[6]).copy_(args[6]), args[7]]
+    fewer = args[:6] + [args[6][:, :510].contiguous(),
+                        args[7][:, :510].contiguous()]
     err = 0.0
-    for what, a in (("chunk %dx%d" % (_RAY_CHUNK, cfg.n_lights), args),
-                    ("ragged %d, no lvis" % RAGGED_N, ragged)):
+    for what, a, instance in (
+            ("chunk %dx%d" % (_RAY_CHUNK, cfg.n_lights), args, "vector"),
+            ("ragged %d, no lvis" % RAGGED_N, ragged, "vector"),
+            ("chunk, lvis 4 bytes off alignment", shifted, "scalar"),
+            ("chunk, 510 lights", fewer, "scalar")):
+        before = dict(render_kernel.LAUNCHES_BY_INSTANCE)
         got = render_kernel.fused_brdf_render(*a)
         want = render_kernel.fused_brdf_render_reference(*a)
         torch.cuda.synchronize()
+        before[instance] += 1
+        if render_kernel.LAUNCHES_BY_INSTANCE != before:
+            raise AssertionError(f"{what}: not the {instance} instance")
         e = _compare(got, want, what)
-        print("fused_brdf_render vs plain version, %s: max abs err %.3e"
-              % (what, e))
+        print("fused_brdf_render vs plain version, %s (%s instance): max "
+              "abs err %.3e" % (what, instance, e))
         err = max(err, e)
+    del flat, shifted, fewer
 
     fused = vq_nfr.vq_fast_render(vq, chunk, cfg, lxyz, lareas)
     eager = vq_nfr.vq_fast_render(
@@ -631,29 +685,94 @@ def check_render_kernel(vq, cfg, view, lxyz, lareas, device):
     e = _compare(fused["rgb"], eager["rgb"], "vq_fast_render fused/eager")
     print("vq_fast_render rgb, fused vs eager: max abs err %.3e" % e)
 
-    ms = _time_ms(lambda: render_kernel.fused_brdf_render(*args))
-    plain_ms = _time_ms(
-        lambda: render_kernel.fused_brdf_render_reference(*args))
     n, l = _RAY_CHUNK, cfg.n_lights
+    no_lvis = args[:6] + [None, args[7]]
+    ms = _time_ms(lambda: render_kernel.fused_brdf_render(*args))
+    device_ms, per_call = _device_ms(
+        lambda: render_kernel.fused_brdf_render(*args))
+    null_ms, _ = _device_ms(
+        lambda: render_kernel.fused_brdf_render(*no_lvis))
+    plain_ms = _time_ms(
+        lambda: render_kernel.fused_brdf_render_reference(*args), reps=7)
     # every input read once, the output written once; about 60 fp32
     # operations per ray-light pair (the count in the kernel's source)
     nbytes = 4 * (n * (5 * 3 + 1) + n * l + 8 * l + n * 3)
     ops = 60 * n * l
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * ops / FP32_OPS_PER_S
-    print("fused_brdf_render at %d rays x %d lights: kernel %.4f ms, plain "
-          "version %.4f ms, bound %.4f ms (%d bytes: %.4f ms; %d operations: "
-          "%.4f ms)" % (n, l, ms, plain_ms, max(bytes_ms, ops_ms), nbytes,
-                        bytes_ms, ops, ops_ms))
+    bound_ms = max(bytes_ms, ops_ms)
+    print("fused_brdf_render at %d rays x %d lights: %.4f ms a call (events "
+          "around 50 calls), %.4f ms of device time a call in %.1f launches "
+          "(torch.profiler), %.4f ms of device time with lvis=None; plain "
+          "version %.4f ms; bound %.4f ms (%d bytes: %.4f ms; %d operations: "
+          "%.4f ms): %.1f%% of it by device time"
+          % (n, l, ms, device_ms, per_call, null_ms, plain_ms, bound_ms,
+             nbytes, bytes_ms, ops, ops_ms, 100 * bound_ms / device_ms))
+    floors = render_issue_floors(n * l)
+    floor_ms = floors[("vector", True)]
+    print("  the main path's instance (vector, with lvis): %.1f%% of its "
+          "issue floor of %.4f ms by device time"
+          % (100 * floor_ms / device_ms, floor_ms))
     return {
         "name": "fused_brdf_render", "route": "cuda",
         "source": "vqnerf_release_torch/csrc/render_kernel.cu",
         "replaces": "vqnerf_release_tpu/ops/pallas/render_kernel.py:133",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
+        "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+        "device_ms_without_lvis": null_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "issue_floor_ms": floor_ms,
         "library_ms": None,  # no single PyTorch call computes it
     }
+
+
+def render_issue_floors(pairs):
+    """The issue floor of the render kernel's light loop, from the machine
+    code of the built library: for each instance of the kernel, the
+    instructions of its innermost loop that holds MUFU.RSQ, over the
+    ray-light pairs of one pass of that loop (a pair takes five MUFU: two
+    reciprocal square roots, a square root, two reciprocals), times
+    pairs / 32 warp-instructions, over what the card's warp schedulers can
+    issue: SMs x 4 a clock at the card's highest SM clock (which 20,000
+    launches on end hold: tests/test_torch_cuda.py::
+    test_render_kernel_clock_under_load). Returns {(instance, with lvis):
+    ms}; fails unless the vector instances read lvis and the light table 16
+    bytes at a time."""
+    so, _ = render_kernel.build()
+    props = torch.cuda.get_device_properties(0)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    issue_per_s = props.multi_processor_count * 4 * mhz * 1e6
+    functions = kbuild.sass_functions(so)
+    floors = {}
+    for key, mangled in render_kernel.SASS_NAMES.items():
+        (instructions,) = [ins for name, ins in functions.items()
+                           if mangled in name]
+        loop = kbuild.sass_inner_loop(instructions, "MUFU.RSQ")
+        count = lambda pattern: sum(  # noqa: E731
+            bool(re.search(pattern, text)) for text in loop)
+        loop_pairs = count("MUFU") / render_kernel.MUFU_PER_PAIR
+        if loop_pairs == 0:
+            raise AssertionError(f"no light loop in the SASS of {mangled}")
+        per_pair = len(loop) / loop_pairs
+        floors[key] = 1e3 * pairs / 32 * per_pair / issue_per_s
+        wide = (count(r"LDG\.E\.(\w+\.)*128"), count(r"LDS\.128"))
+        print("  SASS of the %s instance, lvis %s: %d instructions in all; "
+              "light loop %d instructions for %g pairs a lane (%.1f a pair; "
+              "MUFU %d, LDG %d of which 16-byte %d, LDS %d of which 16-byte "
+              "%d, FFMA %d); issue floor at %d SMs x 4 schedulers x %.0f "
+              "MHz: %.4f ms"
+              % (key[0], "given" if key[1] else "None", len(instructions),
+                 len(loop), loop_pairs, per_pair, count("MUFU"),
+                 count("LDG"), wide[0], count("LDS"), wide[1],
+                 count("FFMA"), props.multi_processor_count, mhz,
+                 floors[key]))
+        if key[0] == "vector" and (wide[1] < 7 or (key[1] and wide[0] < 1)):
+            raise AssertionError("the vector instance holds no 16-byte "
+                                 "loads of lvis or of the light table")
+    return floors
 
 
 def check_vq_kernel(trained, cfg, device):
@@ -685,7 +804,9 @@ def check_vq_kernel(trained, cfg, device):
 
     n, d, k = n_step, cfg.z_dim, k_all
     args = vq_kernel_inputs(trained, cfg, n, k, True, device)
-    ms = _time_ms(lambda: vq_kernel.vq_fused_train(*args, **kw), reps=31)
+    ms = _time_ms(lambda: vq_kernel.vq_fused_train(*args, **kw), reps=200)
+    device_ms, per_call = _device_ms(
+        lambda: vq_kernel.vq_fused_train(*args, **kw), reps=200)
     plain_ms = _time_ms(
         lambda: vq_kernel.vq_fused_train_reference(*args, **kw), reps=31)
     # x, rowmask, sel, cb, hcs, hdw, counter read once; indices, quantized,
@@ -696,17 +817,28 @@ def check_vq_kernel(trained, cfg, device):
     ops = 4 * n * d * k
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * ops / FP32_OPS_PER_S
-    print("vq_fused_train at %d x %d x %d: kernel %.4f ms (2 CUDA launches), "
-          "plain version %.4f ms, bound %.5f ms (%d bytes: %.5f ms; %d "
-          "operations: %.5f ms)" % (n, d, k, ms, plain_ms,
-                                    max(bytes_ms, ops_ms), nbytes, bytes_ms,
-                                    ops, ops_ms))
+    bound_ms = max(bytes_ms, ops_ms)
+    if per_call != 1:
+        raise AssertionError("vq_fused_train is %.2f CUDA launches a call"
+                             % per_call)
+    print("vq_fused_train at %d x %d x %d: %.4f ms a call (events around 200 "
+          "calls), %.5f ms of device time a call in %.1f CUDA launches "
+          "(torch.profiler); plain version %.4f ms; bound %.5f ms (%d bytes: "
+          "%.5f ms; %d operations: %.5f ms): %.1f%% of it by device time"
+          % (n, d, k, ms, device_ms, per_call, plain_ms, bound_ms, nbytes,
+             bytes_ms, ops, ops_ms, 100 * bound_ms / device_ms))
+    big = vq_kernel_inputs(trained, cfg, 65536, k, True, device)
+    big_ms, _ = _device_ms(lambda: vq_kernel.vq_fused_train(*big, **kw),
+                           reps=20)
+    print("  at 65536 x %d x %d: %.5f ms of device time a call" % (d, k,
+                                                                   big_ms))
     return {
         "name": "vq_fused_train", "route": "cuda",
         "source": "vqnerf_release_torch/csrc/vq_kernel.cu",
         "replaces": "vqnerf_release_tpu/ops/pallas/vq_kernel.py:136",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
+        "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+        "cuda_launches_per_call": per_call, "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,  # no single PyTorch call computes it
     }
@@ -914,10 +1046,8 @@ def extraction_phase(root, device, profile=False):
               % (LVIS_POINTS, ex.n_lights, wall))
         print(averages.table(sort_by="cuda_time_total", row_limit=12,
                              max_name_column_width=60))
-        device_us = sum(
-            getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0))
-            for e in averages if e.device_type == DeviceType.CUDA)
+        device_us = sum(_self_device_us(e) for e in averages
+                        if e.device_type == DeviceType.CUDA)
         print("device busy %.3f ms of %.3f ms wall under the profiler: idle "
               "share %.3f" % (device_us / 1e3, 1e3 * wall,
                               1 - device_us / 1e6 / wall))
@@ -1048,28 +1178,30 @@ def check_sdf_kernels(geo, device):
                  else sdf_kernel.sdf_fwd_plain)
         n = len(pts)
         ms = _time_ms(lambda: fn(packed, pts), reps=5)
+        device_ms, _ = _device_ms(lambda: fn(packed, pts), reps=5)
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         plain_ms = _time_ms(lambda: plain(packed, pts), reps=5)
         plain_peak = torch.cuda.max_memory_allocated() - base
         bound_ms, by, nbytes, ops, cuda_core_ms = _sdf_bound(packed, n,
                                                              with_grad)
-        print("%s at %d points: kernel %.4f ms, plain version %.4f ms (%.3f "
+        print("%s at %d points: kernel %.4f ms a call, %.4f ms of device "
+              "time, plain version %.4f ms (%.3f "
               "GiB of temporaries), bound %.4f ms by %s (%d bytes; %d "
               "operations, each product as %d TF32 products at %.0f "
               "TFLOP/s): %.1f%% of the split-TF32 tensor-core peak; the "
               "fp32 CUDA-core bound is %.4f ms (%.1f%% of that peak)"
-              % (name, n, ms, plain_ms, plain_peak / 2**30, bound_ms, by,
-                 nbytes, ops, SDF_TF32_PRODUCTS, TF32_OPS_PER_S / 1e12,
-                 100 * bound_ms / ms, cuda_core_ms,
-                 100 * cuda_core_ms / ms))
+              % (name, n, ms, device_ms, plain_ms, plain_peak / 2**30,
+                 bound_ms, by, nbytes, ops, SDF_TF32_PRODUCTS,
+                 TF32_OPS_PER_S / 1e12, 100 * bound_ms / device_ms,
+                 cuda_core_ms, 100 * cuda_core_ms / device_ms))
         entries.append({
             "name": name, "route": "cuda",
             "source": "vqnerf_release_torch/csrc/sdf_kernel.cu",
             "replaces": "vqnerf_release_tpu/ops/pallas/sdf_kernel.py:%d"
             % line,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by,
+            "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "bound_peak": "tensor cores, TF32 / %d" % SDF_TF32_PRODUCTS,
             "bound_cuda_cores_ms": cuda_core_ms,
             "library_ms": None,  # no single PyTorch call computes it
@@ -1123,6 +1255,8 @@ def main():
 
         torch.cuda.reset_peak_memory_stats()
         render_kernel.LAUNCHES = 0
+        for key in render_kernel.LAUNCHES_BY_INSTANCE:
+            render_kernel.LAUNCHES_BY_INSTANCE[key] = 0
         t0 = time.perf_counter()
         info = run_test(ref, vq, cfg, ds, outroot, paths["env_dir"],
                         vali_epoch_dir=trained["vali_dir"],
@@ -1134,12 +1268,18 @@ def main():
         peak = torch.cuda.max_memory_allocated()
         if render_launches <= 0:
             raise AssertionError("run_test never launched the render kernel")
+        if render_kernel.LAUNCHES_BY_INSTANCE != {"vector": render_launches,
+                                                  "scalar": 0}:
+            raise AssertionError(
+                "run_test at 512 lights left the 16-byte instance: %s"
+                % render_kernel.LAUNCHES_BY_INSTANCE)
         if info["n_vq"] != n_vq:
             raise AssertionError(f"n_vq {info['n_vq']} != {n_vq}")
         n_arrays = check_outputs(
             outroot, expected_files(cfg, paths["env_dir"]), N_VIEWS, n_vq)
-        print("run_test: %.3f s total, opt_scale %s, %d arrays checked"
-              % (total, info["opt_scale"], n_arrays))
+        print("run_test: %.3f s total, opt_scale %s, %d arrays checked; %d "
+              "render-kernel launches, all of the 16-byte instance"
+              % (total, info["opt_scale"], n_arrays, render_launches))
         for phase, sec in info["seconds"].items():
             print("  pass %-8s %.3f s (%.3f s per %dx%d view)"
                   % (phase, sec, sec / N_VIEWS, cfg.imh, cfg.imh))

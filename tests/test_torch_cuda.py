@@ -9,12 +9,15 @@ neither jax nor cv2, so it runs on a machine that has only PyTorch:
 
 Tolerance of the render kernel, rtol=2e-4, atol=1e-5: the JAX kernel test's
 own (tests/test_pallas_render.py), for a sum over L lights in another order.
+Its vector and scalar instances, its variants behind macros and the 16-byte
+loads in its machine code are checked here too.
 
 The VQ kernel is held to its plain version in two stages, so that a
 near-tie does not look like a fault: (i) equal indices except on rows whose
 two smallest plain distances lie within 1e-5 of each other; (ii) every other
 output against the plain version fed the kernel's indices and evaluated in
-float64, at rtol 1e-5 / atol 1e-6.
+float64, at rtol 1e-5 / atol 1e-6. It is one cooperative launch a call, and
+equal inputs must give equal bits, call after call.
 
 The two SDF kernels are held to their plain versions at rtol 1e-4 / atol
 1e-5 (sums of up to 256 terms taken in another order than cuBLAS takes
@@ -23,6 +26,7 @@ through eight layers), and to the autograd gradient at the JAX kernel
 test's own rtol 3e-3 / atol 3e-4.
 """
 
+import re
 import subprocess
 import types
 
@@ -53,10 +57,13 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _inputs(n, light_h, device, seed=0, rough=(0.05, 0.95)):
+def _inputs(n, light_h, device, seed=0, rough=(0.05, 0.95), n_lights=None):
+    """``n_lights``, when given, keeps the first so many lights of the
+    light_h x 2 light_h map, for an L that no map has."""
     rs = np.random.RandomState(seed)
     lxyz, lareas = gen_light_xyz(light_h, 2 * light_h)
-    l = lxyz.shape[0] * lxyz.shape[1]
+    l = n_lights or lxyz.shape[0] * lxyz.shape[1]
+    lxyz, lareas = lxyz.reshape(-1, 3)[:l], lareas.reshape(-1)[:l]
     normal = rs.randn(n, 3)
     normal[::17] *= 1e-4  # short normals: the safe-normalize floor
     arrays = dict(
@@ -72,20 +79,177 @@ def _inputs(n, light_h, device, seed=0, rough=(0.05, 0.95)):
 _PER_RAY = ("xyz", "normal", "surf2c", "albedo", "rough", "f0")
 
 
+def _render_args(t, with_lvis=True):
+    packed = kr.pack_lights(t["lxyz"], t["lareas"], t["light"])
+    return [t[k] for k in _PER_RAY] + [t["lvis"] if with_lvis else None,
+                                       packed]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,light_h,with_lvis", [
     (49152, 16, True), (1000, 16, False), (37, 4, True), (1, 27, True)])
 def test_kernel_matches_plain_twin(cuda_device, n, light_h, with_lvis):
-    t = _inputs(n, light_h, cuda_device)
-    packed = kr.pack_lights(t["lxyz"], t["lareas"], t["light"])
-    args = [t[k] for k in _PER_RAY] + [
-        t["lvis"] if with_lvis else None, packed]
+    args = _render_args(_inputs(n, light_h, cuda_device), with_lvis)
     launches = kr.LAUNCHES
     got = kr.fused_brdf_render(*args)
     torch.cuda.synchronize()
     assert kr.LAUNCHES == launches + 1
     want = kr.fused_brdf_render_reference(*args)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lvis", [True, False])
+@pytest.mark.parametrize("n", [0, 1, 1000, 49152])
+@pytest.mark.parametrize("n_lights", [32, 128, 500, 510, 512])
+def test_kernel_instances_match_plain_twin(cuda_device, n_lights, n,
+                                           with_lvis):
+    """Every L and N through the instance the launcher chooses for it: the
+    16-byte one where L is a multiple of four, the scalar one elsewhere,
+    and the same L again with an lvis whose base is 4 bytes off a 16-byte
+    boundary, which must take the scalar one and match as well."""
+    t = _inputs(n, 16, cuda_device, seed=n_lights + n, n_lights=n_lights)
+    args = _render_args(t, with_lvis)
+    want = kr.fused_brdf_render_reference(*args)
+    before = dict(kr.LAUNCHES_BY_INSTANCE)
+    got = kr.fused_brdf_render(*args)
+    torch.cuda.synchronize()
+    which = "vector" if n_lights % 4 == 0 else "scalar"
+    after = dict(before)
+    after[which] += n > 0
+    assert kr.LAUNCHES_BY_INSTANCE == after
+    assert got.shape == (n, 3)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    if with_lvis and n > 0:
+        flat = torch.empty((n * n_lights + 1,), device=cuda_device)
+        off = flat[1:].view(n, n_lights)
+        off.copy_(t["lvis"])
+        assert off.is_contiguous() and off.data_ptr() % 16 == 4
+        got_off = kr.fused_brdf_render(*args[:6], off, args[7])
+        torch.cuda.synchronize()
+        after["scalar"] += 1
+        assert kr.LAUNCHES_BY_INSTANCE == after
+        torch.testing.assert_close(got_off, want, rtol=RTOL, atol=ATOL)
+
+
+def _sass_count(instructions, pattern):
+    return sum(bool(re.search(pattern, text)) for _, text in instructions)
+
+
+_LDG_128 = r"LDG\.E\.(\w+\.)*128"  # cache hints stand before the width
+
+
+@pytest.mark.cuda
+def test_render_library_holds_16_byte_loads(cuda_device):
+    """The vector instances read lvis with LDG.E.128 and the light table
+    with LDS.128; the scalar instances hold neither in their light loop."""
+    functions = kr.kbuild.sass_functions(kr.build()[0])
+
+    def instance(key):
+        found = [ins for name, ins in functions.items()
+                 if kr.SASS_NAMES[key] in name]
+        assert len(found) == 1, (key, list(functions))
+        return found[0]
+    fast = instance(("vector", True))
+    print(sorted({t.split()[0] for _, t in fast if "LDG" in t}))
+    assert _sass_count(fast, _LDG_128) >= 1
+    assert _sass_count(fast, r"LDS\.128") >= 7
+    assert _sass_count(instance(("vector", False)), r"LDS\.128") >= 7
+    for with_lvis in (True, False):
+        loop = kr.kbuild.sass_inner_loop(instance(("scalar", with_lvis)),
+                                         "MUFU.RSQ")
+        assert loop and not any(re.search(_LDG_128 + r"|LDS\.128", t)
+                                for t in loop)
+
+
+def _event_ms(fn, reps=3):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _event_ms_beside_smi(fn, reps):
+    """(_event_ms of ``reps`` calls of ``fn``, the card's SM clock and power
+    draw as nvidia-smi reads them every 0.1 s while the calls run)."""
+    import threading
+    import time
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            samples.append(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip())
+            time.sleep(0.1)
+    thread = threading.Thread(target=sample)
+    thread.start()
+    try:
+        ms = _event_ms(fn, reps=reps)
+    finally:
+        stop.set()
+        thread.join()
+    return ms, samples
+
+
+@pytest.mark.cuda
+def test_render_kernel_clock_under_load(cuda_device):
+    """A study, run with -s: 20,000 launches on end at 49,152 rays x 512
+    lights with the card's SM clock and power sampled beside them, so that
+    the kernel's time can be held to its issue floor at the clock it really
+    ran at, not at the card's highest."""
+    args = _render_args(_inputs(49152, 16, cuda_device))
+    ms, samples = _event_ms_beside_smi(
+        lambda: kr.fused_brdf_render(*args), reps=20000)
+    print("20,000 calls on end: %.4f ms a call; clocks.sm, power.draw: %s"
+          % (ms, samples))
+    assert ms > 0 and samples
+
+
+@pytest.mark.cuda
+def test_render_kernel_variants(cuda_device, monkeypatch):
+    """A study, run with -s: the variants that the source keeps behind
+    macros, each held to the plain version at the port's tolerance and timed
+    at the main path's 49,152 rays x 512 lights with and without lvis
+    (events around 50 launches: at 0.1 ms a launch the card, not the host,
+    sets the time). ptxas' registers of each build are printed."""
+    args = _render_args(_inputs(49152, 16, cuda_device))
+    no_lvis = args[:6] + [None, args[7]]
+    low = _render_args(_inputs(4096, 16, cuda_device, rough=(0.02, 0.1)))
+    want, want_low = (kr.fused_brdf_render_reference(*a) for a in (args, low))
+    variants = (
+        ("port's build", ()),
+        ("IEEE divide and sqrt", ("-DRENDER_APPROX=0",)),
+        ("the plain version's grouping", ("-DRENDER_REGROUP=0",)),
+        ("two lights a lane", ("-DRENDER_LIGHTS=2",)),
+        ("one light a lane, vector instance", ("-DRENDER_LIGHTS=1",)),
+        ("registers for 1 block an SM", ("-DRENDER_MIN_BLOCKS=1",)),
+        ("registers for 3 blocks an SM", ("-DRENDER_MIN_BLOCKS=3",)),
+        ("registers for 4 blocks an SM", ("-DRENDER_MIN_BLOCKS=4",)),
+    )
+    for name, flags in variants:
+        so, log = kr.build(flags)
+        monkeypatch.setattr(kr, "_lib", kr.load(so))
+        got, got_low = kr.fused_brdf_render(*args), kr.fused_brdf_render(*low)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(got_low, want_low, rtol=RTOL, atol=ATOL)
+        ms = _event_ms(lambda: kr.fused_brdf_render(*args), reps=50)
+        ms_null = _event_ms(lambda: kr.fused_brdf_render(*no_lvis), reps=50)
+        registers = [line.split("Used ")[1].split(",")[0]
+                     for line in log.splitlines() if "Used " in line]
+        spills = sorted({line.strip() for line in log.splitlines()
+                         if "spill" in line})
+        print("%s: %.4f ms with lvis, %.4f ms without; max abs err %.3e "
+              "(rough 0.05-0.95), %.3e (rough 0.02-0.1); ptxas %s; %s"
+              % (name, ms, ms_null, float((got - want).abs().max()),
+                 float((got_low - want_low).abs().max()), registers, spills))
 
 
 @pytest.mark.cuda
@@ -119,6 +283,16 @@ def test_kernel_rejects_bad_inputs(cuda_device):
     bad[0] = args[0].T.contiguous().T
     with pytest.raises(ValueError, match="contiguous"):
         kr.fused_brdf_render(*bad)
+    bad = list(args)
+    bad[6] = args[6].cpu()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kr.fused_brdf_render(*bad)
+    wide = _render_args(_inputs(8, 28, cuda_device))  # 1,568 lights
+    with pytest.raises(ValueError, match="lights"):
+        kr.fused_brdf_render(*wide)
+    none = [a[:, :0] if i in (6, 7) else a for i, a in enumerate(args)]
+    with pytest.raises(ValueError, match="lights"):
+        kr.fused_brdf_render(*none)
 
 
 def _vq_inputs(n, d, k, device, drop, seed=0):
@@ -222,6 +396,111 @@ def test_vq_kernel_rejects_bad_inputs(cuda_device):
     wide = _vq_inputs(8, 512, 4, cuda_device, False)
     with pytest.raises(ValueError, match="D <="):
         kv.vq_fused_train(*wide, **kw)
+    odd = _vq_inputs(8, 30, 4, cuda_device, False)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kv.vq_fused_train(*odd, **kw)
+    many = _vq_inputs(8, 4, 300, cuda_device, False)
+    with pytest.raises(ValueError, match="codes"):
+        kv.vq_fused_train(*many, **kw)
+    bad = list(args)
+    flat = torch.empty((64 * 32 + 1,), device=cuda_device)
+    bad[1] = flat[1:].view(64, 32).copy_(args[1])
+    with pytest.raises(ValueError, match="aligned"):
+        kv.vq_fused_train(*bad, **kw)
+    bad = list(args)
+    bad[4] = args[4].cpu()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kv.vq_fused_train(*bad, **kw)
+
+
+@pytest.mark.cuda
+def test_vq_kernel_shared_memory_size_agrees_with_the_source(cuda_device):
+    lib = kv.load(kv.build()[0])
+    for d, k in ((256, 15), (256, 8), (16, 4), (48, 3), (64, 40), (4, 256)):
+        assert kv.smem_bytes(d, k) == lib.vq_fused_train_smem(d, k)
+
+
+@pytest.mark.cuda
+def test_vq_kernel_thousand_calls_on_end(cuda_device, monkeypatch):
+    """1,000 calls on end at alternating N: the scratch buffer grows from 32
+    to 64 to 128 blocks' worth, and equal inputs give equal bits every
+    time, whatever the call before left in the scratch. Then a launch that
+    is refused: the wrapper raises, and the next call is right again."""
+    kw = dict(decay=0.999, epsilon=1e-5)
+    monkeypatch.setattr(kv, "_scratch", {})
+    sizes = (1000, 2048, 65536)
+    cases = [_vq_inputs(n, 256, 15, cuda_device, True, seed=n) for n in sizes]
+    first = [kv.vq_fused_train(*args, **kw) for args in cases]
+    floats = [kv.scratch_floats(kv.grid_blocks(n), 256, 15) for n in sizes]
+    assert floats == sorted(floats)
+    assert kv._scratch[cuda_device.index].numel() == floats[-1]
+    for out, args in zip(first, cases):
+        plain = kv.vq_fused_train_reference(
+            *[a.double() for a in args], **kw, indices=out["indices"])
+        torch.testing.assert_close(out["update"].double(), plain["update"],
+                                   rtol=1e-5, atol=1e-6)
+    launches = kv.LAUNCHES
+    for i in range(1000):
+        out = kv.vq_fused_train(*cases[i % 3], **kw)
+        for key in out:
+            assert torch.equal(out[key], first[i % 3][key]), (i, key)
+    assert kv.LAUNCHES == launches + 1000
+
+    # more blocks than the card can hold at once: refused, not hung
+    monkeypatch.setattr(kv, "grid_blocks", lambda n, sms: 4 * sms)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kv.vq_fused_train(*cases[1], **kw)
+    monkeypatch.undo()
+    out = kv.vq_fused_train(*cases[1], **kw)
+    for key in out:
+        assert torch.equal(out[key], first[1][key]), key
+
+
+def _profiled_device_ms(fn, reps):
+    """(device time of one call in ms, kernel launches a call) from
+    torch.profiler's kernel durations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) for e in kernels)
+    return us / 1e3 / reps, sum(e.count for e in kernels) / reps
+
+
+@pytest.mark.cuda
+def test_vq_kernel_is_one_launch_and_grid_sizes(cuda_device, monkeypatch):
+    """One CUDA launch a call, counted by torch.profiler. Then a study, run
+    with -s: the device time of a call at N 2,048 and N 65,536 for grids
+    of exactly 16, 32, 64 and 128 blocks, beside the port's own sizing."""
+    kw = dict(decay=0.999, epsilon=1e-5)
+    for n in (2048, 65536):
+        args = _vq_inputs(n, 256, 15, cuda_device, True)
+        want = kv.vq_fused_train(*args, **kw)
+        ms, per_call = _profiled_device_ms(
+            lambda: kv.vq_fused_train(*args, **kw), 50)
+        assert per_call == 1
+        print("N %d, the port's grid of %d blocks: %.5f ms of device time a "
+              "call" % (n, kv.grid_blocks(n), ms))
+        with monkeypatch.context() as m:
+            m.setattr(kv, "ROWS_PER_BLOCK", 8)
+            for cap in (16, 32, 64, 128):
+                m.setattr(kv, "MAX_BLOCKS", cap)
+                assert kv.grid_blocks(n) == cap <= n // 8
+                got = kv.vq_fused_train(*args, **kw)
+                assert torch.equal(got["indices"], want["indices"])
+                torch.testing.assert_close(got["update"], want["update"],
+                                           rtol=1e-5, atol=1e-6)
+                ms, _ = _profiled_device_ms(
+                    lambda: kv.vq_fused_train(*args, **kw), 50)
+                print("N %d, %d blocks: %.5f ms of device time a call"
+                      % (n, cap, ms))
 
 
 @pytest.mark.cuda
@@ -386,18 +665,6 @@ def test_sdf_kernels_fma_contraction_stays_within_tolerance(cuda_device,
                  float((grad - want[1]).abs().max())))
 
 
-def _event_ms(fn, reps=3):
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 @pytest.mark.cuda
 def test_sdf_kernels_three_tf32_products_against_one(cuda_device,
                                                      monkeypatch):
@@ -454,8 +721,6 @@ def test_sdf_kernels_where_the_time_goes(cuda_device, monkeypatch):
     products alone; wrong results), and with a weight ring of 3 stages in
     place of 6 (equal bits); then 60 calls of the gradient kernel on end
     with the card's clock and power sampled beside them."""
-    import threading
-    import time
     cfg, params, packed = _sdf_net("default", cuda_device)
     pts_fwd = _sdf_points(524288, cuda_device, seed=5)
     pts_grad = _sdf_points(1048576, cuda_device, seed=6)
@@ -472,20 +737,8 @@ def test_sdf_kernels_where_the_time_goes(cuda_device, monkeypatch):
     for got, want in zip(outputs["3 stages"], outputs["port's build"]):
         assert torch.equal(got, want)
     monkeypatch.setattr(ks, "_lib", ks.load(ks.build()[0]))
-    samples, stop = [], threading.Event()
-
-    def sample():
-        while not stop.is_set():
-            samples.append(subprocess.run(
-                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-                 "--format=csv,noheader"], capture_output=True,
-                text=True).stdout.strip())
-            time.sleep(0.1)
-    thread = threading.Thread(target=sample)
-    thread.start()
-    ms = _event_ms(lambda: ks.sdf_fwdgrad(packed, pts_grad), reps=60)
-    stop.set()
-    thread.join()
+    ms, samples = _event_ms_beside_smi(
+        lambda: ks.sdf_fwdgrad(packed, pts_grad), reps=60)
     print("60 calls on end: %.3f ms a call; clocks.sm, power.draw: %s"
           % (ms, samples))
 
@@ -602,3 +855,35 @@ def test_neus_occlusion_fused_matches_plain_path(cuda_device):
                            use_fused_sdf=False)
     assert ks.LAUNCHES["sdf_fwdgrad"] == before["sdf_fwdgrad"] + 1
     torch.testing.assert_close(fused, plain, rtol=0, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_vq_kernel_where_the_time_goes(cuda_device, monkeypatch):
+    """A study, run with -s: the kernel built with -DVQ_TIMING stamps the
+    SM's cycle counter at the ends of each block's phases. Printed: the
+    median cycles of every phase over the blocks, and the nanoseconds from
+    the first block's start to the last block's end."""
+    phases = ("set-up", "rows", "block sums", "grid barrier",
+              "counts and smoothing", "slots and epilogue")
+    kw = dict(decay=0.999, epsilon=1e-5)
+    monkeypatch.setattr(kv, "_lib", kv.load(kv.build(("-DVQ_TIMING",))[0]))
+    monkeypatch.setattr(kv, "_scratch", {})
+    plain_size = kv.scratch_floats
+    monkeypatch.setattr(kv, "scratch_floats",
+                        lambda b, d, k: plain_size(b, d, k) + 32 * b)
+    for n in (2048, 65536):
+        args = _vq_inputs(n, 256, 15, cuda_device, True)
+        blocks = kv.grid_blocks(n)
+        for _ in range(3):
+            kv.vq_fused_train(*args, **kw)
+        torch.cuda.synchronize()
+        at = plain_size(blocks, 256, 15)
+        t = kv._scratch[cuda_device.index][at:at + 32 * blocks]
+        t = t.view(torch.int64).view(blocks, 16).cpu().numpy()
+        cycles = np.median(np.diff(t[:, :7], axis=1), axis=0)
+        print("N %d, %d blocks, median cycles of a block: %s; first start "
+              "to last end %d ns; starts spread over %d ns"
+              % (n, blocks,
+                 ", ".join("%s %d" % pc for pc in zip(phases, cycles)),
+                 t[:, 11].max() - t[:, 10].min(),
+                 t[:, 10].max() - t[:, 10].min()))

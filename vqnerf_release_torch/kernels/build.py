@@ -10,12 +10,14 @@ the compiler's output.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load",
-           "check_tensor", "count_sass"]
+           "check_tensor", "check_tensors", "count_sass", "sass_functions",
+           "sass_inner_loop"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -48,6 +50,51 @@ def count_sass(so, *mnemonics):
     sass = subprocess.run([_tool("cuobjdump"), "-sass", str(so)],
                           capture_output=True, text=True, check=True).stdout
     return sum(sass.count(m) for m in mnemonics)
+
+
+_SASS_FUNCTION = re.compile(r"^\s*Function : (\S+)")
+_SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_BRANCH = re.compile(r"\bBRA\S*\s+(?:\S+,\s*)?`?\(?0x([0-9a-f]+)")
+
+
+def sass_functions(so):
+    """The machine code of a built library (``cuobjdump -sass``): a dict
+    from each kernel's mangled name to its instructions, a list of
+    (address, text) in program order."""
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    functions, body = {}, None
+    for line in sass.splitlines():
+        m = _SASS_FUNCTION.match(line)
+        if m:
+            body = functions.setdefault(m.group(1), [])
+            continue
+        m = _SASS_LINE.match(line)
+        if m and body is not None:
+            body.append((int(m.group(1), 16), m.group(2)))
+    return functions
+
+
+def sass_inner_loop(instructions, marker):
+    """The texts of the largest innermost loop of one kernel's
+    ``instructions`` (from ``sass_functions``) that names ``marker``. A loop
+    is the range from the target of a backward branch to the branch;
+    innermost means that no other such range with the marker lies inside
+    it. Code that a loop only calls (the slow paths of a divide or a square
+    root, placed behind the kernel's end) lies outside the range and is not
+    counted. Returns [] where no loop names the marker."""
+    loops = []
+    for i, (addr, text) in enumerate(instructions):
+        m = _SASS_BRANCH.search(text)
+        if m and int(m.group(1), 16) <= addr:
+            target = int(m.group(1), 16)
+            body = [t for a, t in instructions[:i + 1] if a >= target]
+            if any(marker in t for t in body):
+                loops.append((target, addr, body))
+    inner = [l for l in loops
+             if not any(o is not l and l[0] <= o[0] and o[1] <= l[1]
+                        for o in loops)]
+    return max((l[2] for l in inner), key=len, default=[])
 
 
 def build(source, stem, extra_flags=()):
@@ -102,3 +149,15 @@ def check_tensor(name, t, shape, dtype, device=None):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
+
+
+def check_tensors(specs, dtype, device):
+    """``check_tensor`` for every (name, tensor, shape) of ``specs`` on the
+    CUDA device ``device``, in one pass that formats nothing unless a
+    tensor is at fault."""
+    if device.type != "cuda":
+        raise ValueError(f"expected CUDA tensors, got {device}")
+    for name, t, shape in specs:
+        if (t.device != device or t.dtype != dtype or t.shape != shape
+                or not t.is_contiguous()):
+            check_tensor(name, t, shape, dtype, device)

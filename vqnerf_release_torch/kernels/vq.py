@@ -5,9 +5,20 @@ The kernel (``csrc/vq_kernel.cu``) replaces the Pallas TPU kernel
 ``vqnerf_release_tpu/ops/pallas/vq_kernel.py::vq_fused_train``: nearest-code
 assignment with dropped codes masked at 1e30, the quantized rows, the masked
 counts and dw = x^T (onehot * rowmask), and the Sonnet EMA epilogue that
-proposes the new codebook. It is two CUDA launches per call (assign, then
-finish). ``kernels/build.py`` compiles it with ``nvcc`` for ``sm_90a`` at
-first use and binds it with ``ctypes``.
+proposes the new codebook. It is one CUDA launch per call, a cooperative
+one: behind a barrier of the whole grid the blocks share the sum of their
+partial statistics and the epilogue. ``kernels/build.py`` compiles it with
+``nvcc`` for ``sm_90a`` at first use and binds it with ``ctypes``.
+
+A call makes two allocations, both fresh: one float32 buffer that holds
+quantized, counts, hidden_cs, hidden_dw and update (each a view at a
+16-byte-aligned offset) and one int32 buffer for the indices. They are
+fresh because they outlive the call: hidden_cs and hidden_dw are the next
+step's EMA state, and quantized enters the autograd graph. The kernel's
+scratch (the blocks' partial sums) is the opposite: one buffer per device,
+kept by this module and grown when a call needs more; its contents mean
+nothing between calls. Calls on one stream are ordered and may share it;
+calls on two streams of one device must not run at once.
 
 ``vq_fused_train`` takes the plain version ``vq_fused_train_reference`` only
 for CPU tensors. For CUDA tensors it launches the kernel or raises.
@@ -18,22 +29,34 @@ stay outside the kernel.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from . import build as kbuild
 
-__all__ = ["LAUNCHES", "SOURCE", "BIG", "build", "load", "vq_fused_train",
-           "vq_fused_train_reference"]
+__all__ = ["LAUNCHES", "SOURCE", "BIG", "build", "load", "smem_bytes",
+           "grid_blocks", "scratch_floats", "output_layout",
+           "allocate_outputs", "vq_fused_train", "vq_fused_train_reference"]
 
 LAUNCHES = 0
 
 SOURCE = kbuild.CSRC_DIR / "vq_kernel.cu"
 BIG = 1e30  # distance of a dropped code
 MAX_DIM = 256  # a row lives in registers, 8 floats per lane
-MAX_SMEM = 48 * 1024  # default dynamic shared memory of a block
+MAX_CODES = 256  # a thread of a block per code
+MAX_SMEM = 232448  # the 227 KB of shared memory a block can be given
+# the grid: about ROWS_PER_BLOCK rows a block (one pass of four rows a
+# warp), at most MAX_BLOCKS blocks and never more than the card has SMs: the
+# launch is cooperative, and a block's shared memory fills an SM
+ROWS_PER_BLOCK = 32
+MAX_BLOCKS = 128
+_WARPS = 8  # of a block
+_GROUP = 16  # codes reduced across the lanes together
+_ROW_PAD = 4  # floats between the transposed codebook's rows
 
 _lib = None
+_scratch = {}  # device index -> the kernel's scratch buffer
 
 
 def build(extra_flags=()):
@@ -47,10 +70,62 @@ def load(so):
     """The ctypes library of a built kernel."""
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     return kbuild.load(so, {
-        "vq_fused_train_blocks": [i32],
         "vq_fused_train_smem": [i32, i32],
-        "vq_fused_train_launch": [ptr] * 15 + [i32] * 3 + [f64] * 2 + [ptr],
+        "vq_fused_train_launch": [ptr] * 14 + [i32] * 4 + [f64] * 2
+        + [i32, ptr],
     })
+
+
+def smem_bytes(d, k):
+    """Dynamic shared memory of a block, as ``vq_fused_train_smem`` of the
+    source computes it."""
+    kp = -(-k // _GROUP) * _GROUP
+    return 4 * (k * (d + _ROW_PAD) + _WARPS * k * d + (2 + _WARPS) * kp)
+
+
+def grid_blocks(n, sms=MAX_BLOCKS):
+    """Blocks of the launch for n rows on a card of ``sms`` SMs."""
+    return max(1, min(MAX_BLOCKS, sms, -(-n // ROWS_PER_BLOCK)))
+
+
+def scratch_floats(blocks, d, k):
+    """Floats of scratch that a launch of ``blocks`` blocks needs: a block's
+    [K, D] sums and its counts, padded to a multiple of 16 codes."""
+    return blocks * (k * d + -(-k // _GROUP) * _GROUP)
+
+
+@functools.lru_cache(maxsize=64)
+def output_layout(n, d, k):
+    """Where each float32 output lies in the call's one output buffer:
+    ({name: (offset in floats, shape)}, floats in all). Every offset is a
+    multiple of 4 floats, so every view is 16-byte aligned."""
+    layout, offset = {}, 0
+    for name, shape in (("quantized", (n, d)), ("counts", (k,)),
+                        ("hidden_cs", (k,)), ("hidden_dw", (d, k)),
+                        ("update", (d, k))):
+        layout[name] = (offset, shape)
+        size = shape[0] * (shape[1] if len(shape) > 1 else 1)
+        offset += -(-size // 4) * 4
+    return layout, offset
+
+
+def allocate_outputs(n, d, k, device):
+    """The result dict of ``vq_fused_train`` over two fresh buffers."""
+    layout, total = output_layout(n, d, k)
+    buf = torch.empty((total,), dtype=torch.float32, device=device)
+    out = {"indices": torch.empty((n,), dtype=torch.int32, device=device)}
+    for name, (offset, shape) in layout.items():
+        size = shape[0] * (shape[1] if len(shape) > 1 else 1)
+        out[name] = buf[offset:offset + size].view(shape)
+    return out
+
+
+def _scratch_for(device, floats):
+    buf = _scratch.get(device.index)
+    if buf is None or buf.numel() < floats:
+        buf = torch.empty((floats,), dtype=torch.float32, device=device)
+        _scratch[device.index] = buf
+    return buf
 
 
 def _library():
@@ -113,7 +188,8 @@ def vq_fused_train(codebook, flat_inputs, rowmask, sel, hidden_cs, hidden_dw,
     weights; sel [K] usable-code mask (1 = usable), the dropout already
     drawn; hidden_cs [K] and hidden_dw [D, K], the EMA hidden values;
     counter: 0-dim float32 tensor, the ALREADY-INCREMENTED EMA counter
-    (read on the device, so the call does not synchronise). All float32.
+    (read on the device, so the call does not synchronise). All float32;
+    on the card D is a multiple of 4 and flat_inputs 16-byte aligned.
     Returns dict: indices [N] int32, quantized [N, D], counts [K],
     hidden_cs [K], hidden_dw [D, K], update [D, K]; none carries a gradient.
     """
@@ -125,46 +201,36 @@ def vq_fused_train(codebook, flat_inputs, rowmask, sel, hidden_cs, hidden_dw,
     device = flat_inputs.device
     n, d = flat_inputs.shape
     k = codebook.shape[1]
-    f32 = torch.float32
-    tensors = {
-        "codebook": (codebook.detach(), (d, k)),
-        "flat_inputs": (flat_inputs.detach(), (n, d)),
-        "rowmask": (rowmask.detach(), (n,)), "sel": (sel.detach(), (k,)),
-        "hidden_cs": (hidden_cs, (k,)), "hidden_dw": (hidden_dw, (d, k)),
-        "counter": (counter.reshape(-1), (1,)),
-    }
-    for name, (t, shape) in tensors.items():
-        kbuild.check_tensor(name, t, shape, f32, device)
-    lib = _library()
-    if d > MAX_DIM or lib.vq_fused_train_smem(d, k) > MAX_SMEM:
+    x = flat_inputs.detach()
+    cb = codebook.detach()
+    rowmask = rowmask.detach()
+    sel = sel.detach()
+    counter = counter.reshape(-1)
+    kbuild.check_tensors(
+        (("codebook", cb, (d, k)), ("flat_inputs", x, (n, d)),
+         ("rowmask", rowmask, (n,)), ("sel", sel, (k,)),
+         ("hidden_cs", hidden_cs, (k,)), ("hidden_dw", hidden_dw, (d, k)),
+         ("counter", counter, (1,))), torch.float32, device)
+    if (d > MAX_DIM or d % 4 or d < 4 or not 1 <= k <= MAX_CODES
+            or smem_bytes(d, k) > MAX_SMEM):
         raise ValueError(
-            f"vq_fused_train takes D <= {MAX_DIM} and a codebook whose "
-            f"block state fits {MAX_SMEM} bytes of shared memory; got "
-            f"D={d}, K={k} ({lib.vq_fused_train_smem(d, k)} bytes)")
-    blocks = lib.vq_fused_train_blocks(n)
-    out = {
-        "indices": torch.empty((n,), dtype=torch.int32, device=device),
-        "quantized": torch.empty((n, d), dtype=f32, device=device),
-        "counts": torch.empty((k,), dtype=f32, device=device),
-        "hidden_cs": torch.empty((k,), dtype=f32, device=device),
-        "hidden_dw": torch.empty((d, k), dtype=f32, device=device),
-        "update": torch.empty((d, k), dtype=f32, device=device),
-    }
-    partial_dw = torch.empty((blocks, d * k), dtype=f32, device=device)
-    partial_counts = torch.empty((blocks, k), dtype=f32, device=device)
-    t = {name: v[0] for name, v in tensors.items()}
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vq_fused_train_launch(
-            t["flat_inputs"].data_ptr(), t["codebook"].data_ptr(),
-            t["rowmask"].data_ptr(), t["sel"].data_ptr(),
-            t["hidden_cs"].data_ptr(), t["hidden_dw"].data_ptr(),
-            t["counter"].data_ptr(), out["indices"].data_ptr(),
-            out["quantized"].data_ptr(), out["counts"].data_ptr(),
-            out["hidden_cs"].data_ptr(), out["hidden_dw"].data_ptr(),
-            out["update"].data_ptr(), partial_dw.data_ptr(),
-            partial_counts.data_ptr(), n, d, k, float(decay),
-            float(epsilon), stream)
+            f"vq_fused_train takes D <= {MAX_DIM}, a multiple of 4, and 1 to "
+            f"{MAX_CODES} codes whose block state fits {MAX_SMEM} bytes of "
+            f"shared memory; got D={d}, K={k} ({smem_bytes(d, k)} bytes)")
+    if x.data_ptr() % 16:
+        raise ValueError("flat_inputs: expected a 16-byte-aligned tensor")
+    blocks = grid_blocks(
+        n, torch.cuda.get_device_properties(device).multi_processor_count)
+    out = allocate_outputs(n, d, k, device)
+    scratch = _scratch_for(device, scratch_floats(blocks, d, k))
+    err = _library().vq_fused_train_launch(
+        x.data_ptr(), cb.data_ptr(), rowmask.data_ptr(), sel.data_ptr(),
+        hidden_cs.data_ptr(), hidden_dw.data_ptr(), counter.data_ptr(),
+        out["indices"].data_ptr(), out["quantized"].data_ptr(),
+        out["counts"].data_ptr(), out["hidden_cs"].data_ptr(),
+        out["hidden_dw"].data_ptr(), out["update"].data_ptr(),
+        scratch.data_ptr(), n, d, k, blocks, float(decay), float(epsilon),
+        device.index, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vq_fused_train: kernel launch failed with "
                            f"CUDA error {err}")
