@@ -7,8 +7,10 @@
 fast-vis shadow pass.)
 
 1. checks for a CUDA device and prints its name and power limit;
-2. builds the three CUDA sources of csrc/ (three nvcc processes side by
-   side; four kernels, the render kernel in four instances) and prints the
+2. builds the three CUDA sources of csrc/ and the SDF source once more as
+   the design before (one accumulator; for a reading in 8), four nvcc
+   processes side by side (four kernels, the render kernel in four
+   instances), and prints the
    build time, ptxas' register and spill counts, and the count of
    tensor-core instructions (HGMMA / HMMA) that cuobjdump -sass finds in
    the SDF library, which must not be 0;
@@ -23,30 +25,52 @@ fast-vis shadow pass.)
    200,000 rows, the elbow selection and the main_<k> renders); the VQ
    kernel's launch count is reset just before and must equal the number of
    vq_nfr steps just after; losses finite, no skipped step, the codebook
-   moved, the checkpoint reloads to equal tensors, the files exist;
-5. SERVES the trained model: the port's four-pass run_test over the 2 val
-   views with the trained vq_nfr, a ref_nfr initialised from it and the
-   main_<k> directory the training wrote, with the render kernel's launch
-   counts reset just before and read just after (every launch must be of
-   the 16-byte instance: 512 lights, aligned lvis rows); every expected
-   file exists, every written array is finite, embed ids lie in [0, n_vq];
-6. EXTRACTS stage-1 geometry: writes a synthetic NeRF-convention scene
-   (transforms_{train,val}.json, 16-bit rgba.png, cameras on a circle of
-   radius 2 looking at the origin), takes init_neus(seed) at the default
-   NeuSConfig widths (SDF 39 -> 256x8 -> 257, colour net 4x256), whose
-   geometric init is a sphere of radius about 0.5, and runs the port's
-   extraction entry run_gen_geo on the GPU with the defaults a user gets:
-   sampler 64+64r4, 512 lights, fast_vis on, n_coarse 16, fast_vis_refine
-   64, vis_point_batch 64. The SDF kernels' launch counts are reset just
-   before and must both have risen just after. Checks: all 8 files of every
-   view, finite, lvis in [0, 1]; on foreground pixels |sdf(xyz)| small and
-   normals within a stated angle of xyz/|xyz|; lvis near 1 for front-lit,
-   non-grazing lights and exactly 0 for back-facing ones. Then, on a few
-   hundred foreground points x 512 lights, _lvis_full through the kernels
-   against _lvis_fast and against _lvis_full with use_fused_sdf=False, and
-   one neus_render with the up-sample chain through the kernel and without;
-7. holds each kernel against its plain PyTorch version on the GPU, on
-   inputs taken from the trained model:
+   moved, the checkpoint reloads to equal tensors, the files exist. It
+   replays the same vq_nfr steps (same state, batches and dropout draws,
+   no validation) with the kernel and with use_fused_vq=False and prints
+   how far the final codebooks and the codes of the evaluation rows lie
+   apart. Then train_ref_nfr for 2 epochs from the trained VqNfr and the
+   light its validation wrote: log, checkpoint, the frozen subtree bit for
+   bit unchanged, and the time of one synchronised step;
+5. SERVES the trained models: the port's four-pass run_test over the 2 val
+   views with the trained vq_nfr, the trained ref_nfr and the main_<k>
+   directory the training wrote, with the render kernel's launch counts
+   reset just before and read just after (every launch must be of the
+   16-byte instance: 512 lights, aligned lvis rows); every expected file
+   exists, every written array is finite, embed ids lie in [0, n_vq];
+6. TRAINS stage-1 geometry: writes a synthetic NeRF-convention scene
+   (transforms_{train,val}.json, 16-bit rgba.png, cameras spread over a
+   circle of radius 2 looking at the origin, a textured sphere of radius
+   GEO_GT_RADIUS) and trains NeuSRunner on it under the shipped training
+   config of a CG scene (config.neus_configs_for_scene: SDF 39 -> 256x8 ->
+   257, colour net 4x256, 2560 rays a step, the 24+8r2 carve sampler over a
+   128^3 occupancy grid, then the dense 64+32r2 tail with the grid on), cut
+   to NEUS_ITERS steps; kernel 3's launch count is reset just before and
+   must equal up_sample_steps a step (and a validation render's) just
+   after; losses finite, no skipped step. It times one step with and
+   without kernel 3 in the carve phase and in the tail, and pack_sdf;
+7. EXTRACTS stage-1 geometry from THAT checkpoint with the port's entry
+   run_gen_geo and the defaults a user gets: sampler 64+64r4, 512 lights,
+   fast_vis on, n_coarse 16, fast_vis_refine 64, vis_point_batch 64. The
+   SDF kernels' launch counts are reset just before and must both have
+   risen just after. Checks, each view printed before any failure raises:
+   all 8 files of every view, finite, lvis in [0, 1]; each view's GT mask
+   inside its silhouette; on the foreground pixels (inside the GT mask too
+   for a train view) the GT sphere's SDF at the mean point along the ray
+   (xyz over a weight_sum rendered again) within the band a soft, briefly
+   trained density implies, normals within NORMAL_MAX_DEG of radial; at
+   opaque pixels lvis near 1 for front-lit, non-grazing lights, and exactly
+   0 for back-facing ones everywhere; the fast-vis certified fraction of
+   the trained scene. Then, on a few hundred foreground points x 512
+   lights, _lvis_full through the kernels against _lvis_full with
+   use_fused_sdf=False and against _lvis_fast (equal on the rays fast-vis
+   renders; on the rays it certifies free no crossing of the zero level,
+   so at least half the light under the soft density); the normals of a
+   geometry render and GeoExtractor._certificates through the kernels
+   against the plain path; one neus_render with the up-sample chain
+   through the kernel and without;
+8. holds each kernel against its plain PyTorch version on the GPU, on
+   inputs taken from the trained models:
      fused_brdf_render: a 49,152-ray chunk of a view with lvis, 1,000 rays
        without lvis, and the chunk again with lvis 4 bytes off a 16-byte
        boundary and with 510 lights (both must run the scalar instance);
@@ -61,7 +85,14 @@ fast-vis shadow pass.)
        plain version FED THE KERNEL'S INDICES and evaluated in float64, at
        rtol 1e-5 / atol 1e-6 (float64 so that the error of the plain
        version's own 65,536-term fp32 matmul does not enter);
-8. times all four kernels and their plain versions: "ms" is one call on a
+     sdf_fwd, sdf_fwdgrad: shadow-ray points of the trained scene, a ragged
+       count and a scale-2 net, rtol 1e-4 / atol 1e-5 on sdf and on every
+       gradient component (the gradient's error over its vector's norm is
+       printed beside), the gradient also against autograd; and, as a
+       reading, both kernels built as the design before (the three TF32
+       products in one accumulator) on the same net and points;
+9. times all four kernels and their plain versions, kernel 3 also at the
+   point counts of the NeuS training step's chain: "ms" is one call on a
    busy queue (one pair of CUDA events around a run of calls, over their
    number), which is the host's time where the wrapper takes longer than
    the kernel; "device_ms" is the kernels' own durations as torch.profiler
@@ -75,23 +106,28 @@ fast-vis shadow pass.)
    one whole vq_nfr step with the kernel and with use_fused_vq=False (host
    clock around a synchronised step, median), and with --profile a
    torch.profiler table of a few steps;
-9. prints the pass times, peak device memory of training, of serving and of
-   extraction, a {"kernels": [...]} line with all four kernels (each with
-   ms, device_ms, plain_ms, bound_ms), and as the last line
-   {"ok": true, "device": {...}}.
+10. prints the pass times, peak device memory of each path, the script's
+   total, a {"kernels": [...]} line with all four kernels (each with ms,
+   device_ms, plain_ms, bound_ms; kernel 3's launches are those of NeuS
+   training and extraction, given apart on the line before), and as the
+   last line {"ok": true, "device": {...}}.
 
 Cuts, all of scale and none of width: 4 train views and 1 validation view
 in place of a scene's 100 and 8, 2 epochs in place of 150, 2 served views;
-for the extraction 2 train views and 1 val view of 256x256 in place of a
-scene's 100 and 8 of 512x512 (or larger).
+for stage 1 6 train views and 1 val view of 256x256 in place of a scene's
+100 and 8 of 512x512 (or larger), and NEUS_ITERS training steps in place of
+300,000, with the warm-up cut in proportion and the checkpoint, validation
+and mesh at the last step.
 
 Any failure raises and exits non-zero; without CUDA it exits 1 before doing
 anything.
 """
 
 import copy
+import dataclasses
 import glob
 import json
+import math
 import os
 import re
 import subprocess
@@ -105,6 +141,7 @@ import torch
 
 from vqnerf_release_torch.data import io as vio
 from vqnerf_release_torch.data.device_store import DeviceViewStore
+from vqnerf_release_torch.data.sampler import build_vq_eval_set
 from vqnerf_release_torch.data.shape_dataset import ShapeDataset
 from vqnerf_release_torch.kernels import build as kbuild
 from vqnerf_release_torch.kernels import render as render_kernel
@@ -117,12 +154,15 @@ from vqnerf_release_torch.models.neus import (NeuSConfig, init_neus,
 from vqnerf_release_torch.models.nfr_unit import init_nfr_unit
 from vqnerf_release_torch.models.ref_nfr import init_ref_nfr
 from vqnerf_release_torch.data.neus_dataset import NerfSceneDataset
+from vqnerf_release_torch.ops.vq import VqEmaState, vq_lookup
 from vqnerf_release_torch.pipelines import gen_geo
 from vqnerf_release_torch.pipelines.test_driver import (_RAY_CHUNK, find_vq,
                                                          load_novel_lights,
                                                          run_test)
 from vqnerf_release_torch.train import decomp_trainer as dt
 from vqnerf_release_torch.train import loop as train_loop
+from vqnerf_release_torch.train.neus_loop import NeuSRunner
+from vqnerf_release_torch.train.neus_trainer import make_neus_train_step
 from vqnerf_release_torch.utils import ckpt as ckpt_util
 
 SCENE = "sphere"
@@ -141,22 +181,41 @@ RAGGED_N = 1000
 # cuts of scale, and the tolerances of its checks
 GEO_SCENE = "lego_3072"
 GEO_IMH = 256
-GEO_TRAIN_VIEWS, GEO_VAL_VIEWS = 2, 1
+GEO_TRAIN_VIEWS, GEO_VAL_VIEWS = 6, 1
 GEO_NEAR, GEO_FAR = 0.5, 3.5
-GEO_GT_RADIUS = 0.33  # silhouette of the train views' GT masks
+# the scene's sphere: inside the geometric init's zero level (radius 0.5),
+# near enough for NEUS_ITERS steps of the shipped learning rate to reach
+GEO_GT_RADIUS = 0.4
 SDF_RTOL, SDF_ATOL = 1e-4, 1e-5  # SDF kernels against their plain versions
 SDF_AUTO_RTOL, SDF_AUTO_ATOL = 3e-3, 3e-4  # ... against autograd
 SDF_RAYS = 8192  # vis_point_batch 64 x light_tile 128
 SDF_RAGGED_N = 131072 + 77
+SDF_ONE_ACC_FLAGS = ("-DSDF_ONE_ACCUMULATOR",)
 LVIS_POINTS = 300
 LVIS_KERNEL_ATOL = 2e-3  # lvis, kernel path against plain path
-LVIS_FAST_ATOL = 0.05  # lvis, fast against full (the JAX test's own gate)
 RENDER_FUSED_ATOL = 2e-3  # neus_render, up-sample chain fused against not
-# the untrained SDF renders soft (inv_s = exp(3) = 20), so its composited
-# surface point lies up to 0.12 inside the zero level and its normal up to
-# 23 degrees off radial at grazing pixels (measured on the CPU at 32x32)
-SURF_SDF_ATOL = 0.2  # |sdf(xyz)| on foreground pixels
-NORMAL_MAX_DEG = 35.0  # angle between normal.npy and xyz/|xyz|
+# NeuS training: the shipped config's 300,000 steps cut to this many; the
+# warm-up keeps its share of the run (5,000 of 300,000)
+NEUS_ITERS = 400
+# The extracted buffers of the trained scene against the GT sphere, on a
+# train view's pixels inside both its silhouette and its GT mask (its lvis
+# covers the GT mask) and on a val view's whole silhouette. xyz.npy is the
+# weights' sum of the samples, sum_i w_i x_i, as the reference writes it:
+# where weight_sum W is below 1 (W > 0.5 on the silhouette) the point lies
+# inside the object, at W times the mean point along the ray. The checks
+# render W again with the same extractor (its silhouette must be
+# alpha.png's) and hold the mean point, xyz / W, to the sphere. NEUS_ITERS
+# steps leave the density soft (s_val, its scale, about 0.03 where a
+# scene's full training ends near 0.002), and the shipped loss takes the
+# colour only inside the GT mask, where it asks for full opacity up to the
+# silhouette's edge: the zero level settles outside the GT sphere, by up to
+# the width in which the density's sigmoid goes from 1% to 99%, ln(99)
+# s_val. So:
+SOFT_WIDTH = math.log(99.0)  # times the trained s_val
+SURF_SLACK = 0.05  # beyond that, inward and outward
+NORMAL_MAX_DEG = 35.0  # angle between normal.npy and the mean point's radial
+GT_COVERED = 0.95  # share of a view's GT mask inside its silhouette
+OPAQUE = 0.99  # W above which xyz is the surface point (the lvis checks)
 LIT_COS, LIT_MIN = 0.5, 0.9  # lights with cos > LIT_COS have lvis > LIT_MIN
 # peaks of one H100 SXM: HBM bytes/s, fp32 operations/s outside the tensor
 # cores (kernels 1 and 2, and the earlier design of kernels 3 and 4), and
@@ -344,6 +403,15 @@ def _compare(got, want, what, rtol=RTOL, atol=ATOL):
     return float(err.max())
 
 
+def _norm_relative(got, want):
+    """The worst row's error over the norm of its vector (rows of
+    3-vectors, gradients): a reading printed beside the component-wise
+    gate, not a gate."""
+    err = (got - want).abs().amax(dim=-1)
+    return float((err / torch.linalg.norm(want, dim=-1).clamp_min(
+        1e-30)).max())
+
+
 def kernel_inputs(vq, cfg, batch, lxyz, lareas):
     """The fused render's inputs as vq_fast_render forms them."""
     _, xyz, surf2c, _, normal_pred, lvis = vq_nfr._geom(batch, cfg, lxyz)
@@ -356,14 +424,18 @@ def kernel_inputs(vq, cfg, batch, lxyz, lareas):
 
 
 def build_kernels():
-    """Build the three sources, one nvcc process each, side by side."""
+    """Build the three sources and the SDF kernels' one-accumulator
+    variant, one nvcc process each, side by side."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         jobs = {"render": pool.submit(render_kernel.build),
                 "vq": pool.submit(vq_kernel.build),
-                "sdf": pool.submit(sdf_kernel.build)}
+                "sdf": pool.submit(sdf_kernel.build),
+                # the SDF kernels' design before, for the accuracy reading
+                "sdf, one accumulator": pool.submit(sdf_kernel.build,
+                                                    SDF_ONE_ACC_FLAGS)}
         built = {name: job.result() for name, job in jobs.items()}
-    print("kernel builds: %.3f s for all three sources"
+    print("kernel builds: %.3f s for the three sources and a variant"
           % (time.perf_counter() - t0))
     for name, (so, log) in built.items():
         print("  %s -> %s" % (name, so.name))
@@ -497,7 +569,152 @@ def train_phase(cfg, paths, root, device):
     print("peak device memory in training: %d bytes (%.3f GiB)"
           % (peak, peak / 2**30))
     return {"vq": vq, "ema": ema, "vali_dir": vali_dir, "n_vq": n_vq,
-            "launches": launches, "peak": peak, "train_views": train_views}
+            "launches": launches, "peak": peak, "train_views": train_views,
+            "nfr": nfr, "vq_dir": vq_dir}
+
+
+def ref_phase(cfg, paths, trained, root, device):
+    """Phase 3: train_ref_nfr for EPOCHS epochs from the trained VqNfr and
+    the light its last validation wrote, on views loaded with their
+    reference RGB; its log, checkpoint and files, the frozen subtree bit for
+    bit the VqNfr's and the light's, the VqNfr untouched; and the time of
+    one synchronised step. Returns the trained RefNfr."""
+    load = {}
+    for mode, n in (("train", N_TRAIN_VIEWS), ("vali", N_VALI_VIEWS)):
+        ds = ShapeDataset(paths["data_root"], paths["surf_root"],
+                          data_type="nerf", imh=cfg.imh, mode=mode,
+                          with_ref=True)
+        load[mode] = [ds.load_view(f) for f in ds.files[:n]]
+    light = np.load(os.path.join(trained["vq_dir"], "vis_vali",
+                                 "np_light.npy"))
+    vq = trained["vq"]
+    vq_before = {k: v.clone() for k, v in vq.state_dict().items()}
+    ref_dir = os.path.join(root, "ref")
+    n_steps = EPOCHS * N_TRAIN_VIEWS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref, hist = train_loop.train_ref_nfr(
+        cfg, vq, light, load["train"], load["vali"], ref_dir, epochs=EPOCHS,
+        seed=SEED, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rows = _check_log(ref_dir, "ref_nfr")
+    _check_ckpt(ref_dir, ref, n_steps)
+    for k, v in vq.state_dict().items():
+        if not torch.equal(v, vq_before[k]):
+            raise AssertionError(f"train_ref_nfr changed the VqNfr at {k}")
+    frozen = ref.frozen
+    for mine, theirs in ((frozen.fine_enc, vq.fine_enc),
+                         (frozen.bottleneck, vq.bottleneck),
+                         (frozen.spec_out, vq.spec_main)):
+        for a, b in zip(mine.parameters(), theirs.parameters()):
+            if not torch.equal(a, b):
+                raise AssertionError("the frozen subtree moved")
+    if not torch.equal(frozen.light.cpu(), torch.from_numpy(light)):
+        raise AssertionError("the frozen light moved")
+    epoch_dir = os.path.join(ref_dir, "vis_vali", "epoch%09d" % EPOCHS)
+    for name in ("pred_rgb.png", "pred_rgb_diff.png", "pred_rgb_spec.png",
+                 "pred_basecolor.png"):
+        path = os.path.join(epoch_dir, "batch%09d" % 0, name)
+        if not os.path.exists(path):
+            raise AssertionError(f"missing {os.path.relpath(path, root)}")
+
+    # one synchronised step on a copy (the trained model is served next)
+    lxyz, lareas = dc.light_constants(cfg, device)
+    store = DeviceViewStore(load["train"][:1], device)
+    batch = store.gather(0, train_loop.sample_pix(
+        load["train"][0], cfg.n_rays_per_step, np.random.RandomState(SEED),
+        jitter_mode="contrast"))
+    _, step = dt.make_ref_nfr_step(copy.deepcopy(ref), cfg, lxyz, lareas)
+    for _ in range(3):
+        step(batch, 8)
+    step_ms = _median_step_ms(lambda: step(batch, 8), 10)
+    del store, batch
+    print("train_ref_nfr: %.3f s, %d steps, epoch losses %s; epoch wall %s "
+          "s; the frozen encoder, spec head and light bit for bit the "
+          "VqNfr's; peak device memory %d bytes (%.3f GiB)"
+          % (seconds, n_steps, hist, [r["wall_s"] for r in rows], peak,
+             peak / 2**30))
+    print("one ref_nfr step (%d rows x %d lights, host clock, synchronised, "
+          "median of 10): %.3f ms" % (2 * cfg.n_rays_per_step, cfg.n_lights,
+                                      step_ms))
+    return ref
+
+
+def vq_replay(cfg, trained, device):
+    """train_vq_nfr's steps once more, from the same state, batches and
+    dropout draws, with the VQ kernel (use_fused_vq=None) and with
+    use_fused_vq=False, without validation. Fails unless the kernel run
+    gives the trained model bit for bit (every launch is deterministic, so
+    anything else means the replay left train_vq_nfr's draw order). Prints
+    how far the two paths' final codebooks lie apart, and the share of the
+    VQ evaluation set's foreground rows whose code differs between them."""
+    views, nfr = trained["train_views"], trained["nfr"]
+    lxyz, lareas = dc.light_constants(cfg, device)
+    thres = torch.as_tensor(cfg.train_thres(), device=device)
+    # the random stream of train_vq_nfr: the k-means batches, then the
+    # evaluation set, then the epochs' batches
+    rng = np.random.RandomState(SEED)
+    centers = np.load(os.path.join(trained["vq_dir"], "cluster_centers.npy"))
+    again = train_loop._init_centers(cfg, nfr, views, rng, SEED, device)
+    per_view = max(1, cfg.total_sample_vq // len(views))
+    vq_eval = train_loop._device_batch(build_vq_eval_set(
+        views, per_view, cfg.n_rays_per_step, rng), device)
+    state0 = rng.get_state()
+    models = {}
+    t0 = time.perf_counter()
+    for name, fused in (("kernel", None), ("eager", False)):
+        rng.set_state(state0)
+        c = dataclasses.replace(cfg, use_fused_vq=fused)
+        model, ema = vq_nfr.init_vq_nfr(torch.Generator().manual_seed(SEED),
+                                        c, nfr, centers)
+        model = model.to(device)
+        ema = VqEmaState(*(t.to(device) for t in ema))
+        _, step_fn = dt.make_vq_nfr_step(model, c, lxyz, lareas)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        batches, _ = train_loop._make_batch_source(views, c, "random",
+                                                   device)
+        step = 0
+        for _ in range(EPOCHS):
+            for batch in batches(rng):
+                ema, _ = step_fn(ema, batch, thres, gen, step)
+                step += 1
+        models[name] = model
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    vq, kernel, eager = trained["vq"], models["kernel"], models["eager"]
+    replay = max(float((a - b).abs().max()) for a, b in zip(
+        kernel.state_dict().values(), vq.state_dict().values()))
+    # the replay holds train_vq_nfr's draw order: the kernel path must give
+    # the trained model's bits, or the replay is not of its trajectory
+    if replay != 0 or not np.array_equal(again, centers):
+        raise AssertionError(
+            f"the replay left train_vq_nfr's trajectory: parameters up to "
+            f"{replay} apart, k-means centres equal: "
+            f"{np.array_equal(again, centers)}")
+    drift = float((kernel.codebook - eager.codebook).detach().abs().max())
+    with torch.inference_mode():
+        fg = vq_eval["alpha"][:, 0] > 0
+        codes = {}
+        for name, model in models.items():
+            _, z = vq_nfr.vq_encode(model, vq_eval["xyz"][fg], cfg)
+            codes[name] = vq_lookup(dc.get_codebook(model),
+                                    z)["encoding_indices"]
+        differ = float((codes["kernel"] != codes["eager"]).float().mean())
+    print("vq_nfr replay of %d steps a path (%.3f s for both): the kernel "
+          "path against the trained model max |diff| %.3e over all "
+          "parameters (k-means centres recomputed equal: %s); "
+          "use_fused_vq=False against the kernel after %d epochs: final "
+          "codebook max |diff| %.3e; %.4f%% of %d foreground evaluation rows "
+          "take another code"
+          % (step, seconds, replay, np.array_equal(again, centers), EPOCHS,
+             drift, 100 * differ, int(fg.sum())))
+    if not np.isfinite(drift):
+        raise AssertionError("non-finite replay")
+    return {"codebook_drift": drift, "code_differ_share": differ,
+            "replay_noise": replay}
 
 
 def _median_step_ms(step, reps):
@@ -846,11 +1063,12 @@ def check_vq_kernel(trained, cfg, device):
 
 def write_stage1_scene(root, imh, n_train, n_val, seed):
     """A NeRF-convention stage-1 scene: transforms_{train,val}.json and a
-    16-bit rgba.png per view, cameras on a circle of radius 2 (height 0.3)
-    looking at the origin. The alpha channel is the silhouette of a sphere
-    of radius GEO_GT_RADIUS, inside the rendered silhouette of the
-    geometric-init SDF (whose soft density composites to a radius of about
-    0.38)."""
+    16-bit rgba.png per view. The cameras lie on a circle of radius 2
+    (height 0.3) and look at the origin, the train views evenly spaced and
+    the val views between them. The object is a sphere of radius
+    GEO_GT_RADIUS with a texture fixed to its surface (smooth blobs of its
+    base colour), so that the views agree on where each surface point lies;
+    the background is white. Both carry 3% of per-pixel noise."""
     rs = np.random.default_rng(seed)
     angle_x = 0.8
     fl = 0.5 * imh / np.tan(0.5 * angle_x)
@@ -861,7 +1079,8 @@ def write_stage1_scene(root, imh, n_train, n_val, seed):
     for mode, n in (("train", n_train), ("val", n_val)):
         frames = []
         for i in range(n):
-            ang = 2 * np.pi * (i + (0.5 if mode == "val" else 0.0)) / max(n, 1)
+            ang = 2 * np.pi * (i + (0.5 if mode == "val" else 0.0)) \
+                / max(n_train, 1)
             eye = np.array([2.0 * np.sin(ang), 0.3, 2.0 * np.cos(ang)])
             fwd = -eye / np.linalg.norm(eye)
             right = np.cross(fwd, [0.0, 1.0, 0.0])
@@ -873,10 +1092,15 @@ def write_stage1_scene(root, imh, n_train, n_val, seed):
             rayd = dirs @ c2w[:3, :3].T
             rayd /= np.linalg.norm(rayd, axis=-1, keepdims=True)
             b = rayd @ eye
-            hit = b * b - (eye @ eye - GEO_GT_RADIUS**2) > 0
+            disc = b * b - (eye @ eye - GEO_GT_RADIUS**2)
+            hit = disc > 0
+            p = eye + (-b - np.sqrt(np.maximum(disc, 0.0)))[..., None] * rayd
+            blobs = np.prod(np.sin(9.0 * p), axis=-1)
             rgba = np.empty((imh, imh, 4))
-            rgba[..., :3] = np.where(hit[..., None], [0.8, 0.5, 0.3], 1.0) \
-                * (0.9 + 0.1 * rs.random((imh, imh, 1)))
+            rgba[..., :3] = np.where(
+                hit[..., None],
+                np.array([0.8, 0.5, 0.3]) * (0.55 + 0.45 * blobs[..., None]),
+                1.0) * (0.97 + 0.03 * rs.random((imh, imh, 1)))
             rgba[..., 3] = hit
             d = os.path.join(root, "%s_%03d" % (mode, i))
             os.makedirs(d)
@@ -887,9 +1111,179 @@ def write_stage1_scene(root, imh, n_train, n_val, seed):
     return root
 
 
-def check_geo_view(view_dir, model, cfg, lxyz, gt_mask, device):
-    """The written buffers of one extracted view against the geometric-init
-    sphere; returns a dict of what was measured."""
+def neus_train_phase(root, device, profile=False):
+    """Stage 1's training: NeuSRunner on the written stage-1 scene under the
+    shipped training config of GEO_SCENE (config.neus_configs_for_scene:
+    the default widths, 2560 rays a step, the 24+8r2 carve sampler over a
+    128^3 occupancy grid, then the dense 64+32r2 tail with the grid on),
+    cut to NEUS_ITERS steps. Kernel 3 must launch up_sample_steps times in
+    every step and in the closing validation render; losses finite, no step
+    skipped, the checkpoint where run_gen_geo looks. Then the step's time
+    with and without kernel 3 in both phases, and pack_sdf's."""
+    data_root = write_stage1_scene(
+        os.path.join(root, "stage1", GEO_SCENE), GEO_IMH, GEO_TRAIN_VIEWS,
+        GEO_VAL_VIEWS, SEED)
+    out_root = os.path.join(root, "stage1_out")
+    _, shipped, _ = gen_geo.vcfg.neus_configs_for_scene(GEO_SCENE)
+    warm = round(shipped.warm_up_end * NEUS_ITERS / shipped.end_iter)
+    cfg, tcfg, meta = gen_geo.vcfg.neus_configs_for_scene(
+        GEO_SCENE, end_iter=NEUS_ITERS, warm_up_end=warm,
+        save_freq=NEUS_ITERS, val_freq=NEUS_ITERS, mesh_freq=NEUS_ITERS)
+    if (cfg.sdf, cfg.color) != (fields.SDFConfig(), fields.ColorConfig()) \
+            or tcfg.batch_size != 2560:
+        raise AssertionError(f"not the default widths: {cfg}, {tcfg}")
+    if (cfg.n_samples, cfg.n_importance, cfg.up_sample_steps, tcfg.occ_res,
+            tcfg.tail_sampler, tcfg.tail_occ) != (24, 8, 2, 128, "64+32r2",
+                                                  True):
+        raise AssertionError(f"not the shipped sampler schedule: {tcfg}")
+    ds = NerfSceneDataset(data_root, is_train=True, near=GEO_NEAR,
+                          far=GEO_FAR)
+    val_ds = NerfSceneDataset(data_root, is_train=False, near=GEO_NEAR,
+                              far=GEO_FAR)
+    exp_dir = os.path.join(out_root, "exp", GEO_SCENE, meta["family"])
+    runner = NeuSRunner(cfg, tcfg, ds, exp_dir, val_dataset=val_ds,
+                        seed=SEED, device=device)
+    tail_start = runner.tail_start()
+    print("NeuS training cuts: %d train + %d val views of %dx%d; end_iter "
+          "%d for the shipped %d and warm_up_end %d for %d (the same share); "
+          "save, validation and mesh once, at the last step; widths, batch "
+          "%d, the carve sampler %d+%dr%d over a %d^3 grid rebuilt every %d "
+          "steps and the %s tail from step %d (tail_frac %g) are the "
+          "shipped config's"
+          % (GEO_TRAIN_VIEWS, GEO_VAL_VIEWS, GEO_IMH, GEO_IMH, NEUS_ITERS,
+             shipped.end_iter, warm, shipped.warm_up_end, tcfg.batch_size,
+             cfg.n_samples, cfg.n_importance, cfg.up_sample_steps,
+             tcfg.occ_res, tcfg.occ_update_freq, tcfg.tail_sampler,
+             tail_start, tcfg.tail_frac))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in sdf_kernel.LAUNCHES:
+        sdf_kernel.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    hist = runner.train(log_every=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(sdf_kernel.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    tail_cfg = runner._tail_cfg
+    val_batches = math.ceil(GEO_IMH * GEO_IMH / 4096)
+    want = (cfg.up_sample_steps * tail_start
+            + tail_cfg.up_sample_steps * (NEUS_ITERS - tail_start)
+            + cfg.up_sample_steps * val_batches)
+    if launches != {"sdf_fwd": want, "sdf_fwdgrad": 0}:
+        raise AssertionError(f"NeuS training launched {launches}, expected "
+                             f"sdf_fwd {want}: kernel 3 in every step")
+    if len(hist) != NEUS_ITERS or runner.iter_step != NEUS_ITERS:
+        raise AssertionError(f"{len(hist)} logged of {runner.iter_step} steps")
+    losses = np.array([h["loss"] for h in hist])
+    skipped = int(sum(h["nonfinite_grads"] for h in hist))
+    if not np.isfinite(losses).all() or skipped:
+        raise AssertionError(f"NeuS: {skipped} skipped steps, losses "
+                             f"finite: {np.isfinite(losses).all()}")
+    if len(runner.occ_builds) < 2 or runner.occ_builds[0] != 0:
+        raise AssertionError(f"occupancy rebuilt at {runner.occ_builds}")
+    latest = ckpt_util.latest_ckpt(exp_dir)
+    if os.path.basename(latest) != "ckpt-%d" % NEUS_ITERS:
+        raise AssertionError(f"latest checkpoint {latest}")
+    state = ckpt_util.load_ckpt(latest)
+    for k, v in runner.params.state_dict().items():
+        if not torch.equal(state["params"][k], v.cpu()):
+            raise AssertionError(f"the checkpoint differs from the model at "
+                                 f"{k}")
+    for path in (os.path.join(exp_dir, "validations_fine",
+                              "%08d_0.png" % NEUS_ITERS),
+                 os.path.join(exp_dir, "meshes", "%08d.ply" % NEUS_ITERS)):
+        if not os.path.exists(path):
+            raise AssertionError(f"missing {os.path.relpath(path, root)}")
+    psnr = np.array([h["psnr"] for h in hist])
+    print("NeuSRunner.train: %.3f s for %d steps (%.2f ms a step on "
+          "average, the occupancy rebuilds at %s, the validation render and "
+          "the mesh included); loss %.5f -> %.5f (first / last step; means "
+          "of the first and last 20: %.5f -> %.5f), PSNR %.2f -> %.2f dB "
+          "(means of 20: %.2f -> %.2f), s_val %.5f -> %.5f, lr %.3e at the "
+          "end; %d steps skipped; kernel 3 launched %d times (%d a step and "
+          "%d in the validation render); peak device memory %d bytes "
+          "(%.3f GiB)"
+          % (seconds, NEUS_ITERS, 1e3 * seconds / NEUS_ITERS,
+             runner.occ_builds, losses[0], losses[-1], losses[:20].mean(),
+             losses[-20:].mean(), psnr[0], psnr[-1], psnr[:20].mean(),
+             psnr[-20:].mean(), hist[0]["s_val"], hist[-1]["s_val"],
+             hist[-1]["lr"], skipped, launches["sdf_fwd"],
+             cfg.up_sample_steps, cfg.up_sample_steps * val_batches, peak,
+             peak / 2**30))
+    time_neus_steps(runner, device, profile)
+    return {"data_root": data_root, "out_root": out_root,
+            "model": runner.params, "launches": launches["sdf_fwd"],
+            "runner": runner, "s_val": float(hist[-1]["s_val"])}
+
+
+def time_neus_steps(runner, device, profile):
+    """The synchronised time of one NeuS training step with the up-sample
+    chain through kernel 3 and without it (use_fused_sdf=False), medians of
+    10 steps each on copies of the trained model, in the carve phase and in
+    the tail; kernel 3's launches a step; one pack_sdf."""
+    cfg, tcfg = runner.cfg, runner.tcfg
+    grid = runner._build_occ()
+    batch = runner._host_batch()
+    for phase, c in (("carve", cfg), ("tail", runner._tail_cfg)):
+        ms, per_step = {}, {}
+        for name, fused in (("kernel", None), ("plain", False)):
+            model = copy.deepcopy(runner.params)
+            _, step = make_neus_train_step(model, c, tcfg, runner.radius,
+                                           with_occ=True,
+                                           use_fused_sdf=fused)
+            gen = torch.Generator(device=device).manual_seed(SEED)
+
+            def run(step=step, gen=gen):
+                step(batch, NEUS_ITERS - 1, occ_grid=grid, generator=gen)
+            run()
+            run()
+            before = sdf_kernel.LAUNCHES["sdf_fwd"]
+            ms[name] = _median_step_ms(run, 10)
+            per_step[name] = (sdf_kernel.LAUNCHES["sdf_fwd"] - before) / 10
+            if profile and name == "kernel" and phase == "carve":
+                from torch.autograd import DeviceType
+                from torch.profiler import ProfilerActivity
+                from torch.profiler import profile as tprofile
+                with tprofile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(10):
+                        run()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                averages = prof.key_averages()
+                print(averages.table(sort_by="cuda_time_total", row_limit=15,
+                                     max_name_column_width=60))
+                device_us = sum(_self_device_us(e) for e in averages
+                                if e.device_type == DeviceType.CUDA)
+                print("profile of 10 NeuS carve steps with kernel 3: device "
+                      "busy %.3f ms of %.3f ms wall: idle share %.3f"
+                      % (device_us / 1e3, 1e3 * wall,
+                         1 - device_us / 1e6 / wall))
+        if per_step != {"kernel": c.up_sample_steps, "plain": 0}:
+            raise AssertionError(f"{phase}: kernel 3 launches a step "
+                                 f"{per_step}")
+        print("one NeuS training step, %s phase (%d rays, %d+%dr%d, the "
+              "occupancy grid on; host clock, synchronised, median of 10): "
+              "%.3f ms with the up-sample chain through kernel 3 (%d "
+              "launches a step), %.3f ms with use_fused_sdf=False"
+              % (phase, tcfg.batch_size, c.n_samples, c.n_importance,
+                 c.up_sample_steps, ms["kernel"], per_step["kernel"],
+                 ms["plain"]))
+    pack_ms = _median_step_ms(
+        lambda: sdf_kernel.pack_sdf(runner.params.sdf, cfg.sdf), 10)
+    print("pack_sdf of the default SDF net: %.3f ms (host clock, "
+          "synchronised, median of 10), once a training step" % pack_ms)
+
+
+def check_geo_view(view_dir, lxyz, gt_mask, weight_sum, is_train, s_val):
+    """The written buffers of one extracted view against the GT sphere and
+    the lights, for a NeuS whose trained density scale is ``s_val`` and
+    whose render of the view has ``weight_sum`` [h, w]; returns a dict of
+    what was measured, with the names of the checks that failed under
+    "failed" (the caller raises once every view is printed)."""
     for f in gen_geo.VIEW_FILES_CG:
         if not os.path.exists(os.path.join(view_dir, f)):
             raise AssertionError(f"missing {f} in {view_dir}")
@@ -904,43 +1298,52 @@ def check_geo_view(view_dir, model, cfg, lxyz, gt_mask, device):
         raise AssertionError(f"lvis shape {lvis.shape}")
     if lvis.min() < 0.0 or lvis.max() > 1.0:
         raise AssertionError("lvis outside [0, 1]")
-    fg = alpha > 0
-    if gt_mask is not None:  # lvis of a train view covers the GT mask
-        fg &= gt_mask > 0
+    gt, sil = gt_mask > 0, alpha > 0
+    got = {"iou": float((sil & gt).sum() / max((sil | gt).sum(), 1)),
+           "gt_covered": float((sil & gt).sum() / max(gt.sum(), 1))}
+    fg = sil & gt if is_train else sil  # lvis of a train view covers gt
     if fg.sum() < 0.1 * fg.size:
         raise AssertionError(f"only {int(fg.sum())} foreground pixels")
-    p = xyz[fg]
-    with torch.no_grad():
-        sdf = fields.sdf_only(model.sdf, torch.as_tensor(p, device=device),
-                              cfg.sdf).abs().cpu().numpy()
-    radial = p / np.linalg.norm(p, axis=-1, keepdims=True)
-    n = normal[fg]
-    deg = np.degrees(np.arccos(np.clip(np.sum(n * radial, -1), -1, 1)))
-    s2l = lxyz[None] - p[:, None]
+    x, w, n = xyz[fg], weight_sum[fg], normal[fg]
+    p = x / w[:, None]  # the mean point along the ray
+    radius = np.linalg.norm(p, axis=-1)
+    sdf_gt = radius - GEO_GT_RADIUS  # the GT sphere's SDF at that point
+    deg = np.degrees(np.arccos(np.clip(
+        np.sum(n * p, -1) / np.maximum(radius, 1e-12), -1, 1)))
+    s2l = lxyz[None] - x[:, None]
     s2l /= np.linalg.norm(s2l, axis=-1, keepdims=True)
     cos = np.einsum("plk,pk->pl", s2l, n)
     lv = lvis[fg]
-    lit = lv[cos > LIT_COS]
-    if sdf.max() > SURF_SDF_ATOL:
-        raise AssertionError(f"|sdf(xyz)| up to {sdf.max()} on foreground")
-    if deg.max() > NORMAL_MAX_DEG:
-        raise AssertionError(f"normals up to {deg.max()} deg off radial")
-    if lit.min() < LIT_MIN:
-        raise AssertionError(f"front-lit lvis down to {lit.min()}")
-    if (lv[cos < -1e-4] != 0).any():
-        raise AssertionError("lvis of a back-facing light is not 0")
-    return {"fg": int(fg.sum()), "sdf_max": float(sdf.max()),
-            "deg_max": float(deg.max()), "lit_min": float(lit.min()),
-            "radius_mean": float(np.linalg.norm(p, axis=-1).mean())}
+    # front-lit lights see the surface point of a convex object: xyz where
+    # the pixel is opaque
+    lit = lv[(cos > LIT_COS) & (w[:, None] > OPAQUE)]
+    outward = SOFT_WIDTH * s_val + SURF_SLACK
+    got.update({"fg": int(fg.sum()),
+                "opaque": float(np.mean(w > OPAQUE)),
+                "sdf_gt": [float(sdf_gt.min()), float(np.median(sdf_gt)),
+                           float(sdf_gt.max())],
+                "sdf_gt_limits": [-SURF_SLACK, outward],
+                "radial_deg_median": float(np.median(deg)),
+                "radial_deg_max": float(deg.max()),
+                "lit_min": float(lit.min()),
+                "back_lit_max": float(lv[cos < -1e-4].max(initial=0.0))})
+    got["failed"] = [what for bad, what in (
+        ((sil != (weight_sum > 0.5)).any(),
+         "the render again gives another silhouette"),
+        (got["gt_covered"] < GT_COVERED, "GT mask outside the silhouette"),
+        (sdf_gt.min() < -SURF_SLACK or sdf_gt.max() > outward,
+         "surface off the GT sphere"),
+        (got["radial_deg_max"] > NORMAL_MAX_DEG, "normals off radial"),
+        (got["lit_min"] < LIT_MIN, "front-lit lvis"),
+        (got["back_lit_max"] != 0, "lvis of a back-facing light")) if bad]
+    return got
 
 
-def extraction_phase(root, device, profile=False):
-    """Stage-1 geometry extraction through run_gen_geo, its checks, and the
-    lvis and render comparisons; returns what the kernel checks need."""
-    data_root = write_stage1_scene(
-        os.path.join(root, "stage1", GEO_SCENE), GEO_IMH, GEO_TRAIN_VIEWS,
-        GEO_VAL_VIEWS, SEED)
-    out_root = os.path.join(root, "stage1_out")
+def extraction_phase(root, device, neus, profile=False):
+    """Stage-1 geometry extraction through run_gen_geo from the checkpoint
+    that neus_train_phase wrote, its checks, and the lvis and render
+    comparisons; returns what the kernel checks need."""
+    data_root, out_root = neus["data_root"], neus["out_root"]
     print("extraction cuts: %d train + %d val views of %dx%d; widths, the "
           "64+64r4 sampler and the 512 lights are the defaults"
           % (GEO_TRAIN_VIEWS, GEO_VAL_VIEWS, GEO_IMH, GEO_IMH))
@@ -961,25 +1364,46 @@ def extraction_phase(root, device, profile=False):
                                                   GEO_VAL_VIEWS):
         raise AssertionError(f"extracted {done}")
 
-    # the model and dataset that run_gen_geo built, rebuilt for the checks
+    # the model and dataset that run_gen_geo built, rebuilt for the checks:
+    # the trained checkpoint
     cfg, tcfg, meta = gen_geo.vcfg.neus_configs_for_scene(
         GEO_SCENE, n_samples=64, n_importance=64, up_sample_steps=4,
         occ_res=0)
     if cfg != NeuSConfig(perturb=cfg.perturb):
         raise AssertionError(f"not the default NeuS widths: {cfg}")
     model = init_neus(SEED, cfg).to(device)
+    exp_dir = os.path.join(out_root, "exp", GEO_SCENE, meta["family"])
+    model.load_state_dict(ckpt_util.load_ckpt(
+        ckpt_util.latest_ckpt(exp_dir))["params"])
+    for k, v in neus["model"].state_dict().items():
+        if not torch.equal(model.state_dict()[k], v):
+            raise AssertionError(f"run_gen_geo's checkpoint is not the "
+                                 f"trained model at {k}")
     ds = NerfSceneDataset(data_root, is_train=True, near=GEO_NEAR,
                           far=GEO_FAR)
+    masks = {"train": ds.masks,
+             "val": NerfSceneDataset(data_root, is_train=False, near=GEO_NEAR,
+                                     far=GEO_FAR).masks}
     ex = gen_geo.GeoExtractor(model, cfg, ds, os.path.join(root, "unused"),
                               fast_vis=True, device=device)
     lxyz = ex.lxyz.cpu().numpy()
-    n_fg = 0
+    n_fg, failed = 0, []
     for mode in ("train", "val"):
+        view_ds = ds if mode == "train" else NerfSceneDataset(
+            data_root, is_train=False, near=GEO_NEAR, far=GEO_FAR)
         for i, view_dir in enumerate(done[mode]):
-            gt = ds.masks[i][..., 0] if mode == "train" else None
-            got = check_geo_view(view_dir, model, cfg, lxyz, gt, device)
+            ro, rd = view_ds.gen_rays_at(i)
+            weight_sum = ex._render_full(
+                ro.reshape(-1, 3), rd.reshape(-1, 3))["weight_sum"].reshape(
+                    ro.shape[:2])
+            got = check_geo_view(view_dir, lxyz, masks[mode][i][..., 0],
+                                 weight_sum, mode == "train", neus["s_val"])
             n_fg += got["fg"]
-            print("  %s: %s" % (os.path.basename(view_dir), got))
+            failed += ["%s: %s" % (os.path.basename(view_dir), what)
+                       for what in got["failed"]]
+            print("  %s: %s" % (os.path.basename(view_dir), got), flush=True)
+    if failed:
+        raise AssertionError(f"extracted buffers: {failed}")
     print("run_gen_geo: %.3f s for %d views (%.3f s a view), %d foreground "
           "pixels x %d lights = %d shadow rays; kernel launches %s; peak "
           "device memory %d bytes (%.3f GiB)"
@@ -989,6 +1413,16 @@ def extraction_phase(root, device, profile=False):
     print("  host-clock seconds by phase, each closed where the host waits "
           "for the device: %s"
           % {k: round(v, 3) for k, v in done["seconds"].items()})
+    vis_stats = done["fast_vis"]
+    if len(vis_stats) != GEO_TRAIN_VIEWS + GEO_VAL_VIEWS:
+        raise AssertionError(f"fast-vis statistics of {len(vis_stats)} views")
+    front = sum(st["front_lit_rays"] for st in vis_stats)
+    uncertain = sum(st["uncertain_rays"] for st in vis_stats)
+    print("  fast-vis on the trained scene: %.2f%% of %d front-lit shadow "
+          "rays certified (the geometric init's untrained sphere certified "
+          "42%% on an H100), %d left to the occlusion render; by view %s"
+          % (100.0 * (1 - uncertain / max(front, 1)), front, uncertain,
+             ["%.4f" % st["certified_frac"] for st in vis_stats]))
 
     # lvis on a few hundred foreground points: full through the kernels,
     # fast, and full on the plain path
@@ -1021,16 +1455,30 @@ def extraction_phase(root, device, profile=False):
     if mid != want:
         raise AssertionError(f"_lvis_full launched {mid}, expected {want}")
     e_kernel = float(np.abs(full - plain).max())
-    e_fast = float(np.abs(fast - full).max())
+    # fast against full, by what fast-vis promises: a ray it certified free
+    # (lvis exactly 1) does not cross the SDF's zero level, so under the
+    # soft density the full render keeps at least half its light (the leak
+    # is 1 - sigmoid(inv_s x the ray's smallest SDF)); a ray it rendered
+    # went through the same occlusion math as the full path
+    certified = fast == 1.0
+    e_rendered = float(np.abs(fast - full)[~certified].max(initial=0.0))
+    leak = 1.0 - full[certified]
     print("lvis of %d points x %d lights: kernel path against plain path max "
-          "|diff| %.3e (tolerance %g); fast against full %.3e (tolerance "
-          "%g); %.3f s full with the kernels, %.3f s fast, %.3f s full on "
+          "|diff| %.3e (tolerance %g); fast against full max |diff| %.3e: on "
+          "the %d rays fast-vis rendered %.3e (tolerance %g), on the %d it "
+          "certified free a leak of up to %.3e (tolerance 0.5; %d above "
+          "0.05); %.3f s full with the kernels, %.3f s fast, %.3f s full on "
           "the plain path"
-          % (LVIS_POINTS, ex.n_lights, e_kernel, LVIS_KERNEL_ATOL, e_fast,
-             LVIS_FAST_ATOL, t_full, t_fast, t_plain))
+          % (LVIS_POINTS, ex.n_lights, e_kernel, LVIS_KERNEL_ATOL,
+             float(np.abs(fast - full).max()), int((~certified).sum()),
+             e_rendered, LVIS_KERNEL_ATOL, int(certified.sum()),
+             leak.max(initial=0.0), int((leak > 0.05).sum()), t_full, t_fast,
+             t_plain))
     print("  last_fast_vis_stats:", ex.last_fast_vis_stats)
-    if e_kernel > LVIS_KERNEL_ATOL or e_fast > LVIS_FAST_ATOL:
+    if e_kernel > LVIS_KERNEL_ATOL or e_rendered > LVIS_KERNEL_ATOL \
+            or leak.max(initial=0.0) >= 0.5:
         raise AssertionError("lvis paths disagree")
+    compare_sdf_paths(ex, ex_plain, full, plain, surf_fg, device)
 
     if profile:
         from torch.autograd import DeviceType
@@ -1077,6 +1525,56 @@ def extraction_phase(root, device, profile=False):
             "surf_fg": xyz[fg], "normal_fg": normal[fg]}
 
 
+def compare_sdf_paths(ex, ex_plain, full, plain, surf_fg, device):
+    """Kernels 3 and 4 against the plain path on the trained scene: the
+    lvis of LVIS_POINTS points x all lights (computed by the caller), the
+    normals and surface points of the geometry render of train view 0, and
+    how many of GeoExtractor._certificates' answers flip on the same shadow
+    rays in the coarse and in the refine sweep."""
+    lv = np.abs(full - plain)
+    print("kernels 3+4 against the plain path on the trained scene, lvis of "
+          "%d points x %d lights: max |diff| %.3e, mean %.3e, %d of %d values "
+          "differ" % (LVIS_POINTS, ex.n_lights, lv.max(), lv.mean(),
+                      int((lv > 0).sum()), lv.size))
+    ro, rd = ex.dataset.gen_rays_at(0)
+    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+    fused, eager = ex._render_full(ro, rd), ex_plain._render_full(ro, rd)
+    fg = (fused["weight_sum"][:, 0] > 0.5) & (eager["weight_sum"][:, 0] > 0.5)
+    unit = [r["normal"][fg] / np.maximum(np.linalg.norm(
+        r["normal"][fg], axis=-1, keepdims=True), 1e-12)
+        for r in (fused, eager)]
+    deg = np.degrees(np.arccos(np.clip(np.sum(unit[0] * unit[1], -1),
+                                       -1, 1)))
+    print("  geometry render of %d rays (up-sample chain through kernel 3 "
+          "against plain): normals of %d foreground pixels up to %.3e deg "
+          "apart (mean %.3e), surface points up to %.3e apart, weight_sum "
+          "up to %.3e"
+          % (len(ro), int(fg.sum()), deg.max(), deg.mean(),
+             np.abs(fused["surf"] - eager["surf"])[fg].max(),
+             np.abs(fused["weight_sum"] - eager["weight_sum"]).max()))
+    surf_d = torch.as_tensor(surf_fg, device=device)
+    n_rays = len(surf_fg) * ex.n_lights
+    flips = {}
+    with torch.no_grad():
+        for name, n_sweep in (("coarse", ex.n_coarse),
+                              ("refine", ex.fast_vis_refine)):
+            counts = np.zeros(4, np.int64)
+            for i in range(0, n_rays, 16384):
+                o, d = ex._rays_of(surf_d, torch.arange(
+                    i, min(i + 16384, n_rays), device=device))
+                a = ex._certificates(o, d, n_sweep)
+                b = ex_plain._certificates(o, d, n_sweep)
+                counts += [int((a[0] != b[0]).sum()), int((a[1] != b[1]).sum()),
+                           int(a[0].sum()), int(a[1].sum())]
+            flips[name] = counts
+    print("  GeoExtractor._certificates on the same %d shadow rays, kernel "
+          "3 against plain: %s" % (n_rays, "; ".join(
+              "%s sweep (%d samples): below-margin flips %d (of %d rays "
+              "below), deep-chord flips %d (of %d)"
+              % (name, n, c[0], c[2], c[1], c[3]) for (name, c), n in zip(
+                  flips.items(), (ex.n_coarse, ex.fast_vis_refine)))))
+
+
 def shadow_ray_points(ex, surf_fg, n_rays, n_samples, device):
     """The points that the shadow pass gives the SDF kernels: n_rays rays
     from foreground points toward the lights, n_samples uniform samples
@@ -1110,9 +1608,10 @@ def _sdf_bound(packed, n, with_grad):
             cuda_core_ms)
 
 
-def check_sdf_kernels(geo, device):
-    """Kernels 3 and 4 against their plain versions and autograd; returns
-    their two kernels-line entries without the launch counts."""
+def check_sdf_kernels(geo, runner, device):
+    """Kernels 3 and 4 against their plain versions and autograd, and kernel
+    3 at the point counts of the NeuS training step's chain; returns their
+    two kernels-line entries without the launch counts."""
     ex, model, cfg = geo["ex"], geo["model"], geo["cfg"]
     packed = ex._packed
     pts_fwd = shadow_ray_points(ex, geo["surf_fg"], SDF_RAYS, cfg.n_samples,
@@ -1154,6 +1653,9 @@ def check_sdf_kernels(geo, device):
             raise AssertionError(f"sdf_fwdgrad, {what}: two launches "
                                  "disagree")
         want_sdf, want_grad = sdf_kernel.sdf_fwdgrad_plain(pk, pts)
+        if pts is pts_grad:
+            one_acc_reading(pk, pts, want_sdf, want_grad, pts_fwd)
+        rel = _norm_relative(grad, want_grad)
         e = max(_compare(sdf, want_sdf, "sdf_fwdgrad sdf, " + what,
                          SDF_RTOL, SDF_ATOL),
                 _compare(grad, want_grad, "sdf_fwdgrad grad, " + what,
@@ -1164,11 +1666,14 @@ def check_sdf_kernels(geo, device):
         e_auto = _compare(grad, auto, "sdf_fwdgrad grad vs autograd, " + what,
                           SDF_AUTO_RTOL, SDF_AUTO_ATOL)
         print("sdf_fwdgrad vs plain version, %s: max abs err %.3e (rtol %g, "
-              "atol %g); grad vs autograd fields.sdf_gradient %.3e (rtol %g, "
-              "atol %g)" % (what, e, SDF_RTOL, SDF_ATOL, e_auto,
-                            SDF_AUTO_RTOL, SDF_AUTO_ATOL))
+              "atol %g, sdf and each gradient component; the gradient's "
+              "error at most %.3e of its vector's norm); grad vs autograd "
+              "fields.sdf_gradient %.3e (rtol %g, atol %g)"
+              % (what, e, SDF_RTOL, SDF_ATOL, rel, e_auto, SDF_AUTO_RTOL,
+                 SDF_AUTO_ATOL))
         err_grad = max(err_grad, e)
 
+    training = sdf_training_counts(packed, runner, pts_fwd)
     entries = []
     for name, with_grad, pts, err, line in (
             ("sdf_fwd", False, pts_fwd, err_fwd, 141),
@@ -1206,7 +1711,60 @@ def check_sdf_kernels(geo, device):
             "bound_cuda_cores_ms": cuda_core_ms,
             "library_ms": None,  # no single PyTorch call computes it
         })
+    entries[0]["training_counts"] = training
     return entries
+
+
+def one_acc_reading(packed, pts, want_sdf, want_grad, pts_fwd):
+    """A reading, not a gate: both SDF kernels as the design before this
+    one built them (the three products of a depth-8 step in one
+    accumulator), on the same trained net and points, against the plain
+    versions: the error the second accumulator took away."""
+    saved = sdf_kernel._lib
+    sdf_kernel._lib = sdf_kernel.load(sdf_kernel.build(SDF_ONE_ACC_FLAGS)[0])
+    try:
+        sdf, grad = sdf_kernel.sdf_fwdgrad(packed, pts)
+        fwd = sdf_kernel.sdf_fwd(packed, pts_fwd)
+    finally:
+        sdf_kernel._lib = saved
+    fwd_err = float((fwd - sdf_kernel.sdf_fwd_plain(packed, pts_fwd)).abs()
+                    .max())
+    err = (grad - want_grad).abs()
+    past = int((err > SDF_ATOL + SDF_RTOL * want_grad.abs()).sum())
+    print("the design before (one accumulator) on the same net: sdf_fwd at "
+          "%d points max abs err %.3e; sdf_fwdgrad at %d points sdf %.3e, "
+          "gradient %.3e (%d of %d components past rtol %g x |component| + "
+          "atol %g)"
+          % (len(pts_fwd), fwd_err, len(pts),
+             float((sdf - want_sdf).abs().max()), float(err.max()), past,
+             grad.numel(), SDF_RTOL, SDF_ATOL))
+
+
+def sdf_training_counts(packed, runner, pts):
+    """Kernel 3 at the point counts of one NeuS training step's up-sample
+    chain (batch x n_samples, then batch x n_importance / up_sample_steps
+    each later round) in the carve phase and in the tail: device time,
+    plain version, bound."""
+    out = {}
+    rays = runner.tcfg.batch_size
+    for phase, c in (("carve", runner.cfg), ("tail", runner._tail_cfg)):
+        for n in (rays * c.n_samples,
+                  rays * c.n_importance // c.up_sample_steps):
+            p = pts[:n]
+            device_ms, _ = _device_ms(lambda: sdf_kernel.sdf_fwd(packed, p),
+                                      reps=20)
+            plain_ms = _time_ms(lambda: sdf_kernel.sdf_fwd_plain(packed, p),
+                                reps=10)
+            bound_ms, by, _, _, _ = _sdf_bound(packed, n, False)
+            print("sdf_fwd at %d points (%s phase of NeuS training, %d rays x "
+                  "%d): %.4f ms of device time, plain version %.4f ms, bound "
+                  "%.4f ms by %s: %.1f%% of it"
+                  % (n, phase, rays, n // rays, device_ms, plain_ms,
+                     bound_ms, by, 100 * bound_ms / device_ms))
+            out[str(n)] = {"phase": phase, "device_ms": device_ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": by}
+    return out
 
 
 def main():
@@ -1241,11 +1799,12 @@ def main():
         trained = train_phase(cfg, paths, os.path.join(root, "train"), device)
         vq, n_vq = trained["vq"], trained["n_vq"]
         sys.stdout.flush()
+        vq_replay(cfg, trained, device)
+        ref = ref_phase(cfg, paths, trained, os.path.join(root, "train"),
+                        device)
+        sys.stdout.flush()
 
-        # ---- the serving half, with the trained model ---------------------
-        ref = init_ref_nfr(torch.Generator().manual_seed(SEED), cfg,
-                           copy.deepcopy(vq).cpu(),
-                           vq.light.detach().cpu()).to(device)
+        # ---- the serving half, with the trained models --------------------
         ds = ShapeDataset(paths["data_root"], paths["surf_root"],
                           data_type="nerf", imh=cfg.imh, mode="test",
                           with_ref=True)
@@ -1289,8 +1848,10 @@ def main():
         view = ds.load_view(ds.files[0])
         sys.stdout.flush()
 
-        # ---- stage-1 geometry extraction ----------------------------------
-        geo = extraction_phase(root, device, profile)
+        # ---- stage 1: geometry training, then extraction from it ---------
+        neus = neus_train_phase(root, device, profile)
+        sys.stdout.flush()
+        geo = extraction_phase(root, device, neus, profile)
         sys.stdout.flush()
 
     # ---- each kernel against its plain version, and the timings ----------
@@ -1298,13 +1859,19 @@ def main():
     with torch.inference_mode():
         render_entry = check_render_kernel(vq, cfg, view, lxyz, lareas, device)
         vq_entry = check_vq_kernel(trained, cfg, device)
-    fwd_entry, fwdgrad_entry = check_sdf_kernels(geo, device)
+    fwd_entry, fwdgrad_entry = check_sdf_kernels(geo, neus["runner"],
+                                                 device)
     time_steps(cfg, trained, lxyz, lareas, device, profile)
 
     render_entry["launches"] = render_launches
     vq_entry["launches"] = trained["launches"]
-    fwd_entry["launches"] = geo["launches"]["sdf_fwd"]
+    fwd_entry["launches"] = neus["launches"] + geo["launches"]["sdf_fwd"]
     fwdgrad_entry["launches"] = geo["launches"]["sdf_fwdgrad"]
+    print("kernel 3 (sdf_fwd) launches on the main path: %d in NeuS "
+          "training + %d in extraction = %d; kernel 4 (sdf_fwdgrad) %d, all "
+          "in extraction" % (neus["launches"], geo["launches"]["sdf_fwd"],
+                             fwd_entry["launches"],
+                             fwdgrad_entry["launches"]))
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [render_entry, vq_entry, fwd_entry,
                                   fwdgrad_entry]}))

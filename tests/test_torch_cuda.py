@@ -669,10 +669,12 @@ def test_sdf_kernels_fma_contraction_stays_within_tolerance(cuda_device,
 def test_sdf_kernels_three_tf32_products_against_one(cuda_device,
                                                      monkeypatch):
     """The precision study: the port's build (each product split in three
-    TF32 products) beside the single-product build (-DSDF_TF32_PASSES=1),
-    on sdf, the gradient, and lvis of 300 points x 512 lights through
+    TF32 products, the small ones in an accumulator of their own) beside
+    the three products in one accumulator (-DSDF_ONE_ACCUMULATOR, the design
+    before) and the single-product build (-DSDF_TF32_PASSES=1), on sdf, the
+    gradient, and lvis of 300 points x 512 lights through
     GeoExtractor._lvis_full. Only the port's build is held to the
-    tolerances; run with -s to see both builds' times and errors."""
+    tolerances; run with -s to see the builds' times and errors."""
     from vqnerf_release_torch.models.neus import NeuSConfig, init_neus
     from vqnerf_release_torch.pipelines.gen_geo import GeoExtractor
     cfg = NeuSConfig()
@@ -690,6 +692,7 @@ def test_sdf_kernels_three_tf32_products_against_one(cuda_device,
                               )._lvis_full(surf, normal)
     errs = {}
     for name, flags in (("three products", ()),
+                        ("one accumulator", ("-DSDF_ONE_ACCUMULATOR",)),
                         ("one product", ("-DSDF_TF32_PASSES=1",))):
         monkeypatch.setattr(ks, "_lib", ks.load(ks.build(flags)[0]))
         ms_fwd = _event_ms(lambda: ks.sdf_fwd(packed, pts))
@@ -887,3 +890,142 @@ def test_vq_kernel_where_the_time_goes(cuda_device, monkeypatch):
                  ", ".join("%s %d" % pc for pc in zip(phases, cycles)),
                  t[:, 11].max() - t[:, 10].min(),
                  t[:, 10].max() - t[:, 10].min()))
+
+
+def _neus_batch(n, device, seed=0):
+    """n rays from a circle of radius 2 toward the unit cube's middle, with
+    colour, a mask and the bounds of a 0.5..3.5 scene."""
+    rs = np.random.RandomState(seed)
+    ang = rs.rand(n) * 2 * np.pi
+    o = np.stack([2 * np.sin(ang), 0.3 + 0 * ang, 2 * np.cos(ang)], 1)
+    d = -o + rs.randn(n, 3) * 0.15
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    arrays = dict(rays_o=o, rays_d=d, rgb=rs.rand(n, 3),
+                  mask=(rs.rand(n, 1) > 0.5), near=np.full((n, 1), 0.5),
+                  far=np.full((n, 1), 3.5), valid=np.ones((n, 1)))
+    return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+            for k, v in arrays.items()}
+
+
+def _neus_setup(device, n_rays=512):
+    """The default NeuS widths under the shipped carve sampler (24+8r2 over
+    a 32^3 grid of the init sphere), one step's uniforms drawn outside."""
+    from vqnerf_release_torch.models.neus import NeuSConfig, init_neus
+    from vqnerf_release_torch.ops.occupancy import build_occ_grid
+    from vqnerf_release_torch.train.neus_trainer import NeuSTrainConfig
+    cfg = NeuSConfig(n_samples=24, n_importance=8, up_sample_steps=2)
+    tcfg = NeuSTrainConfig(warm_up_end=0, end_iter=1000, occ_res=32)
+    model = init_neus(0, cfg).to(device)
+    grid = build_occ_grid(model.sdf, cfg.sdf, 2.5, res=32)
+    rand = {"occ_u": torch.rand((n_rays, cfg.n_samples),
+                                generator=torch.Generator().manual_seed(1)
+                                ).to(device)}
+    return cfg, tcfg, model, grid, rand, _neus_batch(n_rays, device)
+
+
+@pytest.mark.cuda
+def test_neus_training_step_fused_against_plain(cuda_device):
+    """One NeuS training step at the default widths with the up-sample
+    chain through sdf_fwd (use_fused_sdf=None on CUDA tensors) against the
+    same step with use_fused_sdf=False: kernel 3 launches up_sample_steps
+    times in the first and never in the second; the metrics agree to
+    rtol 1e-3 (the kernel's ~3e-5 on the SDF moves the up-sampled
+    positions a little); Adam's first step moves every element by at most
+    lr, and 99% of the elements move alike to 1e-3 lr."""
+    import copy
+    from vqnerf_release_torch.train.neus_trainer import make_neus_train_step
+    cfg, tcfg, model0, grid, rand, batch = _neus_setup(cuda_device)
+    out = {}
+    for fused in (None, False):
+        model = copy.deepcopy(model0)
+        _, step = make_neus_train_step(model, cfg, tcfg, 2.5, with_occ=True,
+                                       use_fused_sdf=fused)
+        before = ks.LAUNCHES["sdf_fwd"]
+        m = step(batch, 500, occ_grid=grid, rand=rand)
+        torch.cuda.synchronize()
+        launched = ks.LAUNCHES["sdf_fwd"] - before
+        assert launched == (cfg.up_sample_steps if fused is None else 0)
+        out[fused] = ({k: float(v) for k, v in m.items()},
+                      torch.cat([(p - p0).reshape(-1) for p, p0 in zip(
+                          model.parameters(), model0.parameters())]))
+    (m_k, d_k), (m_p, d_p) = out[None], out[False]
+    assert m_k["nonfinite_grads"] == m_p["nonfinite_grads"] == 0.0
+    for k in m_p:
+        np.testing.assert_allclose(m_k[k], m_p[k], rtol=1e-3, atol=1e-7,
+                                   err_msg=k)
+    lr = m_p["lr"]
+    assert float(d_k.abs().max()) <= 1.001 * lr
+    close = (d_k - d_p).abs() <= 1e-3 * lr
+    assert float(close.float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_pack_sdf_is_redone_after_each_step(cuda_device):
+    """After a training step the kernel must read the new weights: a pack
+    of the updated net agrees with the plain SDF of that net, while the pack
+    made before the step (stale) is off by far more than the kernel's
+    tolerance."""
+    from vqnerf_release_torch.train.neus_trainer import make_neus_train_step
+    cfg, tcfg, model, grid, rand, batch = _neus_setup(cuda_device)
+    stale = ks.pack_sdf(model.sdf, cfg.sdf)
+    _, step = make_neus_train_step(model, cfg, tcfg, 2.5, with_occ=True)
+    for i in range(3):
+        step(batch, 500 + i, occ_grid=grid, rand=rand)
+    fresh = ks.pack_sdf(model.sdf, cfg.sdf)
+    pts = _sdf_points(65536, cuda_device)
+    with torch.no_grad():
+        want = fields.sdf_only(model.sdf, pts, cfg.sdf)
+    torch.testing.assert_close(ks.sdf_fwd(fresh, pts), want, rtol=SDF_RTOL,
+                               atol=SDF_ATOL)
+    off = float((ks.sdf_fwd(stale, pts) - want).abs().max())
+    assert off > 20 * SDF_ATOL, off
+
+
+@pytest.mark.cuda
+def test_ref_nfr_step_cuda_matches_cpu(cuda_device):
+    """One ref_nfr training step on the card against the same step on the
+    CPU: losses, the trainable part (rtol 1e-3 / atol 1e-5, as the vq_nfr
+    step above), and the frozen part bit for bit unchanged."""
+    import copy
+    from vqnerf_release_torch.models.ref_nfr import init_ref_nfr
+    from vqnerf_release_torch.train.decomp_trainer import make_ref_nfr_step
+    cfg = dc.DecompConfig(light_h=4, num_embed=6, num_drop=3, z_dim=64,
+                          mlp_width=32, thres_str="0.1;0.2;0.3")
+    gen = torch.Generator().manual_seed(0)
+    nfr = init_nfr_unit(gen, cfg)
+    centers = torch.rand((cfg.num_embed, cfg.z_dim), generator=gen)
+    vq, _ = init_vq_nfr(gen, cfg, nfr, centers)
+    ref_cpu = init_ref_nfr(gen, cfg, vq, torch.rand((4, 8, 3),
+                                                    generator=gen))
+    rs = np.random.RandomState(1)
+    n = 256
+    normal = rs.randn(n, 3)
+    batch = dict(
+        rayo=np.tile([0.0, 0.0, 3.0], (n, 1)), xyz=rs.rand(n, 3) - 0.5,
+        normal=normal / np.linalg.norm(normal, axis=1, keepdims=True),
+        alpha=(rs.rand(n, 1) > 0.2), rgb=rs.rand(n, 3),
+        lvis=rs.rand(n, cfg.n_lights), ref=rs.rand(n, 3))
+    batch = {k: torch.as_tensor(np.asarray(v, np.float32))
+             for k, v in batch.items()}
+    results = {}
+    for device in (torch.device("cpu"), cuda_device):
+        model = copy.deepcopy(ref_cpu).to(device)
+        _, step = make_ref_nfr_step(model, cfg,
+                                    *dc.light_constants(cfg, device))
+        ld = step({k: v.to(device) for k, v in batch.items()}, 0)
+        results[device.type] = (
+            {k: float(v) for k, v in ld.items()},
+            {k: v.cpu() for k, v in model.state_dict().items()})
+    (ld_c, sd_c), (ld_g, sd_g) = results["cpu"], results["cuda"]
+    assert ld_g["nonfinite_grads"] == 0.0
+    for k in ld_c:
+        np.testing.assert_allclose(ld_g[k], ld_c[k], rtol=1e-3, atol=1e-7,
+                                   err_msg=k)
+    frozen0 = ref_cpu.state_dict()
+    for k in sd_c:
+        if k.startswith("frozen."):
+            assert torch.equal(sd_g[k], frozen0[k]), k
+        else:
+            assert not torch.equal(sd_g[k], frozen0[k]), k
+            torch.testing.assert_close(sd_g[k], sd_c[k], rtol=1e-3,
+                                       atol=1e-5, msg=k)

@@ -355,6 +355,8 @@ def test_run_gen_geo_entry(scene, tmp_path):
     assert set(done["seconds"]) == {"geometry", "coarse", "refine",
                                     "occlusion"}
     assert done["seconds"]["coarse"] > 0  # fast_vis is on by default
+    assert len(done["fast_vis"]) == 3  # one record a view, in order
+    assert all(0.0 <= st["certified_frac"] <= 1.0 for st in done["fast_vis"])
 
     # a scene that is not CG gets no lvis; a checkpoint replaces the init
     from vqnerf_release_torch import config as vcfg

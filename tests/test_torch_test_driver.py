@@ -145,7 +145,8 @@ import chip_smoke as cs
 from vqnerf_release_torch.data.shape_dataset import ShapeDataset
 from vqnerf_release_torch.models.decomp_common import DecompConfig
 from vqnerf_release_torch.pipelines.test_driver import find_vq, run_test
-from vqnerf_release_torch.train.loop import train_nfr_unit, train_vq_nfr
+from vqnerf_release_torch.train.loop import (train_nfr_unit, train_ref_nfr,
+                                             train_vq_nfr)
 cfg = DecompConfig(light_h=2, num_embed=4, num_drop=2, z_dim=16,
                    mlp_width=8, imh=16, thres_str="0.1;0.2", epochs=2,
                    n_rays_per_step=16, total_sample_vq=64)
@@ -167,10 +168,20 @@ with tempfile.TemporaryDirectory() as root:
     nfr, h1 = train_nfr_unit(cfg, views["train"], views["vali"][:1],
                              os.path.join(root, "nfr"), epochs=1,
                              device="cpu")
-    _, ema, h2 = train_vq_nfr(cfg, nfr, views["train"], views["vali"][:1],
-                              os.path.join(root, "vq"), epochs=1,
-                              device="cpu")
+    vq_model, ema, h2 = train_vq_nfr(cfg, nfr, views["train"],
+                                     views["vali"][:1],
+                                     os.path.join(root, "vq"), epochs=1,
+                                     device="cpu")
     k = find_vq(os.path.join(root, "vq", "vis_vali", "epoch000000001"))
+    for mode in ("train", "vali"):
+        sd = ShapeDataset(p["data_root"], p["surf_root"], imh=16, mode=mode,
+                          with_ref=True)
+        views[mode] = [sd.load_view(f) for f in sd.files]
+    import numpy as np
+    light = np.load(os.path.join(root, "vq", "vis_vali", "np_light.npy"))
+    _, h3 = train_ref_nfr(cfg, vq_model, light, views["train"],
+                          views["vali"][:1], os.path.join(root, "ref"),
+                          epochs=1, device="cpu")
 
     # a tiny stage-1 geometry extraction from the smoke's own scene writer
     from vqnerf_release_torch.models import fields
@@ -182,6 +193,20 @@ with tempfile.TemporaryDirectory() as root:
                  color=fields.ColorConfig(d_feature=32, d_hidden=16,
                                           n_layers=2),
                  n_samples=8, n_importance=8, up_sample_steps=2)
+    # stage-1 training first: run_gen_geo extracts from its checkpoint
+    from vqnerf_release_torch.data.neus_dataset import NerfSceneDataset
+    from vqnerf_release_torch.models.neus import NeuSConfig
+    from vqnerf_release_torch.train.neus_loop import NeuSRunner
+    from vqnerf_release_torch.train.neus_trainer import NeuSTrainConfig
+    tcfg = NeuSTrainConfig(batch_size=32, end_iter=4, warm_up_end=1,
+                           save_freq=4, val_freq=4, mesh_freq=4, occ_res=8,
+                           occ_update_freq=2, tail_frac=0.25,
+                           tail_sampler="8+8r2", tail_occ=True)
+    nds = NerfSceneDataset(data, near=cs.GEO_NEAR, far=cs.GEO_FAR)
+    runner = NeuSRunner(NeuSConfig(**small), tcfg, nds,
+                        os.path.join(root, "s1o", "exp", cs.GEO_SCENE, "nerf"),
+                        val_dataset=nds, device="cpu")
+    h4 = [h["loss"] for h in runner.train(log_every=1)]
     done = gen_geo.run_gen_geo(cs.GEO_SCENE, data, os.path.join(root, "s1o"),
                                overrides=small, near=cs.GEO_NEAR,
                                far=cs.GEO_FAR, device="cpu", light_h=2,
@@ -191,7 +216,8 @@ with tempfile.TemporaryDirectory() as root:
 print(json.dumps({"n_vq": info["n_vq"], "arrays": n, "trained_k": k,
                   "geo_views": len(done["train"] + done["val"]),
                   "geo_ok": geo_ok,
-                  "steps": int(ema.counter), "losses": h1 + h2,
+                  "steps": int(ema.counter), "losses": h1 + h2 + h3,
+                  "neus_losses": h4,
                   "loaded": sorted(
     m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "cv2", "optax", "orbax", "vqnerf_release_tpu"))}))
@@ -200,9 +226,10 @@ print(json.dumps({"n_vq": info["n_vq"], "arrays": n, "trained_k": k,
 
 def test_port_runs_without_jax_or_cv2():
     """A tiny CPU run_test through the port, from chip_smoke's own scene
-    writer and ``build_models``, and a 1-epoch CPU training of nfr_unit and
-    vq_nfr, and a tiny stage-1 geometry extraction, load neither jax nor
-    cv2 nor any module of the JAX package."""
+    writer and ``build_models``, a 1-epoch CPU training of nfr_unit, vq_nfr
+    and ref_nfr, and a tiny stage-1 NeuS training and the geometry
+    extraction from its checkpoint, load neither jax nor cv2 nor any module
+    of the JAX package."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -213,7 +240,9 @@ def test_port_runs_without_jax_or_cv2():
     assert result["n_vq"] == 3 and result["arrays"] > 0
     assert result["geo_views"] == 2 and result["geo_ok"] is True
     assert result["steps"] == 2 and 2 <= result["trained_k"] <= 4
-    assert len(result["losses"]) == 2 and np.isfinite(result["losses"]).all()
+    assert len(result["losses"]) == 3 and np.isfinite(result["losses"]).all()
+    assert len(result["neus_losses"]) == 4
+    assert np.isfinite(result["neus_losses"]).all()
 
 
 def test_port_sources_do_not_import_the_jax_package():

@@ -49,8 +49,9 @@ def scene(tmp_path_factory):
 
 
 def test_copied_numpy_modules_equal_jax_bit_for_bit():
-    """The port keeps its own copies of the JAX package's numpy-only light
-    and ray helpers; they must stay equal bit for bit."""
+    """The port keeps its own copies of the JAX package's numpy-only light,
+    ray and marching-tetrahedra helpers; they must stay equal bit for
+    bit."""
     for h in (2, 16):
         for got, want in zip(t_light.gen_light_xyz(h, 2 * h),
                              j_light.gen_light_xyz(h, 2 * h)):
@@ -78,6 +79,20 @@ def test_copied_numpy_modules_equal_jax_bit_for_bit():
         np.testing.assert_array_equal(got, want)
     for got, want in zip(t_rays.decompose_projection(world[:3]),
                          j_rays.decompose_projection(world[:3])):
+        np.testing.assert_array_equal(got, want)
+
+    from vqnerf_release_torch.ops import marching_cubes as t_mc
+    from vqnerf_release_tpu.ops import marching_cubes as j_mc
+    lin = np.linspace(-1.0, 1.0, 14)
+    xs, ys, zs = np.meshgrid(lin, lin, lin, indexing="ij")
+    field = 0.6 - np.sqrt(xs**2 + 1.5 * ys**2 + zs**2) + 0.05 * rs.randn(
+        14, 14, 14)
+    for thr in (0.0, 0.1):
+        for got, want in zip(t_mc.marching_cubes(field, thr),
+                             j_mc.marching_cubes(field, thr)):
+            np.testing.assert_array_equal(got, want)
+    for got, want in zip(t_mc.marching_cubes(-np.ones((4, 4, 4))),
+                         j_mc.marching_cubes(-np.ones((4, 4, 4)))):
         np.testing.assert_array_equal(got, want)
 
 

@@ -20,22 +20,23 @@
 // operations a point and row; the gradient kernel runs four rows a point.
 // Single TF32 keeps three decimal digits, too few for an SDF that goes
 // through inv_s of several hundred (measured: 1.2e-3 on sdf against 3.0e-5),
-// so every product is split in three TF32 products into one fp32
-// accumulator, a_lo b_hi + a_hi b_lo + a_hi b_hi, where x_hi = tf32(x)
-// (cvt.rna) and x_lo = tf32(x - x_hi): a third of the TF32 rate, 495 / 3 =
-// 165 TFLOP/s, against 67 TFLOP/s on the CUDA cores. That bound is 2.9 ms
-// for 524,288 points forward and 23.3 ms for 1,048,576 points with the
-// gradient; points and outputs are 8 and 17 MB (microseconds at 3.35 TB/s).
-// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py): 6.1-6.2
-// ms and 42.0-42.1 ms, 47% and 55% of that bound, where the CUDA-core design
-// before it took 15.6-15.8 and 111.7-112.5 ms. The card draws its 700 W and
-// clocks down to 1.5-1.9 GHz meanwhile. The split inputs are exact to 2^-21,
-// but the tensor core's fp32 accumulator truncates where an FMA rounds to
+// so every product is split in three TF32 products, a_lo b_hi + a_hi b_lo +
+// a_hi b_hi, where x_hi = tf32(x) (cvt.rna) and x_lo = tf32(x - x_hi): a
+// third of the TF32 rate, 495 / 3 = 165 TFLOP/s, against 67 TFLOP/s on the
+// CUDA cores. That bound is 2.9 ms for 524,288 points forward and 23.3 ms
+// for 1,048,576 points with the gradient; points and outputs are 8 and 17
+// MB (microseconds at 3.35 TB/s). The split inputs are exact to 2^-21, but
+// the tensor core's fp32 accumulator truncates where an FMA rounds to
 // nearest (tests/test_torch_cuda.py::test_tensor_core_accumulator_rounding),
-// 96 times a layer, so the error against the plain versions is 2e-5 to 3e-5
-// where fp32 FMAs gave 1e-6: inside rtol 1e-4 / atol 1e-5. Only column 0 of
-// the last layer is computed, on the CUDA cores, since nothing else is
-// returned.
+// once an instruction. With the three products in one accumulator that was
+// 96 truncations a layer at the magnitude of the whole sum, and the error
+// against the plain versions grew with the weights: 1.9e-5 on the
+// geometric init, 5.2e-5 on the gradient of a trained net, past rtol 1e-4 /
+// atol 1e-5 on one component in millions. So the two small products go
+// into an accumulator of their own, whose truncations are 2^-11 smaller,
+// and the chain at full magnitude is the 32 hi x hi products of a layer; a
+// single rounded add joins the two. Only column 0 of the last layer is
+// computed, on the CUDA cores, since nothing else is returned.
 //
 // Design.
 //   * A block owns TILE_M = 128 rows: two consumer warpgroups of 64 rows
@@ -44,27 +45,37 @@
 //     points forward, and point * 4 + (value, d/dx, d/dy, d/dz) with the
 //     gradient: the tangent rows multiply the same W as the value row, so
 //     the four channels are simply a taller matrix product.
-//   * Products: wgmma m64n256k8 (TF32, fp32 accumulator of 128 registers a
+//   * Products: wgmma m64n128k8 (TF32, fp32 accumulators of 64 registers a
 //     thread), A from registers, B from shared memory through a matrix
-//     descriptor. The activations stay in shared memory in fp32,
-//     [row][feature] with a row stride of 260 floats (no bank conflicts on
-//     the fragment loads); a thread loads its four A values of a depth-8
-//     step, splits them into hi and lo in registers and starts the three
-//     products. A warp reads and writes only its own 16 rows, so a layer
-//     updates the activations in place behind a __syncwarp.
+//     descriptor. Two accumulators of the full 256 columns would take 256
+//     registers a thread, more than a thread may hold, so a layer runs in
+//     two passes of 128 output columns, each over the whole depth, each
+//     with its two accumulators (big: hi x hi; small: lo x hi + hi x lo).
+//     The first pass's sums wait in a shared-memory stash (64 KB, each
+//     thread its own slots) for the epilogue, which runs once both passes
+//     have read the layer's input. The activations stay in shared memory
+//     in fp32, [row][feature] with a row stride of 260 floats (no bank
+//     conflicts on the fragment loads); a thread loads its four A values of
+//     a depth-8 step, splits them into hi and lo in registers and starts the
+//     three products. A warp reads and writes only its own 16 rows, so a
+//     layer updates the activations in place behind a __syncwarp.
 //   * Weights are split into hi and lo and tiled once, at pack time
 //     (kernels/sdf.py::pack_sdf): for each hidden layer and each depth-8
-//     step one contiguous tile of 16 KB, [hi, lo][k / 4][n 256][k % 4],
-//     which is wgmma's K-major layout without swizzle (8 x 16-byte core
-//     matrices 128 bytes apart along n, 4 KB apart along k). Rows past the
-//     layer's width and depth past its input are zero.
-//   * The producer streams the tiles (3.75 MB a block for the default net;
-//     they stay in the 50 MB L2) into a ring of STAGES = 6 stages with one
-//     cp.async.bulk a tile; consumers wait on a stage's "full" mbarrier
+//     step one contiguous tile of 16 KB, [hi, lo][k / 4][n 256][k % 4].
+//     A pass copies its 128 columns of a tile, four pieces of 2 KB, into a
+//     stage of 8 KB laid out [hi, lo][k / 4][n 128][k % 4], which is
+//     wgmma's K-major layout without swizzle (8 x 16-byte core matrices 128
+//     bytes apart along n, 2 KB apart along k). Rows past the layer's width
+//     and depth past its input are zero; a pass whose columns all lie past
+//     the layer's width is not run.
+//   * The producer streams the stages (3.75 MB a block for the default net;
+//     they stay in the 50 MB L2) into a ring of STAGES = 4 stages, four
+//     cp.async.bulk a stage; consumers wait on a stage's "full" mbarrier
 //     and, when the wgmma group that read it has completed, arrive on its
 //     "empty" one. Both warpgroups share every stage, so a block reads the
-//     weights once for 128 rows. The ring is not the limit: 3 stages, and
-//     no copies at all, give the same time.
+//     weights once for 128 rows. Shared memory holds 32 KB of ring, the 64
+//     KB stash and 130 KB of activations: 231,488 of the 232,448 bytes a
+//     block may have.
 //   * Epilogue in fp32 on the CUDA cores from the accumulator registers:
 //     bias, softplus (expf, log1pf in full precision), the sigmoid gate on
 //     the tangent rows, 1/sqrt2 before a skip. In the accumulator layout a
@@ -77,15 +88,19 @@
 //     rows' sake the gradient kernel took 78 ms in place of 42 ms.
 //   * The encoding is written into the activations by each warp for its own
 //     rows, and computed again at a skip layer (shared memory has no room
-//     to keep it: 96 KB ring + 130 KB activations of the 227 KB).
+//     to keep it).
 //   * The last layer is a dot product per row with column 0, the 32 lanes
 //     of a warp over the features, reduced by shuffles in a fixed order.
 //   * The ragged tail is masked: rows past N read a zero point and store
 //     nothing. Every sum has a fixed order: the same bits from run to run.
 //
-// Three compile-time switches serve the card-only studies of
-// tests/test_torch_cuda.py; the port builds the default of each.
-// -DSDF_TF32_PASSES=1: the single-product variant (hi x hi only).
+// Four compile-time switches serve the card-only studies of
+// tests/test_torch_cuda.py and chip_smoke.py; the port builds the default
+// of each.
+// -DSDF_TF32_PASSES=1: the single-product variant (hi x hi only, into the
+// big accumulator).
+// -DSDF_ONE_ACCUMULATOR: the three products into one accumulator, in the
+// order of the design before this one, which gives its sums bit for bit.
 // -DSDF_STAGES=n: another depth of the weight ring.
 // -DSDF_SKIP_ACTIVATION: the epilogue's expf, log1pf, gate and shuffles
 // compiled out, to time the products alone; its results are wrong.
@@ -99,19 +114,25 @@
 #endif
 
 #define SDF_MAX_LAYERS 16
-#define TILE_N 256
+#define TILE_N 256                     // widest layer; columns of a packed tile
+#define PASS_N 128                     // output columns of one pass
+#define N_PASSES (TILE_N / PASS_N)
+#define ACC_REGS (PASS_N / 2)          // an m64n128 accumulator, a thread
 #define TILE_K 8
 #define N_WG 2                         // consumer warpgroups
 #define TILE_M (64 * N_WG)             // rows of a block
 #define THREADS (128 * (N_WG + 1))     // consumers, and the producer's group
 #define ACT_STRIDE 260                 // floats; 260 % 32 == 4
 #ifndef SDF_STAGES
-#define SDF_STAGES 6
+#define SDF_STAGES 4
 #endif
 #define STAGES SDF_STAGES
-#define HALF_BYTES (TILE_N * TILE_K * 4)   // one of hi / lo: 8 KB
+#define PACKED_TILE_FLOATS (2 * TILE_N * TILE_K)  // pack_sdf's tile, 16 KB
+#define PIECE_BYTES (PASS_N * 4 * 4)   // a pass's part of one k / 4 row: 2 KB
+#define HALF_BYTES (2 * PIECE_BYTES)   // one of hi / lo in a stage: 4 KB
 #define STAGE_BYTES (2 * HALF_BYTES)
-#define COPY_BYTES (SDF_TF32_PASSES == 3 ? STAGE_BYTES : HALF_BYTES)
+#define COPY_PIECES (SDF_TF32_PASSES == 3 ? 4 : 2)
+#define STASH_FLOATS (TILE_M * PASS_N)  // the first pass's sums: 64 KB
 #define MAX_EMBED 64
 
 struct SdfNet {
@@ -190,26 +211,26 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
     return r;
 }
 
-// Matrix descriptor of a [256 n][8 k] TF32 tile stored [k / 4][n][k % 4]:
-// K-major, no swizzle; the 8 x 16-byte core matrices lie 128 bytes apart
-// along n (stride byte offset) and 4096 bytes apart along k (leading byte
-// offset). Fields are in 16-byte units.
+// Matrix descriptor of a [128 n][8 k] TF32 stage half stored
+// [k / 4][n][k % 4]: K-major, no swizzle; the 8 x 16-byte core matrices lie
+// 128 bytes apart along n (stride byte offset) and 2048 bytes apart along k
+// (leading byte offset). Fields are in 16-byte units.
 __device__ __forceinline__ uint64_t b_descriptor(uint32_t addr) {
     return (uint64_t)((addr & 0x3FFFF) >> 4)
-        | ((uint64_t)((TILE_N * 16) >> 4) << 16)
+        | ((uint64_t)(PIECE_BYTES >> 4) << 16)
         | ((uint64_t)(128 >> 4) << 32);
 }
 
-// d[64 x 256] += a[64 x 8] b[8 x 256]: a from registers (the m16n8k8 TF32
+// d[64 x 128] += a[64 x 8] b[8 x 128]: a from registers (the m16n8k8 TF32
 // fragment of each warp's 16 rows), b from shared memory.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[128],
+__device__ __forceinline__ void wgmma_tf32(float (&d)[ACC_REGS],
                                            const uint32_t (&a)[4],
                                            uint64_t desc) {
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
-        "setp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
@@ -217,16 +238,8 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[128],
         "%32, %33, %34, %35, %36, %37, %38, %39, "
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, "
-        "%88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, "
-        "%104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, "
-        "%120, %121, %122, %123, %124, %125, %126, %127}, "
-        "{%128, %129, %130, %131}, %132, p, 1, 1;\n"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -243,23 +256,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[128],
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
@@ -282,10 +279,12 @@ struct Ring {
     uint32_t phase;
 };
 
-// One depth-8 step: wait for the stage, start its products (the small terms
-// first) as one wgmma group, and, unless it is a layer's first step, wait
-// for the group before it and hand that group's stage back to the producer.
-__device__ __forceinline__ void k_step(float (&acc)[128],
+// One depth-8 step: wait for the stage, start its products as one wgmma
+// group (the two small ones into `small`, hi x hi into `big`), and, unless
+// it is a pass's first step, wait for the group before it and hand that
+// group's stage back to the producer.
+__device__ __forceinline__ void k_step(float (&big)[ACC_REGS],
+                                       float (&small)[ACC_REGS],
                                        const uint32_t (&hi)[4],
                                        const uint32_t (&lo)[4], Ring& ring,
                                        bool first, int lane) {
@@ -293,10 +292,15 @@ __device__ __forceinline__ void k_step(float (&acc)[128],
     wgmma_fence();
     const uint64_t d_hi = b_descriptor(ring.base + ring.stage * STAGE_BYTES);
 #if SDF_TF32_PASSES == 3
-    wgmma_tf32(acc, lo, d_hi);
-    wgmma_tf32(acc, hi, d_hi + (HALF_BYTES >> 4));
+#ifdef SDF_ONE_ACCUMULATOR
+    wgmma_tf32(big, lo, d_hi);
+    wgmma_tf32(big, hi, d_hi + (HALF_BYTES >> 4));
+#else
+    wgmma_tf32(small, lo, d_hi);
+    wgmma_tf32(small, hi, d_hi + (HALF_BYTES >> 4));
 #endif
-    wgmma_tf32(acc, hi, d_hi);
+#endif
+    wgmma_tf32(big, hi, d_hi);
     wgmma_commit();
     if (!first) {
         wgmma_wait<1>();
@@ -358,7 +362,8 @@ sdf_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ wbuf,
                const SdfNet net, const int n, float* __restrict__ out_sdf,
                float* __restrict__ out_grad) {
     extern __shared__ __align__(128) unsigned char smem_raw[];
-    float* act = reinterpret_cast<float*>(smem_raw + STAGES * STAGE_BYTES);
+    float* stash = reinterpret_cast<float*>(smem_raw + STAGES * STAGE_BYTES);
+    float* act = stash + STASH_FLOATS;
     uint64_t* bars = reinterpret_cast<uint64_t*>(act + TILE_M * ACT_STRIDE);
     const uint32_t ring_base = smem_addr(smem_raw);
     const uint32_t full = smem_addr(bars), empty = full + 8 * STAGES;
@@ -383,16 +388,25 @@ sdf_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ wbuf,
             uint32_t phase = 1;  // a fresh barrier's preceding phase: free
             for (int l = 0; l < last; ++l) {
                 const int nt = (net.in_dim[l] + TILE_K - 1) / TILE_K;
-                const float* src = wbuf + net.w_off[l];
-                for (int kt = 0; kt < nt; ++kt) {
-                    mbar_wait(empty + 8 * stage, phase);
-                    mbar_expect_tx(full + 8 * stage, COPY_BYTES);
-                    bulk_copy(ring_base + stage * STAGE_BYTES,
-                              src + (size_t)kt * (STAGE_BYTES / 4),
-                              COPY_BYTES, full + 8 * stage);
-                    if (++stage == STAGES) {
-                        stage = 0;
-                        phase ^= 1;
+                const int passes = (net.out_dim[l] + PASS_N - 1) / PASS_N;
+                for (int h = 0; h < passes; ++h) {
+                    // the pass's columns of each tile: piece (hi | lo, k / 4)
+                    // is PASS_N x 4 floats at n = PASS_N h
+                    const float* src = wbuf + net.w_off[l] + h * PASS_N * 4;
+                    for (int kt = 0; kt < nt; ++kt) {
+                        mbar_wait(empty + 8 * stage, phase);
+                        mbar_expect_tx(full + 8 * stage,
+                                       COPY_PIECES * PIECE_BYTES);
+                        for (int p = 0; p < COPY_PIECES; ++p)
+                            bulk_copy(ring_base + stage * STAGE_BYTES
+                                          + p * PIECE_BYTES,
+                                      src + (size_t)kt * PACKED_TILE_FLOATS
+                                          + p * TILE_N * 4,
+                                      PIECE_BYTES, full + 8 * stage);
+                        if (++stage == STAGES) {
+                            stage = 0;
+                            phase ^= 1;
+                        }
                     }
                 }
             }
@@ -419,33 +433,46 @@ sdf_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ wbuf,
     write_embed<C>(act_warp, pts, first_point, n, net, 0, 1.f, lane);
     __syncwarp();
 
+    // the thread's slots of the stash: element i at my_stash[32 i]
+    float* my_stash = stash + warp * (ACC_REGS * 32) + lane;
     Ring ring = {ring_base, full, empty, 0, 0, 0u};
     for (int l = 0; l < last; ++l) {
         const int in = net.in_dim[l], out = net.out_dim[l];
         const int nt = (in + TILE_K - 1) / TILE_K;
-        float acc[128];
+        const int passes = (out + PASS_N - 1) / PASS_N;
+        float big[ACC_REGS], small[ACC_REGS];
 #pragma unroll
-        for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+        for (int h = 0; h < N_PASSES; ++h) {
+            if (h >= passes) continue;
+#pragma unroll
+            for (int i = 0; i < ACC_REGS; ++i) big[i] = small[i] = 0.f;
 
-        // two sets of A fragments: one feeds the products in flight while
-        // the other is loaded for the next step
-        uint32_t hi_a[4], lo_a[4], hi_b[4], lo_b[4];
-        load_frag(row0 + t, row1 + t, 0, hi_a, lo_a);
-        for (int kt = 0; kt < nt; kt += 2) {
-            k_step(acc, hi_a, lo_a, ring, kt == 0, lane);
-            if (kt + 1 < nt) {
-                load_frag(row0 + t, row1 + t, (kt + 1) * TILE_K, hi_b, lo_b);
-                k_step(acc, hi_b, lo_b, ring, false, lane);
-                if (kt + 2 < nt)
-                    load_frag(row0 + t, row1 + t, (kt + 2) * TILE_K, hi_a,
-                              lo_a);
+            // two sets of A fragments: one feeds the products in flight
+            // while the other is loaded for the next step
+            uint32_t hi_a[4], lo_a[4], hi_b[4], lo_b[4];
+            load_frag(row0 + t, row1 + t, 0, hi_a, lo_a);
+            for (int kt = 0; kt < nt; kt += 2) {
+                k_step(big, small, hi_a, lo_a, ring, kt == 0, lane);
+                if (kt + 1 < nt) {
+                    load_frag(row0 + t, row1 + t, (kt + 1) * TILE_K, hi_b,
+                              lo_b);
+                    k_step(big, small, hi_b, lo_b, ring, false, lane);
+                    if (kt + 2 < nt)
+                        load_frag(row0 + t, row1 + t, (kt + 2) * TILE_K,
+                                  hi_a, lo_a);
+                }
+            }
+            wgmma_wait<0>();
+            if (lane == 0) mbar_arrive(ring.empty + 8 * ring.prev);
+#pragma unroll
+            for (int i = 0; i < ACC_REGS; ++i)
+                asm volatile("" : "+f"(big[i]), "+f"(small[i]) :: "memory");
+            if (h == 0) {
+#pragma unroll
+                for (int i = 0; i < ACC_REGS; ++i)
+                    my_stash[32 * i] = big[i] + small[i];
             }
         }
-        wgmma_wait<0>();
-        if (lane == 0) mbar_arrive(ring.empty + 8 * ring.prev);
-#pragma unroll
-        for (int i = 0; i < 128; ++i)
-            asm volatile("" : "+f"(acc[i]) :: "memory");
 
         // bias, softplus on the value rows, the sigmoid gate on the tangent
         // rows, and the 1/sqrt2 of a skip concat that follows; columns past
@@ -463,20 +490,29 @@ sdf_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ wbuf,
             float o[4] = {0.f, 0.f, 0.f, 0.f};
             bool store_own = true;
             if (8 * i < out) {
+                // the four sums: the first pass's from the stash, the
+                // second's from the accumulators
+                float acc[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    acc[j] = i < PASS_N / 8
+                        ? my_stash[32 * (4 * i + j)]
+                        : big[4 * (i - PASS_N / 8) + j]
+                            + small[4 * (i - PASS_N / 8) + j];
                 const bool on0 = col < out, on1 = col + 1 < out;
                 const float b0 = on0 ? __ldg(bias + col) : 0.f;
                 const float b1 = on1 ? __ldg(bias + col + 1) : 0.f;
 #ifdef SDF_SKIP_ACTIVATION
 #pragma unroll
                 for (int j = 0; j < 4; ++j) {
-                    o[j] = (acc[4 * i + j] + ((j & 1) ? b1 : b0)) * post;
+                    o[j] = (acc[j] + ((j & 1) ? b1 : b0)) * post;
                     if (!((j & 1) ? on1 : on0)) o[j] = 0.f;
                 }
 #else
                 if (C == 1) {
 #pragma unroll
                     for (int j = 0; j < 4; ++j) {
-                        const float pre = acc[4 * i + j] + ((j & 1) ? b1 : b0);
+                        const float pre = acc[j] + ((j & 1) ? b1 : b0);
                         const float e = expf(-fabsf(100.f * pre));
                         o[j] = (fmaxf(pre, 0.f) + log1pf(e) * 0.01f) * post;
                         if (!((j & 1) ? on1 : on0)) o[j] = 0.f;
@@ -491,7 +527,7 @@ sdf_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ wbuf,
                     float x = 0.f;
 #pragma unroll
                     for (int j = 0; j < 4; ++j) {
-                        const float pre = acc[4 * i + j] + ((j & 1) ? b1 : b0);
+                        const float pre = acc[j] + ((j & 1) ? b1 : b0);
                         const float v = __shfl_sync(0xffffffffu, pre, vlane);
                         if (j == ch) x = v;
                     }
@@ -504,7 +540,7 @@ sdf_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ wbuf,
                     for (int j = 0; j < 4; ++j) {
                         const float gj =
                             __shfl_sync(0xffffffffu, gate, vlane + 4 * j);
-                        o[j] = acc[4 * i + j] * gj * post;
+                        o[j] = acc[j] * gj * post;
                         if (!((j & 1) ? on1 : on0)) o[j] = 0.f;
                     }
                     store_own = ch != 0;  // the value rows are stored above
@@ -556,10 +592,11 @@ sdf_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ wbuf,
     }
 }
 
-// Dynamic shared memory of a block, in bytes: the ring, the activations and
-// the 2 x STAGES mbarriers.
+// Dynamic shared memory of a block, in bytes: the ring, the stash, the
+// activations and the 2 x STAGES mbarriers.
 static int sdf_smem_bytes() {
-    return STAGES * STAGE_BYTES + TILE_M * ACT_STRIDE * (int)sizeof(float)
+    return STAGES * STAGE_BYTES
+        + (STASH_FLOATS + TILE_M * ACT_STRIDE) * (int)sizeof(float)
         + 2 * STAGES * 8;
 }
 

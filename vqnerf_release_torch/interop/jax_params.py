@@ -17,7 +17,10 @@ all [d_in, d_out], and the port keeps those layouts (``ops.nn.WNDense``,
 The JAX optimizer state is {"count", "m", "v", "vhat"} with one tree like
 the parameters under each of the last three (clipnorm and clipvalue off, as
 shipped). The port's ``KerasAmsgrad`` keeps each as one flat vector in the
-order of ``model.parameters()``, so the conversions take the model.
+order of ``model.parameters()``, so the conversions take the model. NeuS
+trains with optax's ``ScaleByAdamState(count, mu, nu)``, mu and nu trees
+like the NeuS parameters; the port's ``NeuSAdam`` keeps mu and nu flat in
+the same way.
 """
 
 import copy
@@ -35,7 +38,8 @@ from ..ops.nn import Dense, SkipMLP, WNDense
 from ..ops.vq import VqEmaState
 
 __all__ = ["from_jax", "to_jax", "ema_from_jax", "ema_to_jax",
-           "opt_state_from_jax", "opt_state_to_jax"]
+           "opt_state_from_jax", "opt_state_to_jax", "adam_state_from_jax",
+           "adam_state_to_jax"]
 
 _ENC = {"fine_enc": (dc.ENC_ACTS, dc.ENC_SKIP),
         "bottleneck": (dc.BOTTLENECK_ACTS, ())}
@@ -129,13 +133,17 @@ def _neus_to_jax(model):
 
 
 def from_jax(tree, kind):
-    """JAX pytree -> NfrUnit / VqNfr / RefNfr / NeuS (on the CPU)."""
+    """JAX pytree -> NfrUnit / VqNfr / RefNfr / NeuS (on the CPU); kind
+    "ref_nfr/train" converts the ``train`` subtree alone, the tree of
+    ref_nfr's optimizer state."""
     if kind == "neus":
         return _neus_from_jax(tree)
     if kind == "nfr_unit":
         return NfrUnit(**_parts_from_jax(tree, _MLPS[kind]))
     if kind == "vq_nfr":
         return VqNfr(**_parts_from_jax(tree, _MLPS[kind]))
+    if kind == "ref_nfr/train":  # the subtree ref_nfr's optimizer sees
+        return dc.ParamModule(**_parts_from_jax(tree, _MLPS[kind]))
     if kind == "ref_nfr":
         return RefNfr(
             dc.ParamModule(**_parts_from_jax(tree["frozen"],
@@ -149,7 +157,7 @@ def to_jax(module, kind):
     """NfrUnit / VqNfr / RefNfr / NeuS -> JAX pytree of numpy arrays."""
     if kind == "neus":
         return _neus_to_jax(module)
-    if kind in ("nfr_unit", "vq_nfr"):
+    if kind in ("nfr_unit", "vq_nfr", "ref_nfr/train"):
         return _parts_to_jax(module)
     if kind == "ref_nfr":
         return {"frozen": _parts_to_jax(module.frozen),
@@ -174,6 +182,24 @@ def ema_to_jax(state):
             for name, t in zip(VqEmaState._fields, state)}
 
 
+def _flat_from_jax(tree, model, kind):
+    """A tree like the parameters -> one flat vector in the order of
+    ``model.parameters()``, on the model's device."""
+    by_name = dict(from_jax(tree, kind).named_parameters())
+    device = next(model.parameters()).device
+    return torch.cat([by_name[name].reshape(-1)
+                      for name, _ in model.named_parameters()]).to(device)
+
+
+def _tree_from_flat(flat, model, kind):
+    """The inverse of ``_flat_from_jax``: numpy leaves."""
+    holder = copy.deepcopy(model)
+    sizes = [p.numel() for p in holder.parameters()]
+    for p, part in zip(holder.parameters(), flat.split(sizes)):
+        p.copy_(part.view_as(p))
+    return to_jax(holder, kind)
+
+
 @torch.no_grad()
 def opt_state_from_jax(state, model, kind):
     """JAX amsgrad state -> ``KerasAmsgrad.state`` for ``model`` (tensors on
@@ -182,10 +208,7 @@ def opt_state_from_jax(state, model, kind):
     out = {"count": torch.as_tensor(np.array(state["count"], np.int32),
                                     device=device)}
     for key in ("m", "v", "vhat"):
-        by_name = dict(from_jax(state[key], kind).named_parameters())
-        out[key] = torch.cat([by_name[name].reshape(-1)
-                              for name, _ in model.named_parameters()]
-                             ).to(device)
+        out[key] = _flat_from_jax(state[key], model, kind)
     return out
 
 
@@ -194,10 +217,27 @@ def opt_state_to_jax(state, model, kind):
     """``KerasAmsgrad.state`` of ``model`` -> the JAX amsgrad state, numpy
     leaves."""
     out = {"count": state["count"].cpu().numpy().copy()}
-    sizes = [p.numel() for p in model.parameters()]
     for key in ("m", "v", "vhat"):
-        holder = copy.deepcopy(model)
-        for p, flat in zip(holder.parameters(), state[key].split(sizes)):
-            p.copy_(flat.view_as(p))
-        out[key] = to_jax(holder, kind)
+        out[key] = _tree_from_flat(state[key], model, kind)
     return out
+
+
+@torch.no_grad()
+def adam_state_from_jax(state, model):
+    """optax ``ScaleByAdamState(count, mu, nu)`` over a NeuS tree ->
+    ``NeuSAdam.state`` for the NeuS ``model`` (on its device)."""
+    count, mu, nu = state
+    device = next(model.parameters()).device
+    return {"count": torch.as_tensor(np.array(count, np.int32),
+                                     device=device),
+            "mu": _flat_from_jax(mu, model, "neus"),
+            "nu": _flat_from_jax(nu, model, "neus")}
+
+
+@torch.no_grad()
+def adam_state_to_jax(state, model):
+    """``NeuSAdam.state`` of a NeuS ``model`` -> {"count", "mu", "nu"}, the
+    keyword arguments of optax's ``ScaleByAdamState``, numpy leaves."""
+    return {"count": state["count"].cpu().numpy().copy(),
+            "mu": _tree_from_flat(state["mu"], model, "neus"),
+            "nu": _tree_from_flat(state["nu"], model, "neus")}

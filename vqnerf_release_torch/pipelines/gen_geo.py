@@ -50,6 +50,7 @@ from ..models.neus import (NeuSConfig, fused_sdf_enabled, init_neus,
                            neus_occlusion, neus_render)
 from ..ops.light import gen_light_xyz
 from ..utils import ckpt as ckpt_util
+from ..utils.device import resolve_device
 
 __all__ = ["GeoExtractor", "intersect_sphere_far", "check_finished",
            "run_gen_geo", "VIEW_FILES_CG", "VIEW_FILES_REAL"]
@@ -78,16 +79,6 @@ def check_finished(view_dir, with_lvis=True):
     return all(os.path.exists(os.path.join(view_dir, f)) for f in files)
 
 
-def _resolve_device(device):
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "geometry extraction was asked for a CUDA device and "
-            "torch.cuda.is_available() is false; pass device='cpu' to run "
-            "on the CPU")
-    return device
-
-
 class GeoExtractor:
     def __init__(self, params, cfg: NeuSConfig, dataset, scene_out_dir,
                  use_white_bkgd=True, batch_size=4096, light_h=16,
@@ -98,7 +89,7 @@ class GeoExtractor:
                  vis_sampler=None, occ_vis=False,
                  occ_vis_res=64, occ_vis_margin=2.0,
                  span_vis=False, span_bins=32, span_pad=1, device="cuda"):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.params = params.to(self.device)
         self.cfg = cfg
         self.dataset = dataset
@@ -162,6 +153,8 @@ class GeoExtractor:
         self._writer = None
         self._pending_writes = []
         self.last_fast_vis_stats = None
+        # last_fast_vis_stats of every view compute_vis extracted, in order
+        self.fast_vis_stats = []
         # host-clock seconds by phase, summed over this extractor's views.
         # Each phase ends where the host waits for the device anyway (a
         # copy to the host, a nonzero, a count), so reading the clock there
@@ -400,6 +393,7 @@ class GeoExtractor:
         if self.fast_vis:
             lvis_hit = self._lvis_fast(surf_fg, normal_fg)
             st = self.last_fast_vis_stats
+            self.fast_vis_stats.append(dict(st))
             print("[gen-geo] %s: fast-vis certified %.1f%% of %d "
                   "front-lit shadow rays" % (
                       os.path.basename(view_dir),
@@ -589,11 +583,13 @@ def run_gen_geo(scene, data_root, output_root="./output", seed=0,
     scenes unless ``no_vis``; fast-vis defaults to on whenever lvis is
     extracted. ``near`` / ``far`` replace the family's fixed ray bounds
     (NeRF-convention families only). Returns {"train": [...], "val":
-    [...]}, the view directories, and under "seconds" the extractors'
-    ``phase_seconds`` summed."""
+    [...]}, the view directories, under "seconds" the extractors'
+    ``phase_seconds`` summed, and under "fast_vis" the
+    ``last_fast_vis_stats`` of every view that fast-vis extracted, train
+    views first."""
     from ..data.neus_dataset import DtuSceneDataset, NerfSceneDataset
 
-    device = _resolve_device(device)
+    device = resolve_device(device)
     base = dict(n_samples=64, n_importance=64, up_sample_steps=4, occ_res=0)
     base.update(overrides or {})
     cfg, tcfg, meta = vcfg.neus_configs_for_scene(scene, **base)
@@ -611,7 +607,7 @@ def run_gen_geo(scene, data_root, output_root="./output", seed=0,
     out_dir = vcfg.surf_dir(os.path.join(output_root, "surf"), scene)
     if fast_vis is None:
         fast_vis = not no_vis
-    done = {"seconds": {}}
+    done = {"seconds": {}, "fast_vis": []}
     for is_train in (True, False):
         ds = mk(data_root, is_train=is_train, new_h=meta["new_h"], **kwargs)
         ex = GeoExtractor(
@@ -625,4 +621,5 @@ def run_gen_geo(scene, data_root, output_root="./output", seed=0,
             is_train=is_train, num_p=num_p, p_i=p_i, no_vis=no_vis)
         for phase, sec in ex.phase_seconds.items():
             done["seconds"][phase] = done["seconds"].get(phase, 0.0) + sec
+        done["fast_vis"] += ex.fast_vis_stats
     return done

@@ -1,5 +1,5 @@
-"""Decomposition-stage train steps for nfr_unit and vq_nfr (counterpart of
-vqnerf_release_tpu/train/decomp_trainer.py).
+"""Decomposition-stage train steps for nfr_unit, vq_nfr and ref_nfr
+(counterpart of vqnerf_release_tpu/train/decomp_trainer.py).
 
   * ``KerasAmsgrad``: the keras ``Adam(amsgrad=True)`` rule the reference
     trains with, which is NOT ``torch.optim.Adam(amsgrad=True)``:
@@ -20,6 +20,9 @@ vqnerf_release_tpu/train/decomp_trainer.py).
     codebook: the EMA update is proposed in the forward, the sim loss is
     evaluated at the updated codebook, and the optimizer's codebook delta
     (the sim term's alone) is applied on top of the EMA update.
+  * ref_nfr optimises its ``trainable`` part only; the frozen encoder,
+    spec head and light are neither in the optimizer nor reached by a
+    gradient.
 
 The optimizer state is flat: ``m``, ``v`` and ``vhat`` are one vector each
 over all parameters in ``model.parameters()`` order, so one step is a dozen
@@ -31,11 +34,12 @@ import torch
 
 from ..models import decomp_common as dc
 from ..models.nfr_unit import nfr_unit_forward, nfr_unit_loss
+from ..models.ref_nfr import ref_nfr_forward, ref_nfr_loss
 from ..models.vq_nfr import vq_nfr_forward, vq_nfr_loss
 from ..ops.vq import VqEmaState
 
 __all__ = ["decomp_lr", "KerasAmsgrad", "make_nfr_unit_step",
-           "make_vq_nfr_step"]
+           "make_vq_nfr_step", "make_ref_nfr_step"]
 
 
 def decomp_lr(step, cfg: dc.DecompConfig):
@@ -164,5 +168,22 @@ def make_vq_nfr_step(model, cfg: dc.DecompConfig, lxyz, lareas):
                                        zip(new_ema, ema_state)))
             model.codebook.copy_(new_cb)
         return new_ema, _finish_ld(ld, ok, opt.guard)
+
+    return opt, step_fn
+
+
+def make_ref_nfr_step(model, cfg: dc.DecompConfig, lxyz, lareas):
+    """(optimizer, step_fn) over ``model.trainable`` only; step_fn(batch,
+    step) -> loss dict of 0-dim tensors on the device, after updating the
+    trainable part in place."""
+    params = list(model.trainable.parameters())
+    opt = KerasAmsgrad(params, cfg)
+
+    def step_fn(batch, step):
+        _, aux = ref_nfr_forward(model, batch, cfg, lxyz, lareas,
+                                 mode="train")
+        loss, ld = ref_nfr_loss(aux, cfg, mode="train")
+        ok = opt.step(_grads(loss, params), decomp_lr(step, cfg), loss)
+        return _finish_ld(ld, ok, opt.guard)
 
     return opt, step_fn

@@ -1,5 +1,6 @@
-"""Epoch-level training loops of stage 2's first two phases (counterpart
-of train_nfr_unit / train_vq_nfr in vqnerf_release_tpu/train/loop.py).
+"""Epoch-level training loops of stage 2's three phases (counterpart of
+train_nfr_unit / train_vq_nfr / train_ref_nfr in
+vqnerf_release_tpu/train/loop.py).
 
   * ``train_nfr_unit``: per epoch one step per train view (one view = one
     jitter-pair batch), a checkpoint and a validation every
@@ -8,8 +9,11 @@ of train_nfr_unit / train_vq_nfr in vqnerf_release_tpu/train/loop.py).
     evaluation set, and per validation the codebook-dropout sweep with the
     elbow selection that names the ``main_<k>`` directory, loss.json,
     vq_test_loss.json and vq_num.png.
+  * ``train_ref_nfr``: the residual model on top of a trained vq_nfr and
+    its converged light (vq_nfr's ``vis_vali/np_light.npy``), on views
+    loaded with ``with_ref=True``; per validation the full-view renders.
 
-Both run on ``device`` ("cuda" unless the caller says otherwise) and raise
+All three run on ``device`` ("cuda" unless the caller says otherwise) and raise
 when it is not there. Ray sampling stays on the host in numpy under a
 seeded ``RandomState``, the stream the JAX package's tests pin; the code
 dropout draws from a seeded ``torch.Generator`` on the device. A step never
@@ -37,18 +41,20 @@ from ..data.sampler import build_vq_eval_set, outer_sample, sample_pix
 from ..eval.metrics import lpips_impl
 from ..models import decomp_common as dc
 from ..models.nfr_unit import init_nfr_unit, nfr_unit_forward
+from ..models.ref_nfr import init_ref_nfr, ref_nfr_forward
 from ..models.vq_nfr import init_vq_nfr, vq_nfr_forward, vq_test
 from ..ops.colorspace import linear2srgb, srgb2linear
 from ..ops.kmeans import kmeans
 from ..ops.math import rgb2chromaticity
 from ..ops.vq import VqEmaState, init_vq_ema_state
 from ..utils import ckpt as ckpt_util
+from ..utils.device import resolve_device
 from ..utils.html import write_vali_index
 from ..utils.vis import vis_view
 from . import decomp_trainer as dt
 
-__all__ = ["train_nfr_unit", "train_vq_nfr", "save_metas", "elbow_select",
-           "cfg_ckpt_period"]
+__all__ = ["train_nfr_unit", "train_vq_nfr", "train_ref_nfr", "save_metas",
+           "elbow_select", "cfg_ckpt_period"]
 
 # Full-view validation forwards pass the WHOLE view (background rows too)
 # through the model; at 512 lights the [N, L, 3] BRDF temporaries of a
@@ -59,20 +65,6 @@ _VALI_RAY_CHUNK = 131072
 # rows per BRDF/render chunk of the drop-loss sweep (its VQ lookup is one
 # call over the whole evaluation set)
 _VQ_TEST_RENDER_CHUNK = 65536
-
-
-def _resolve_device(device):
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device} requested but torch.cuda.is_available() "
-                "is false; pass device='cpu' to train on the CPU")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    # the reference trains in fp32; TF32 matmuls keep three digits
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return device
 
 
 def _notice_ignored(cfg):
@@ -257,7 +249,7 @@ def train_nfr_unit(cfg: dc.DecompConfig, train_views, vali_views, outdir,
                    resume=True, device="cuda"):
     """Phase 1: train the warm-up model. Returns (model, history), the
     model on ``device`` and the history the mean loss of each epoch."""
-    device = _resolve_device(device)
+    device = resolve_device(device)
     _notice_ignored(cfg)
     epochs = epochs or cfg.epochs
     seed = cfg.random_seed if seed is None else seed
@@ -357,7 +349,7 @@ def train_vq_nfr(cfg: dc.DecompConfig, nfr_model, train_views, vali_views,
                  resume=True, device="cuda"):
     """Phase 2: train the VQ model from a trained warm-up model. Returns
     (model, ema_state, history), model and state on ``device``."""
-    device = _resolve_device(device)
+    device = resolve_device(device)
     _notice_ignored(cfg)
     epochs = epochs or cfg.epochs
     seed = cfg.random_seed if seed is None else seed
@@ -516,3 +508,84 @@ def _vq_vali(model, cfg, lxyz, lareas, vali_views, vq_eval, val_thres_list,
     write_vali_index(os.path.dirname(os.path.dirname(epoch_dir)),
                      white_bg=cfg.white_bg)
     return main_vq
+
+
+def train_ref_nfr(cfg: dc.DecompConfig, vq_model, light, train_views,
+                  vali_views, outdir, epochs=None, seed=None, resume=True,
+                  device="cuda"):
+    """Phase 3: train the residual model on top of a trained VqNfr (not
+    modified) and its converged light [Lh, Lw, 3]. The views must be loaded
+    with ``with_ref=True``. Returns (model, history), the model on
+    ``device``."""
+    device = resolve_device(device)
+    _notice_ignored(cfg)
+    if any(v.ref is None for v in list(train_views) + list(vali_views)):
+        raise ValueError("train_ref_nfr needs views loaded with "
+                         "with_ref=True (the reference RGB buffer)")
+    epochs = epochs or cfg.epochs
+    seed = cfg.random_seed if seed is None else seed
+    rng = np.random.RandomState(seed)
+    lxyz, lareas = dc.light_constants(cfg, device)
+    model = init_ref_nfr(torch.Generator().manual_seed(seed), cfg,
+                         vq_model, torch.as_tensor(light).detach().cpu()
+                         ).to(device)
+    opt, step_fn = dt.make_ref_nfr_step(model, cfg, lxyz, lareas)
+    start_epoch = 0
+
+    if resume:
+        latest = ckpt_util.latest_ckpt(outdir)
+        if latest:
+            state = ckpt_util.load_ckpt(latest)
+            model.load_state_dict(state["params"])
+            opt.state = {k: v.to(device)
+                         for k, v in state["opt_state"].items()}
+            start_epoch = int(state["epoch"])
+            _restore_rng(state.get("rng"), rng)
+
+    def state_dict(epoch):
+        return {"params": model.state_dict(), "opt_state": opt.state,
+                "epoch": epoch, "rng": _rng_state(rng)}
+
+    step = start_epoch * max(len(train_views), 1)
+    history = []
+    period = cfg_ckpt_period(cfg)
+    if start_epoch < epochs:  # don't stage the store for a no-op resume
+        epoch_batches, _ = _make_batch_source(train_views, cfg, "contrast",
+                                              device)
+    for epoch in range(start_epoch, epochs):
+        t_epoch = time.time()
+        losses = []
+        for batch in epoch_batches(rng):
+            losses.append(step_fn(batch, step))  # stays on the device
+            step += 1
+        losses = [d["loss"] for d in _sync_scalar_dicts(losses)]
+        e1 = epoch + 1
+        mean_loss, n_skipped = _finite_mean(losses)
+        history.append(mean_loss)
+        _log_scalars(outdir, e1, {"loss_train": mean_loss,
+                                  "skipped_steps": n_skipped,
+                                  "wall_s": round(time.time() - t_epoch, 4)})
+        _check_finite(outdir, "ref_nfr", e1, {"loss_train": mean_loss},
+                      state_dict(e1))
+        if e1 % period == 0 or e1 == epochs:
+            ckpt_util.save_ckpt(outdir, e1, state_dict(e1), keep=_keep(cfg))
+            _ref_vali(model, cfg, lxyz, lareas, vali_views,
+                      _epoch_dir(outdir, e1), outdir, device)
+    save_metas(outdir)
+    return model, history
+
+
+@torch.inference_mode()
+def _ref_vali(model, cfg, lxyz, lareas, vali_views, epoch_dir, outdir,
+              device):
+    for b_i, view in enumerate(vali_views):
+        pred = _forward_chunked(
+            lambda b: ref_nfr_forward(model, b, cfg, lxyz, lareas,
+                                      mode="vali")[0],
+            _device_batch(view.as_batch(), device))
+        vis = {"pred_" + k: v for k, v in pred.items()}
+        vis["gt_rgb"] = view.rgb
+        vis["gt_alpha"] = view.alpha
+        vis_view(vis, (view.h, view.w), join(epoch_dir, "batch%09d" % b_i),
+                 view.id, white_bg=cfg.white_bg, mode="vali")
+    write_vali_index(outdir, white_bg=cfg.white_bg)
