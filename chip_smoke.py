@@ -106,18 +106,40 @@ fast-vis shadow pass.)
    one whole vq_nfr step with the kernel and with use_fused_vq=False (host
    clock around a synchronised step, median), and with --profile a
    torch.profiler table of a few steps;
-10. prints the pass times, peak device memory of each path, the script's
-   total, a {"kernels": [...]} line with all four kernels (each with ms,
-   device_ms, plain_ms, bound_ms; kernel 3's launches are those of NeuS
-   training and extraction, given apart on the line before), and as the
-   last line {"ok": true, "device": {...}}.
+10. runs the port from its command line, cli.main(argv) in-process, on a
+   scene of its own (write_cli_scene: the textured sphere at CLI_IMH with 3
+   train and 1 val views from CLI_EYE_DIST, the stage-2 metadata and a
+   vis_comps mirror), every width the family preset's: geo-train for
+   CLI_GEO_ITERS steps -> gen-geo at its defaults -> decomp-train --phase
+   all --epochs 1 -> test with the probes of step 3 -> gen-z ->
+   reselect-main --dry-run. Every kernel's launch count is set to 0 just
+   before each subcommand and read just after: kernel 3 exactly
+   up_sample_steps a geo-train step, kernels 3 and 4 in gen-geo, kernel 2
+   exactly once a vq_nfr step in decomp-train, kernel 1 in test. The JAX
+   CLI's file tree for these subcommands exists and its arrays are finite.
+   Then the trained vq_nfr and ref_nfr go out as the .npz that
+   scripts/export_jax_ckpt.py writes (made with the port's to_jax: there
+   is no jax on the card), come back through interop/jax_ckpt into a fresh
+   tree and are served again by `test`, every array within rtol 2e-4 /
+   atol 1e-5 of the directly served one; last, `python -m
+   vqnerf_release_torch.cli test` in a fresh process exits 0 and writes the
+   same files;
+11. prints the pass times, peak device memory of each path, each
+   subcommand's seconds, the script's total, a {"kernels": [...]} line with
+   all four kernels (each with ms, device_ms, plain_ms, bound_ms; kernel
+   3's launches are those of NeuS training and extraction, given apart on
+   an earlier line; cli_launches, the launches of step 10, and
+   cli_launches_by_subcommand), and as the last line {"ok": true,
+   "device": {...}}.
 
 Cuts, all of scale and none of width: 4 train views and 1 validation view
 in place of a scene's 100 and 8, 2 epochs in place of 150, 2 served views;
 for stage 1 6 train views and 1 val view of 256x256 in place of a scene's
 100 and 8 of 512x512 (or larger), and NEUS_ITERS training steps in place of
 300,000, with the warm-up cut in proportion and the checkpoint, validation
-and mesh at the last step.
+and mesh at the last step; for the command line 3 train views and 1 val
+view of 128x128, CLI_GEO_ITERS geometry steps, 1 epoch a phase and a VQ
+evaluation set of CLI_VQ_SAMPLES rows, printed in its "cli cuts" line.
 
 Any failure raises and exits non-zero; without CUDA it exits 1 before doing
 anything.
@@ -139,6 +161,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from vqnerf_release_torch import cli
+from vqnerf_release_torch import config as vcfg
 from vqnerf_release_torch.data import io as vio
 from vqnerf_release_torch.data.device_store import DeviceViewStore
 from vqnerf_release_torch.data.sampler import build_vq_eval_set
@@ -154,6 +178,8 @@ from vqnerf_release_torch.models.neus import (NeuSConfig, init_neus,
 from vqnerf_release_torch.models.nfr_unit import init_nfr_unit
 from vqnerf_release_torch.models.ref_nfr import init_ref_nfr
 from vqnerf_release_torch.data.neus_dataset import NerfSceneDataset
+from vqnerf_release_torch.interop import jax_ckpt
+from vqnerf_release_torch.interop import jax_params
 from vqnerf_release_torch.ops.vq import VqEmaState, vq_lookup
 from vqnerf_release_torch.pipelines import gen_geo
 from vqnerf_release_torch.pipelines.test_driver import (_RAY_CHUNK, find_vq,
@@ -217,6 +243,15 @@ NORMAL_MAX_DEG = 35.0  # angle between normal.npy and the mean point's radial
 GT_COVERED = 0.95  # share of a view's GT mask inside its silhouette
 OPAQUE = 0.99  # W above which xyz is the surface point (the lvis checks)
 LIT_COS, LIT_MIN = 0.5, 0.9  # lights with cos > LIT_COS have lvis > LIT_MIN
+# the "cli" phase: a scene of its own under the CG scene's name, with the
+# cameras of a NeRF-synthetic scene (distance 4, inside the nerf family's
+# fixed near 2 and far 6); its cuts, all of data and depth
+CLI_IMH = 128
+CLI_TRAIN_VIEWS, CLI_VAL_VIEWS = 3, 1
+CLI_EYE_DIST = 4.0
+CLI_GEO_ITERS = 100
+CLI_VQ_SAMPLES = 20_000  # total_sample_vq, 200,000 in the preset
+CLI_TIMEOUT_S = 600  # the python -m subprocess
 # peaks of one H100 SXM: HBM bytes/s, fp32 operations/s outside the tensor
 # cores (kernels 1 and 2, and the earlier design of kernels 3 and 4), and
 # dense TF32 operations/s on the tensor cores. Kernels 3 and 4 split every
@@ -1061,11 +1096,12 @@ def check_vq_kernel(trained, cfg, device):
     }
 
 
-def write_stage1_scene(root, imh, n_train, n_val, seed):
+def write_stage1_scene(root, imh, n_train, n_val, seed, eye_dist=2.0):
     """A NeRF-convention stage-1 scene: transforms_{train,val}.json and a
-    16-bit rgba.png per view. The cameras lie on a circle of radius 2
-    (height 0.3) and look at the origin, the train views evenly spaced and
-    the val views between them. The object is a sphere of radius
+    16-bit rgba.png per view. The cameras lie on a circle of radius
+    eye_dist (height 0.15 eye_dist) and look at the origin, the train views
+    evenly spaced and the val views between them. The object is a sphere of
+    radius
     GEO_GT_RADIUS with a texture fixed to its surface (smooth blobs of its
     base colour), so that the views agree on where each surface point lies;
     the background is white. Both carry 3% of per-pixel noise."""
@@ -1081,7 +1117,7 @@ def write_stage1_scene(root, imh, n_train, n_val, seed):
         for i in range(n):
             ang = 2 * np.pi * (i + (0.5 if mode == "val" else 0.0)) \
                 / max(n_train, 1)
-            eye = np.array([2.0 * np.sin(ang), 0.3, 2.0 * np.cos(ang)])
+            eye = eye_dist * np.array([np.sin(ang), 0.15, np.cos(ang)])
             fwd = -eye / np.linalg.norm(eye)
             right = np.cross(fwd, [0.0, 1.0, 0.0])
             right /= np.linalg.norm(right)
@@ -1767,6 +1803,267 @@ def sdf_training_counts(packed, runner, pts):
     return out
 
 
+def write_cli_scene(root):
+    """The "cli" phase's scene: write_stage1_scene's textured sphere at
+    CLI_IMH with CLI_TRAIN_VIEWS + CLI_VAL_VIEWS views from CLI_EYE_DIST,
+    under <root>/data/nfr_blender/<scene>, with the stage-2 interface (a
+    metadata.json a view) and the GT albedo and metal of the val views in
+    the vis_comps mirror that run_test's albedo scale reads."""
+    data_root = os.path.join(root, "data", "nfr_blender", GEO_SCENE)
+    write_stage1_scene(data_root, CLI_IMH, CLI_TRAIN_VIEWS, CLI_VAL_VIEWS,
+                       SEED, eye_dist=CLI_EYE_DIST)
+    for mode in ("train", "val"):
+        tj = vio.read_json(os.path.join(data_root,
+                                        "transforms_%s.json" % mode))
+        for i, frame in enumerate(tj["frames"]):
+            vid = "%s_%03d" % (mode, i)
+            vio.write_json({"imh": CLI_IMH, "imw": CLI_IMH,
+                            "cam_angle_x": tj["camera_angle_x"],
+                            "cam_transform_mat": ",".join(
+                                str(v) for v in np.reshape(
+                                    frame["transform_matrix"], -1))},
+                           os.path.join(data_root, vid, "metadata.json"))
+            if mode == "val":
+                vis = data_root.replace("nfr_blender", "vis_comps")
+                vio.write_img(np.full((CLI_IMH, CLI_IMH, 3), [0.8, 0.5, 0.3]),
+                              os.path.join(vis, vid, "albedo.png"))
+                vio.write_img(np.zeros((CLI_IMH, CLI_IMH, 3)),
+                              os.path.join(vis, vid, "metal.png"))
+    return data_root
+
+
+def _launch_counts():
+    return {"fused_brdf_render": render_kernel.LAUNCHES,
+            "vq_fused_train": vq_kernel.LAUNCHES,
+            "sdf_fwd": sdf_kernel.LAUNCHES["sdf_fwd"],
+            "sdf_fwdgrad": sdf_kernel.LAUNCHES["sdf_fwdgrad"]}
+
+
+def _run_cli(argv):
+    """cli.main(argv) with every kernel's launch count set to 0 just before
+    and read just after; returns (seconds, launches)."""
+    render_kernel.LAUNCHES = 0
+    vq_kernel.LAUNCHES = 0
+    for key in sdf_kernel.LAUNCHES:
+        sdf_kernel.LAUNCHES[key] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, _launch_counts()
+
+
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, names in os.walk(root) for f in names)
+
+
+def _check_finite_npy(root):
+    arrays = [f for f in _files(root) if f.endswith(".npy")]
+    for rel in arrays:
+        if not np.isfinite(np.load(os.path.join(root, rel))).all():
+            raise AssertionError(f"non-finite values in {rel}")
+    return len(arrays)
+
+
+def _export_like_jax(phase_dir, cfg, kind, path):
+    """The .npz that scripts/export_jax_ckpt.py writes for a JAX
+    checkpoint, made from the port's checkpoint with the port's own
+    converters (there is no jax on the card)."""
+    state = ckpt_util.load_ckpt(ckpt_util.latest_ckpt(phase_dir))
+    model = cli._load_phase_model(phase_dir, cfg, kind, "cpu")
+    opt_model, opt_kind = ((model.trainable, "ref_nfr/train")
+                           if kind == "ref_nfr" else (model, kind))
+    tree = {"params": jax_params.to_jax(model, kind),
+            "opt_state": jax_params.opt_state_to_jax(
+                state["opt_state"], opt_model, opt_kind),
+            "epoch": np.asarray(state["epoch"], np.int32)}
+    if kind == "vq_nfr":
+        tree["ema"] = jax_params.ema_to_jax(state["ema"])
+    return jax_ckpt.write_npz(path, tree)
+
+
+def cli_phase(root, env_dir, device="cuda"):
+    """The port run from a shell's entry point, cli.main(argv), in-process
+    so that the kernels' launch counts can be read: geo-train ->
+    gen-geo -> decomp-train -> test -> gen-z -> reselect-main on a scene
+    of its own, every width the family preset's. Each subcommand's files
+    exist and are finite; kernel 3 runs in geo-train, kernels 3 and 4 in
+    gen-geo, kernel 2 once a vq_nfr step in decomp-train and kernel 1 in
+    test. Then the trained vq_nfr and ref_nfr go out in the JAX exporter's
+    format, come back through interop/jax_ckpt into a fresh tree and are
+    served again, every array within the render kernel's tolerance of the
+    directly served one; and `python -m vqnerf_release_torch.cli test` in a
+    fresh process writes the same files. Returns (launches by subcommand,
+    seconds by subcommand)."""
+    data_root = write_cli_scene(os.path.join(root, "cli"))
+    out = os.path.join(root, "cli", "output")
+    dev = ["--device", str(device)]
+    common = ["--data-root", data_root, "--output-root", out, *dev]
+    shipped_cfg, shipped, _ = vcfg.neus_configs_for_scene(GEO_SCENE)
+    warm = round(shipped.warm_up_end * CLI_GEO_ITERS / shipped.end_iter)
+    preset = "imh=%d,total_sample_vq=%d" % (CLI_IMH, CLI_VQ_SAMPLES)
+    print("cli cuts: %d train + %d val views of %dx%d (cameras at distance "
+          "%g); geo-train --end-iter %d for the shipped %d, warm_up_end %d "
+          "for %d through --geo-override; gen-geo at its defaults; "
+          "decomp-train --epochs 1 for 150, --preset-override %s (the "
+          "views' size, and the VQ evaluation set of %d rows for 200,000); "
+          "every width the family preset's"
+          % (CLI_TRAIN_VIEWS, CLI_VAL_VIEWS, CLI_IMH, CLI_IMH, CLI_EYE_DIST,
+             CLI_GEO_ITERS, shipped.end_iter, warm, shipped.warm_up_end,
+             preset, CLI_VQ_SAMPLES))
+    runs = [
+        ("geo-train", ["geo-train", GEO_SCENE, *common, "--end-iter",
+                       str(CLI_GEO_ITERS), "--geo-override",
+                       "warm_up_end=%d" % warm]),
+        ("gen-geo", ["gen-geo", GEO_SCENE, *common]),
+        ("decomp-train", ["decomp-train", GEO_SCENE, *common, "--phase",
+                          "all", "--epochs", "1", "--preset-override",
+                          preset]),
+        ("test", ["test", GEO_SCENE, *common, "--test-envmap-dir", env_dir,
+                  "--preset-override", "imh=%d" % CLI_IMH]),
+        ("gen-z", ["gen-z", GEO_SCENE, *common, "--mode", "vali",
+                   "--gen-z"]),
+        ("reselect-main", ["reselect-main", GEO_SCENE, "--output-root", out,
+                           "--dry-run", *dev]),
+    ]
+    seconds, launches = {}, {}
+    for name, argv in runs:
+        seconds[name], launches[name] = _run_cli(argv)
+        print("cli %s: %.3f s, kernel launches %s"
+              % (name, seconds[name], launches[name]), flush=True)
+
+    # kernel 3 in every geo-train step's up-sample chain (no validation:
+    # the command gives the runner no validation set)
+    tail_start = CLI_GEO_ITERS - int(round(shipped.tail_frac
+                                           * CLI_GEO_ITERS))
+    want = (shipped_cfg.up_sample_steps * tail_start
+            + vcfg.parse_sampler_spec(shipped.tail_sampler)["up_sample_steps"]
+            * (CLI_GEO_ITERS - tail_start))
+    if launches["geo-train"]["sdf_fwd"] != want:
+        raise AssertionError(f"geo-train launched kernel 3 "
+                             f"{launches['geo-train']['sdf_fwd']} times, "
+                             f"not {want}")
+    if min(launches["gen-geo"]["sdf_fwd"],
+           launches["gen-geo"]["sdf_fwdgrad"]) <= 0:
+        raise AssertionError(f"gen-geo launched {launches['gen-geo']}")
+    n_vq_steps = CLI_TRAIN_VIEWS  # 1 epoch, a step a train view
+    if launches["decomp-train"]["vq_fused_train"] != n_vq_steps:
+        raise AssertionError(
+            f"decomp-train launched kernel 2 "
+            f"{launches['decomp-train']['vq_fused_train']} times in "
+            f"{n_vq_steps} vq_nfr steps")
+    if launches["test"]["fused_brdf_render"] <= 0:
+        raise AssertionError(f"test launched {launches['test']}")
+
+    # the JAX CLI's tree for these subcommands
+    exp = os.path.join(out, "exp", GEO_SCENE, "nerf", "checkpoints")
+    if os.listdir(exp) != ["ckpt-%d" % CLI_GEO_ITERS]:
+        raise AssertionError(f"geo-train wrote {os.listdir(exp)}")
+    surf = vcfg.surf_dir(os.path.join(out, "surf"), GEO_SCENE)
+    views = ["train_%03d" % i for i in range(CLI_TRAIN_VIEWS)] + \
+        ["val_%03d" % i for i in range(CLI_VAL_VIEWS)]
+    if sorted(os.listdir(surf)) != views or not all(
+            gen_geo.check_finished(os.path.join(surf, v)) for v in views):
+        raise AssertionError(f"gen-geo wrote {_files(surf)}")
+    n_arrays = _check_finite_npy(surf)
+    train = {m: vcfg.train_outdir(out, GEO_SCENE, m)
+             for m in ("nfr_unit", "vq_nfr", "ref_nfr")}
+    for m, d in train.items():
+        need = [os.path.join("checkpoints", "ckpt-1"), "train_log.jsonl",
+                os.path.join("vis_vali", "metas.json"),
+                os.path.join("vis_vali", "epoch%09d" % 1)]
+        for rel in need:
+            if not os.path.exists(os.path.join(d, rel)):
+                raise AssertionError(f"decomp-train: no {m}/{rel}")
+        for row in _read_log(d):
+            if not all(np.isfinite(v) for v in row.values()
+                       if isinstance(v, float)) or row["skipped_steps"]:
+                raise AssertionError(f"decomp-train {m}: {row}")
+    vali = os.path.join(train["vq_nfr"], "vis_vali", "epoch%09d" % 1)
+    n_vq = find_vq(vali)
+    cfg, _ = vcfg.decomp_config_for_scene(GEO_SCENE, imh=CLI_IMH)
+    served = os.path.join(train["ref_nfr"], "vis_test", "latest")
+    n_arrays += check_outputs(served, expected_files(cfg, env_dir),
+                              CLI_VAL_VIEWS, n_vq)
+    gz = os.path.join(train["nfr_unit"], "gen_z")
+    want_gz = sorted(os.path.join("val_%03d" % i, f)
+                     for i in range(CLI_VAL_VIEWS)
+                     for f in ("albedo.npy", "albedo.png", "spec.npy",
+                               "spec.png", "rough.npy", "rough.png",
+                               "z_bias.npy"))
+    if _files(gz) != want_gz:
+        raise AssertionError(f"gen-z wrote {_files(gz)}")
+    n_arrays += _check_finite_npy(gz) + _check_finite_npy(
+        os.path.join(train["nfr_unit"], "vis_vali"))
+    print("cli: the JAX CLI's tree is there (exp/%s/nerf/checkpoints, "
+          "surf/nerf_surf/%s/{%s}, train/%s_{nfr_unit,vq_nfr,ref_nfr}/"
+          "lr5e-4, vis_test/latest, gen_z), %d arrays finite; main_%d"
+          % (GEO_SCENE, GEO_SCENE, ",".join(views), GEO_SCENE, n_arrays,
+             n_vq))
+
+    # the trained models out in the exporter's format and back in
+    fresh = os.path.join(root, "cli", "imported")
+    for kind in ("vq_nfr", "ref_nfr"):
+        npz = _export_like_jax(train[kind], cfg, kind,
+                               os.path.join(root, "cli", kind + ".npz"))
+        jax_ckpt.main([npz, vcfg.train_outdir(fresh, GEO_SCENE, kind),
+                       "--kind", kind, "--scene", GEO_SCENE])
+    # the validation tree travels with a trained scene (main_<k>, the light)
+    for sub in ("epoch%09d" % 1, "np_light.npy"):
+        src = os.path.join(train["vq_nfr"], "vis_vali", sub)
+        dst = os.path.join(vcfg.train_outdir(fresh, GEO_SCENE, "vq_nfr"),
+                           "vis_vali", sub)
+        if os.path.isdir(src):
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            subprocess.run(["cp", "-r", src, dst], check=True)
+    test_argv = ["test", GEO_SCENE, "--data-root", data_root,
+                 "--output-root", fresh, "--surf-root", surf,
+                 "--test-envmap-dir", env_dir, "--preset-override",
+                 "imh=%d" % CLI_IMH, *dev]
+    seconds["test (imported)"], launches["test (imported)"] = \
+        _run_cli(test_argv)
+    again = os.path.join(vcfg.train_outdir(fresh, GEO_SCENE, "ref_nfr"),
+                         "vis_test", "latest")
+    if _files(again) != _files(served):
+        raise AssertionError("the imported models wrote other files")
+    err, n_cmp, same_png = 0.0, 0, 0
+    for rel in _files(served):
+        a, b = os.path.join(again, rel), os.path.join(served, rel)
+        if rel.endswith(".npy"):
+            err = max(err, _compare(torch.from_numpy(np.load(a)).double(),
+                                    torch.from_numpy(np.load(b)).double(),
+                                    "imported against direct, " + rel))
+            n_cmp += 1
+        elif rel.endswith(".png"):
+            same_png += open(a, "rb").read() == open(b, "rb").read()
+    print("cli test (imported): %.3f s, %d arrays within rtol %g / atol %g "
+          "of the directly served ones (max abs err %.3e), %d of %d PNGs "
+          "equal byte for byte"
+          % (seconds["test (imported)"], n_cmp, RTOL, ATOL, err, same_png,
+             sum(f.endswith(".png") for f in _files(served))))
+
+    # the module entry in a fresh process
+    moved = again + "_in_process"
+    os.rename(again, moved)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vqnerf_release_torch.cli", *test_argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=CLI_TIMEOUT_S)
+    seconds["python -m cli test"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("python -m vqnerf_release_torch.cli test exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    if _files(again) != _files(moved):
+        raise AssertionError("python -m vqnerf_release_torch.cli test wrote "
+                             "other files")
+    print("cli: python -m vqnerf_release_torch.cli test in a fresh process: "
+          "exit 0 in %.3f s, the same %d files"
+          % (seconds["python -m cli test"], len(_files(again))))
+    return launches, seconds
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1854,24 +2151,38 @@ def main():
         geo = extraction_phase(root, device, neus, profile)
         sys.stdout.flush()
 
-    # ---- each kernel against its plain version, and the timings ----------
-    lxyz, lareas = dc.light_constants(cfg, device)
-    with torch.inference_mode():
-        render_entry = check_render_kernel(vq, cfg, view, lxyz, lareas, device)
-        vq_entry = check_vq_kernel(trained, cfg, device)
-    fwd_entry, fwdgrad_entry = check_sdf_kernels(geo, neus["runner"],
-                                                 device)
-    time_steps(cfg, trained, lxyz, lareas, device, profile)
+        # ---- each kernel against its plain version, and the timings ------
+        lxyz, lareas = dc.light_constants(cfg, device)
+        with torch.inference_mode():
+            render_entry = check_render_kernel(vq, cfg, view, lxyz, lareas,
+                                               device)
+            vq_entry = check_vq_kernel(trained, cfg, device)
+        fwd_entry, fwdgrad_entry = check_sdf_kernels(geo, neus["runner"],
+                                                     device)
+        time_steps(cfg, trained, lxyz, lareas, device, profile)
+        render_entry["launches"] = render_launches
+        vq_entry["launches"] = trained["launches"]
+        fwd_entry["launches"] = neus["launches"] + geo["launches"]["sdf_fwd"]
+        fwdgrad_entry["launches"] = geo["launches"]["sdf_fwdgrad"]
+        print("kernel 3 (sdf_fwd) launches on the main path: %d in NeuS "
+              "training + %d in extraction = %d; kernel 4 (sdf_fwdgrad) %d, "
+              "all in extraction"
+              % (neus["launches"], geo["launches"]["sdf_fwd"],
+                 fwd_entry["launches"], fwdgrad_entry["launches"]))
+        del geo, neus, trained, vq, ref  # the card for the CLI's chain
+        sys.stdout.flush()
 
-    render_entry["launches"] = render_launches
-    vq_entry["launches"] = trained["launches"]
-    fwd_entry["launches"] = neus["launches"] + geo["launches"]["sdf_fwd"]
-    fwdgrad_entry["launches"] = geo["launches"]["sdf_fwdgrad"]
-    print("kernel 3 (sdf_fwd) launches on the main path: %d in NeuS "
-          "training + %d in extraction = %d; kernel 4 (sdf_fwdgrad) %d, all "
-          "in extraction" % (neus["launches"], geo["launches"]["sdf_fwd"],
-                             fwd_entry["launches"],
-                             fwdgrad_entry["launches"]))
+        # ---- the CLI: the chain a user runs from a shell ------------------
+        t0 = time.perf_counter()
+        cli_launches, cli_seconds = cli_phase(root, paths["env_dir"], device)
+        print("cli phase: %.1f s; seconds by subcommand %s"
+              % (time.perf_counter() - t0, json.dumps(cli_seconds)),
+              flush=True)
+
+    for entry in (render_entry, vq_entry, fwd_entry, fwdgrad_entry):
+        by_sub = {sub: n[entry["name"]] for sub, n in cli_launches.items()}
+        entry["cli_launches"] = sum(by_sub.values())
+        entry["cli_launches_by_subcommand"] = by_sub
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [render_entry, vq_entry, fwd_entry,
                                   fwdgrad_entry]}))

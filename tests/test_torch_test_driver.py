@@ -255,6 +255,9 @@ def test_port_sources_do_not_import_the_jax_package():
     assert len(paths) > 40
     assert any(p.endswith(os.path.join("pipelines", "gen_geo.py"))
                for p in paths)
+    for name in ("cli.py", os.path.join("interop", "jax_ckpt.py")):
+        assert any(p.endswith(os.path.join("vqnerf_release_torch", name))
+                   for p in paths), name
     banned = {"jax", "jaxlib", "optax", "orbax", "cv2", "vqnerf_release_tpu"}
     for path in paths:
         with open(path) as f:

@@ -54,7 +54,7 @@ from ..utils.vis import vis_view
 from . import decomp_trainer as dt
 
 __all__ = ["train_nfr_unit", "train_vq_nfr", "train_ref_nfr", "save_metas",
-           "elbow_select", "cfg_ckpt_period"]
+           "elbow_select", "cfg_ckpt_period", "phase_model"]
 
 # Full-view validation forwards pass the WHOLE view (background rows too)
 # through the model; at 512 lights the [N, L, 3] BRDF temporaries of a
@@ -242,6 +242,27 @@ def _restore_rng(state, rng, gen=None):
 
 def _keep(cfg):
     return cfg.keep_recent_epochs if cfg.keep_recent_epochs > 0 else None
+
+
+def phase_model(cfg: dc.DecompConfig, kind, vq=None, light=None):
+    """The blank model of a phase ("nfr_unit", "vq_nfr" or "ref_nfr") as
+    its trainer builds it, on the CPU, to ``load_state_dict`` a checkpoint
+    into: its parameters are in the order that the checkpoint's optimizer
+    state follows. A RefNfr is built on ``vq`` (a VqNfr; a blank one when
+    None) and ``light`` [Lh, Lw, 3] (zeros when None)."""
+    gen = torch.Generator().manual_seed(cfg.random_seed)
+    if kind == "nfr_unit":
+        return init_nfr_unit(gen, cfg)
+    if kind == "vq_nfr":
+        centers = np.zeros((cfg.num_embed, cfg.z_dim), np.float32)
+        return init_vq_nfr(gen, cfg, init_nfr_unit(gen, cfg), centers)[0]
+    if kind == "ref_nfr":
+        if vq is None:
+            vq = phase_model(cfg, "vq_nfr")
+        if light is None:
+            light = np.zeros(cfg.light_res + (3,), np.float32)
+        return init_ref_nfr(gen, cfg, vq, torch.as_tensor(light).cpu())
+    raise ValueError(f"unknown phase {kind!r}")
 
 
 def train_nfr_unit(cfg: dc.DecompConfig, train_views, vali_views, outdir,
