@@ -73,7 +73,8 @@ fast-vis shadow pass.)
    inputs taken from the trained models:
      fused_brdf_render: a 49,152-ray chunk of a view with lvis, 1,000 rays
        without lvis, and the chunk again with lvis 4 bytes off a 16-byte
-       boundary and with 510 lights (both must run the scalar instance);
+       boundary and with 510 lights (both must run the scalar instance),
+       and a whole 512x512 view in one call (as apply_edit launches it);
        rtol 2e-4, atol 1e-5 (a 512-term fp32 sum taken in another order),
        and the fused vq_fast_render against the eager;
      vq_fused_train: N = 2,048, 65,536 and a ragged 1,000 rows of a train
@@ -124,13 +125,37 @@ fast-vis shadow pass.)
    atol 1e-5 of the directly served one; last, `python -m
    vqnerf_release_torch.cli test` in a fresh process exits 0 and writes the
    same files;
-11. prints the pass times, peak device memory of each path, each
+11. edits and renders video ("edit and video"; every kernel's launch
+   count set to 0 just before each step and read just after, each step's
+   seconds and peak memory printed): right after step 5, apply_edit with
+   MATERIAL_DB["gold"] on the 2 served 512x512 views, a view a call, inside
+   the segment of the pd_vq pass's most common code with its right half
+   erased, under the learned light and under a probe of step 3 (kernel 1
+   launched, every launch of the 16-byte instance; outside the mask every
+   map and the rgb PNG equal an unedited render's bit for bit, and so do
+   the rgb tensors of both renders; inside, albedo, spec and rough are
+   gold's exactly; every array finite); one edit_server_loop round in a
+   thread, driven by submit_edit and wait_finished; the web UI on a
+   loopback port, a GET of a view and a POST of a painted mask that comes
+   back as painted. After step 10, on its scene and trained tree: a
+   trajectory of VIDEO_FRAMES frames (transforms_test.json), geo-video at
+   its defaults (kernels 3 and 4 launched; each frame's 8 files and
+   metadata finite), gen-video in the five modes with the probes and an
+   edit workspace written with edit_client (kernel 1 in recon, gen_comps,
+   edit and vq_dcomps, none in relight, whose probes take the plain
+   path; video.avi of recon and gen_comps held to its header's frame
+   count, size and rate), and `python -m vqnerf_release_torch.cli
+   edit-server` as a subprocess (SERVER_LAUNCHER), sent one edit, waited
+   for and terminated, which reports its own launch counts and peak memory
+   (kernel 1 launched, every launch of the 16-byte instance);
+12. prints the pass times, peak device memory of each path, each
    subcommand's seconds, the script's total, a {"kernels": [...]} line with
    all four kernels (each with ms, device_ms, plain_ms, bound_ms; kernel
    3's launches are those of NeuS training and extraction, given apart on
    an earlier line; cli_launches, the launches of step 10, and
-   cli_launches_by_subcommand), and as the last line {"ok": true,
-   "device": {...}}.
+   cli_launches_by_subcommand; edit_video_launches and
+   edit_video_launches_by_step, those of step 11), and as the last line
+   {"ok": true, "device": {...}}.
 
 Cuts, all of scale and none of width: 4 train views and 1 validation view
 in place of a scene's 100 and 8, 2 epochs in place of 150, 2 served views;
@@ -139,7 +164,9 @@ for stage 1 6 train views and 1 val view of 256x256 in place of a scene's
 300,000, with the warm-up cut in proportion and the checkpoint, validation
 and mesh at the last step; for the command line 3 train views and 1 val
 view of 128x128, CLI_GEO_ITERS geometry steps, 1 epoch a phase and a VQ
-evaluation set of CLI_VQ_SAMPLES rows, printed in its "cli cuts" line.
+evaluation set of CLI_VQ_SAMPLES rows, printed in its "cli cuts" line; for
+video VIDEO_FRAMES trajectory frames of 128x128 in place of a test
+trajectory's 200 or more, and 2 edited views.
 
 Any failure raises and exits non-zero; without CUDA it exits 1 before doing
 anything.
@@ -152,6 +179,7 @@ import json
 import math
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -181,7 +209,8 @@ from vqnerf_release_torch.data.neus_dataset import NerfSceneDataset
 from vqnerf_release_torch.interop import jax_ckpt
 from vqnerf_release_torch.interop import jax_params
 from vqnerf_release_torch.ops.vq import VqEmaState, vq_lookup
-from vqnerf_release_torch.pipelines import gen_geo
+from vqnerf_release_torch.pipelines import (edit, edit_client, edit_web,
+                                            gen_geo)
 from vqnerf_release_torch.pipelines.test_driver import (_RAY_CHUNK, find_vq,
                                                          load_novel_lights,
                                                          run_test)
@@ -251,7 +280,33 @@ CLI_TRAIN_VIEWS, CLI_VAL_VIEWS = 3, 1
 CLI_EYE_DIST = 4.0
 CLI_GEO_ITERS = 100
 CLI_VQ_SAMPLES = 20_000  # total_sample_vq, 200,000 in the preset
-CLI_TIMEOUT_S = 600  # the python -m subprocess
+CLI_TIMEOUT_S = 600  # the python -m subprocesses
+# the "edit and video" phase: the trajectory's frames, and the time an edit
+# round may take
+VIDEO_FRAMES = 4
+# `python -m vqnerf_release_torch.cli` as the edit server's process runs it
+# (runpy, run_name "__main__"), which on SIGTERM exits and writes its own
+# kernel launch counts and peak device memory to the JSON file named by its
+# first argument: the parent's counters cannot see that process.
+SERVER_LAUNCHER = """
+import json, runpy, signal, sys
+import torch
+from vqnerf_release_torch.kernels import render, sdf, vq
+report = sys.argv.pop(1)
+def stop(signum, frame):
+    raise SystemExit(0)
+signal.signal(signal.SIGTERM, stop)
+try:
+    runpy.run_module("vqnerf_release_torch.cli", run_name="__main__",
+                     alter_sys=True)
+finally:
+    with open(report, "w") as f:
+        json.dump({"launches": {"fused_brdf_render": render.LAUNCHES,
+                                "vq_fused_train": vq.LAUNCHES, **sdf.LAUNCHES},
+                   "render_instances": render.LAUNCHES_BY_INSTANCE,
+                   "peak_bytes": torch.cuda.max_memory_allocated()}, f)
+"""
+EDIT_TIMEOUT_S = 300
 # peaks of one H100 SXM: HBM bytes/s, fp32 operations/s outside the tensor
 # cores (kernels 1 and 2, and the earlier design of kernels 3 and 4), and
 # dense TF32 operations/s on the tensor cores. Kernels 3 and 4 split every
@@ -930,6 +985,18 @@ def check_render_kernel(vq, cfg, view, lxyz, lareas, device):
               "abs err %.3e" % (what, instance, e))
         err = max(err, e)
     del flat, shifted, fewer
+    # a whole view in one call, as apply_edit and render_video launch it
+    whole = kernel_inputs(vq, cfg, batch, lxyz, lareas)
+    n_view = whole[0].shape[0]
+    before = render_kernel.LAUNCHES_BY_INSTANCE["vector"]
+    e = _compare(render_kernel.fused_brdf_render(*whole),
+                 render_kernel.fused_brdf_render_reference(*whole),
+                 "whole view")
+    if render_kernel.LAUNCHES_BY_INSTANCE["vector"] != before + 1:
+        raise AssertionError("whole view: not the vector instance")
+    print("fused_brdf_render vs plain version, whole view %dx%d (vector "
+          "instance): max abs err %.3e" % (n_view, cfg.n_lights, e))
+    err = max(err, e)
 
     fused = vq_nfr.vq_fast_render(vq, chunk, cfg, lxyz, lareas)
     eager = vq_nfr.vq_fast_render(
@@ -965,6 +1032,22 @@ def check_render_kernel(vq, cfg, view, lxyz, lareas, device):
     print("  the main path's instance (vector, with lvis): %.1f%% of its "
           "issue floor of %.4f ms by device time"
           % (100 * floor_ms / device_ms, floor_ms))
+    view_ms = _time_ms(lambda: render_kernel.fused_brdf_render(*whole))
+    view_device_ms, _ = _device_ms(
+        lambda: render_kernel.fused_brdf_render(*whole))
+    view_plain_ms = _time_ms(
+        lambda: render_kernel.fused_brdf_render_reference(*whole), reps=3)
+    view_bytes = 4 * (n_view * (5 * 3 + 1) + n_view * l + 8 * l + n_view * 3)
+    view_bytes_ms = 1e3 * view_bytes / HBM_BYTES_PER_S
+    view_ops_ms = 1e3 * 60 * n_view * l / FP32_OPS_PER_S
+    view_bound_ms = max(view_bytes_ms, view_ops_ms)
+    print("fused_brdf_render at a whole view, %d rays x %d lights: %.4f ms "
+          "a call (events), %.4f ms of device time; plain version %.4f ms; "
+          "bound %.4f ms (%d bytes): %.1f%% of it by device time"
+          % (n_view, l, view_ms, view_device_ms, view_plain_ms,
+             view_bound_ms, view_bytes,
+             100 * view_bound_ms / view_device_ms))
+    del whole
     return {
         "name": "fused_brdf_render", "route": "cuda",
         "source": "vqnerf_release_torch/csrc/render_kernel.cu",
@@ -975,6 +1058,11 @@ def check_render_kernel(vq, cfg, view, lxyz, lareas, device):
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "issue_floor_ms": floor_ms,
         "library_ms": None,  # no single PyTorch call computes it
+        "whole_view": {"rays": n_view, "ms": view_ms,
+                       "device_ms": view_device_ms, "plain_ms": view_plain_ms,
+                       "bound_ms": view_bound_ms,
+                       "bound_by": ("bytes" if view_bytes_ms >= view_ops_ms
+                                    else "operations")},
     }
 
 
@@ -1839,13 +1927,19 @@ def _launch_counts():
             "sdf_fwdgrad": sdf_kernel.LAUNCHES["sdf_fwdgrad"]}
 
 
-def _run_cli(argv):
-    """cli.main(argv) with every kernel's launch count set to 0 just before
-    and read just after; returns (seconds, launches)."""
+def _reset_counts():
     render_kernel.LAUNCHES = 0
+    for key in render_kernel.LAUNCHES_BY_INSTANCE:
+        render_kernel.LAUNCHES_BY_INSTANCE[key] = 0
     vq_kernel.LAUNCHES = 0
     for key in sdf_kernel.LAUNCHES:
         sdf_kernel.LAUNCHES[key] = 0
+
+
+def _run_cli(argv):
+    """cli.main(argv) with every kernel's launch count set to 0 just before
+    and read just after; returns (seconds, launches)."""
+    _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cli.main(argv)
@@ -2064,6 +2158,459 @@ def cli_phase(root, env_dir, device="cuda"):
     return launches, seconds
 
 
+# ---- edit and video ---------------------------------------------------------
+
+
+def _step(name, fn, steps):
+    """fn() with every kernel's launch count set to 0 just before and read
+    just after; its seconds (synchronised) and peak device memory go into
+    ``steps[name]``. Returns fn's result."""
+    _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    steps[name] = {"seconds": time.perf_counter() - t0,
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "launches": _launch_counts(),
+                   "render_instances": dict(
+                       render_kernel.LAUNCHES_BY_INSTANCE)}
+    print("edit/video %s: %.3f s, peak %.3f GiB, kernel launches %s"
+          % (name, steps[name]["seconds"], steps[name]["peak_bytes"] / 2**30,
+             steps[name]["launches"]), flush=True)
+    return out
+
+
+def _assert_vector_render(step, name):
+    n = step["launches"]["fused_brdf_render"]
+    if n <= 0 or step["render_instances"] != {"vector": n, "scalar": 0}:
+        raise AssertionError(f"{name}: render kernel launches {n}, by "
+                             f"instance {step['render_instances']}; every "
+                             "launch must be of the 16-byte instance")
+
+
+def _most_common_code(embed):
+    ids, counts = np.unique(embed[embed > 0], return_counts=True)
+    if not len(ids):
+        raise AssertionError("the pd_vq embed map has no foreground code")
+    return int(ids[np.argmax(counts)])
+
+
+def _check_edit_dirs(edited, plain, masks, views, material):
+    """Outside each view's mask the edited maps and rgb PNG equal the
+    unedited ones bit for bit; inside it (and inside the object) the
+    maps are the material's; every array is finite. Returns the number of
+    edited foreground pixels."""
+    n_inside = 0
+    for i, (ed, pl) in enumerate(zip(edited, plain)):
+        v = views[i]
+        inside = masks[i]
+        fg = v.alpha.reshape(v.h, v.w) > 0
+        names = sorted(os.listdir(ed))
+        if names != sorted(os.listdir(pl)) or "pred_rgb.png" not in names:
+            raise AssertionError(f"apply_edit wrote {names} and {pl}")
+        for name in names:
+            if name.endswith(".npy"):
+                a = np.load(os.path.join(pl, name))
+                b = np.load(os.path.join(ed, name))
+                if not np.isfinite(b).all():
+                    raise AssertionError(f"non-finite {ed}/{name}")
+                if not np.array_equal(b[~inside], a[~inside]):
+                    raise AssertionError(
+                        f"{ed}/{name} differs from the unedited render "
+                        "outside the mask")
+            elif name.endswith(".png"):
+                a = vio.read_png(os.path.join(pl, name))
+                b = vio.read_png(os.path.join(ed, name))
+                if not np.array_equal(b[~inside], a[~inside]):
+                    raise AssertionError(
+                        f"{ed}/{name} differs from the unedited render "
+                        "outside the mask")
+        sel = inside & fg
+        n_inside += int(sel.sum())
+        for key in ("diff", "spec", "rough"):
+            name = {"diff": "albedo", "spec": "spec", "rough": "rough"}[key]
+            got = np.load(os.path.join(ed, "pred_%s.npy" % name))[sel]
+            want = np.broadcast_to(np.float32(material[key]), got.shape)
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{ed}/pred_{name}.npy inside the mask: "
+                    f"{np.unique(got)[:5]} for {material[key]}")
+    return n_inside
+
+
+def _rgb_outside_mask(ref, vq, cfg, view, mask, probe, device):
+    """The rgb of the two renders apply_edit makes (ref_fast_render without
+    a probe, vq_fast_render with one), edited and unedited, equal outside
+    the mask bit for bit as tensors. Not on the main path."""
+    from vqnerf_release_torch.models.ref_nfr import ref_fast_render
+    lxyz, lareas = dc.light_constants(cfg, device)
+    b = {k: torch.as_tensor(x, dtype=torch.float32, device=device)
+         for k, x in view.as_batch().items()}
+    b_vq = {k: x for k, x in b.items() if k != "ref"}
+    em = torch.as_tensor(mask.reshape(-1, 1), dtype=torch.float32,
+                         device=device)
+    gold = edit_client.MATERIAL_DB["gold"]
+    out = {}
+    with torch.inference_mode():
+        for what, fn in (
+                ("ref_fast_render", lambda m: ref_fast_render(
+                    ref, b, cfg, lxyz, lareas, edit_mask=m,
+                    edit_material=gold)["rgb"]),
+                ("vq_fast_render with a probe", lambda m: vq_nfr.vq_fast_render(
+                    vq, b_vq, cfg, lxyz, lareas, edit_mask=m,
+                    edit_material=gold, dst_env=probe)["rgb"])):
+            edited, plain = fn(em), fn(torch.zeros_like(em))
+            keep = em[:, 0] == 0
+            if not torch.equal(edited[keep], plain[keep]):
+                raise AssertionError(f"{what}: the edited rgb differs "
+                                     "outside the mask")
+            out[what] = int((edited[~keep] != plain[~keep]).any(-1).sum())
+    return out
+
+
+def _http(port, path, body=None):
+    import urllib.request
+    data = json.dumps(body).encode() if body is not None else None
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", data=data,
+                                timeout=60) as r:
+        payload = r.read()
+        return (json.loads(payload)
+                if "json" in r.headers.get("Content-Type", "") else payload)
+
+
+def edit_phase(cfg, vq, ref, ds, serve_root, env_dir, root, device):
+    """Material editing at serving's full width, on the trained models and
+    the served val views (512x512 x 512 lights): apply_edit with gold
+    inside the segment of the pd_vq pass's most common code, under the
+    learned light and under a probe; one edit_server_loop round driven by
+    the client; the web UI's GET and POST on a loopback port. Returns the
+    steps' seconds, peak memory and launches."""
+    import base64
+    import threading
+
+    views = [ds.load_view(f) for f in ds.files]
+    pd_vq = os.path.join(serve_root, "pd_vq")
+    embeds = [np.load(os.path.join(pd_vq, "batch%09d" % i, "pred_embed.npy"))
+              for i in range(len(views))]
+    code = _most_common_code(embeds[0])
+    # the segment with its right half erased, as a user erases in the UI:
+    # the object's rays then lie on both sides of the mask
+    masks = [edit_client.auto_select_mask(e, code)
+             & (np.arange(e.shape[1]) < e.shape[1] // 2)[None, :]
+             for e in embeds]
+    flat = [m.reshape(-1, 1).astype(np.float32) for m in masks]
+    probe_names, probes, _, _ = load_novel_lights(env_dir, cfg.light_h)
+    gold = edit_client.MATERIAL_DB["gold"]
+    out = os.path.join(root, "edit")
+    steps = {}
+    print("edit and video cuts: the %d served views edited (a scene serves "
+          "8 or more); %d trajectory frames of %dx%d for a test "
+          "trajectory's 200 or more; every width the preset's"
+          % (len(views), VIDEO_FRAMES, CLI_IMH, CLI_IMH), flush=True)
+    print("edit: gold inside code %d of pd_vq, its right half erased (%s "
+          "pixels), on %d views of %dx%d x %d lights, a view a call"
+          % (code, [int(m.sum()) for m in masks], len(views), views[0].h,
+             views[0].w, cfg.n_lights), flush=True)
+    for env, tag in ((None, "learned light"), (probe_names[0],
+                                               "probe " + probe_names[0])):
+        name = "apply_edit gold, " + tag
+        edited = _step(name, lambda: edit.apply_edit(
+            ref, vq, cfg, views, gold, flat,
+            os.path.join(out, tag, "edited"), dst_env_name=env,
+            novel_probes=probes, probe_names=probe_names, device=device),
+            steps)
+        _assert_vector_render(steps[name], name)
+        plain = edit.apply_edit(
+            ref, vq, cfg, views, gold, [np.zeros_like(m) for m in flat],
+            os.path.join(out, tag, "plain"), dst_env_name=env,
+            novel_probes=probes, probe_names=probe_names, device=device)
+        n_in = _check_edit_dirs(edited, plain, masks, views, gold)
+        print("edit %s: outside the mask every map and the rgb PNG equal "
+              "the unedited render's bit for bit; inside (%d foreground "
+              "pixels) albedo, spec and rough are gold's exactly"
+              % (tag, n_in), flush=True)
+    changed = _rgb_outside_mask(
+        ref, vq, cfg, views[0], masks[0],
+        torch.as_tensor(probes[0], dtype=torch.float32, device=device),
+        device)
+    print("edit: rgb tensors of view 0 equal the unedited ones outside the "
+          "mask, bit for bit; changed inside: %s" % changed, flush=True)
+
+    # one round of the server, in a thread, driven by the client
+    srv = os.path.join(out, "server")
+    edit_client.submit_edit(srv, "gold", masks, env="original")
+    rounds = []
+
+    def serve():
+        rounds.append(edit.edit_server_loop(
+            ref, vq, cfg, views, srv, novel_probes=probes,
+            probe_names=probe_names, poll_interval=0.05, max_rounds=1,
+            device=device))
+
+    def server_round():
+        th = threading.Thread(target=serve, name="edit-server")
+        th.start()
+        done = edit_client.wait_finished(srv, timeout=EDIT_TIMEOUT_S,
+                                         poll=0.05)
+        th.join(timeout=EDIT_TIMEOUT_S)
+        if th.is_alive() or rounds != [1]:
+            raise AssertionError(f"edit_server_loop: rounds {rounds}")
+        return done
+
+    done = _step("edit_server_loop round", server_round, steps)
+    _assert_vector_render(steps["edit_server_loop round"],
+                          "edit_server_loop")
+    same = _files(done) == _files(os.path.join(out, "learned light",
+                                               "edited"))
+    n_equal = sum(
+        open(os.path.join(done, f), "rb").read()
+        == open(os.path.join(out, "learned light", "edited", f), "rb").read()
+        for f in _files(done)) if same else 0
+    if not same:
+        raise AssertionError(f"the server wrote {_files(done)}")
+    print("edit server: status uploaded -> finished, %d of %d files equal "
+          "byte for byte to apply_edit's" % (n_equal, len(_files(done))))
+
+    # the web UI: a GET of a view and a POST of a painted mask
+    ui = os.path.join(out, "ui")
+
+    def web_ui():
+        httpd = edit_web.serve_edit_ui(ui, pd_vq, port=0,
+                                       envs=["original"] + probe_names[:1],
+                                       serve_forever=False)
+        th = threading.Thread(target=httpd.serve_forever, name="edit-ui")
+        th.start()
+        try:
+            port = httpd.server_address[1]
+            info = _http(port, "/api/views")
+            if info["views"] != list(range(len(views))):
+                raise AssertionError(f"/api/views: {info}")
+            page = vio.decode_png(_http(port, "/view/0/embed_map.png"))
+            if page.shape != (views[0].h, views[0].w, 3):
+                raise AssertionError(f"embed_map.png of {page.shape}")
+            h, w = views[0].h, views[0].w
+            yy, xx = np.mgrid[:h, :w]
+            painted = ((yy - 0.4 * h) ** 2 + (xx - 0.6 * w) ** 2
+                       < (0.12 * h) ** 2)
+            rgba = np.zeros(painted.shape + (4,), np.uint8)
+            rgba[painted] = (255, 0, 255, 255)
+            url = "data:image/png;base64," + base64.b64encode(
+                vio.encode_png(rgba)).decode()
+            said = _http(port, "/api/mask", {"view": 0, "mask_png": url})
+            if said != {"count": int(painted.sum())}:
+                raise AssertionError(f"/api/mask: {said}")
+            _http(port, "/api/submit", {"material": "gold",
+                                        "env": "original"})
+            got = np.load(os.path.join(ui, "edited", "batch%09d.npy" % 0))
+            if not np.array_equal(got, painted):
+                raise AssertionError("the submitted mask is not the "
+                                     "painted one")
+            return int(painted.sum())
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=60)
+
+    n = _step("web UI GET + POST", web_ui, steps)
+    print("edit UI: GET /api/views and /view/0/embed_map.png, POST "
+          "/api/mask of a painted disc (%d pixels) decoded to it, POST "
+          "/api/submit wrote it" % n, flush=True)
+    return steps
+
+
+def write_trajectory(data_root, n_frames):
+    """transforms_test.json: n_frames cameras of the "cli" scene's circle
+    at CLI_EYE_DIST, each between two train cameras, at CLI_IMH."""
+    tj = vio.read_json(os.path.join(data_root, "transforms_train.json"))
+    frames = []
+    for i in range(n_frames):
+        ang = 2 * np.pi * (i + 0.25) / n_frames
+        eye = CLI_EYE_DIST * np.array([np.sin(ang), 0.15, np.cos(ang)])
+        fwd = -eye / np.linalg.norm(eye)
+        right = np.cross(fwd, [0.0, 1.0, 0.0])
+        right /= np.linalg.norm(right)
+        c2w = np.eye(4)
+        c2w[:3, 0], c2w[:3, 1] = right, np.cross(right, fwd)
+        c2w[:3, 2], c2w[:3, 3] = -fwd, eye
+        frames.append({"transform_matrix": c2w.tolist()})
+    vio.write_json({"camera_angle_x": tj["camera_angle_x"],
+                    "frames": frames},
+                   os.path.join(data_root, "transforms_test.json"))
+
+
+def avi_header(path):
+    """(frames, width, height, fps) of an AVI of uncompressed 24-bit DIB
+    frames, from its avih and strf headers; raises unless the file holds
+    exactly that many frame chunks of that size."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        raise AssertionError(f"{path}: not a RIFF AVI file")
+    a = data.index(b"avih") + 8
+    usec, _, _, _, n = struct.unpack("<5I", data[a:a + 20])
+    s = data.index(b"strf") + 8
+    _, w, h, _, bits, comp = struct.unpack("<IiiHHI", data[s:s + 20])
+    size = ((3 * w + 3) & ~3) * abs(h)
+    i = data.rindex(b"idx1") + 4
+    (index,) = struct.unpack("<I", data[i:i + 4])
+    if (bits, comp, index) != (24, 0, 16 * n) or data.count(
+            b"00db" + struct.pack("<I", size)) != n:
+        raise AssertionError(f"{path}: {bits}-bit frames, compression "
+                             f"{comp}, an index of {index} B, not {n} "
+                             f"frame chunks of {size} B")
+    return n, w, abs(h), round(1e6 / usec)
+
+
+def video_cli_phase(root, env_dir, device):
+    """The video and edit subcommands on the "cli" phase's scene and
+    trained tree: geo-video at its defaults on a trajectory of
+    VIDEO_FRAMES, gen-video in each of the five modes (the probes, and an
+    edit workspace of dst.json and test_NNN.npy masks written with
+    edit_client), and `python -m vqnerf_release_torch.cli edit-server` as a
+    subprocess, sent one edit and terminated, its step the launches and
+    peak memory that the subprocess reports. Returns the steps."""
+    data_root = os.path.join(root, "cli", "data", "nfr_blender", GEO_SCENE)
+    out = os.path.join(root, "cli", "output")
+    dev = ["--device", str(device)]
+    common = ["--data-root", data_root, "--output-root", out, *dev]
+    write_trajectory(data_root, VIDEO_FRAMES)
+    steps = {}
+    _step("geo-video", lambda: cli.main(["geo-video", GEO_SCENE, *common]),
+          steps)
+    n = steps["geo-video"]["launches"]
+    if min(n["sdf_fwd"], n["sdf_fwdgrad"]) <= 0:
+        raise AssertionError(f"geo-video launched {n}")
+    video_root = os.path.join(vcfg.surf_dir(os.path.join(out, "surf"),
+                                            GEO_SCENE), "video")
+    frames = ["test_%03d" % i for i in range(VIDEO_FRAMES)]
+    if sorted(os.listdir(video_root)) != frames or not all(
+            gen_geo.check_finished(os.path.join(video_root, f))
+            and os.path.exists(os.path.join(video_root, f, "metadata.json"))
+            for f in frames):
+        raise AssertionError(f"geo-video wrote {_files(video_root)}")
+    n_arrays = _check_finite_npy(video_root)
+    print("geo-video: %d frames of %dx%d, all 8 files and metadata.json, "
+          "%d arrays finite" % (VIDEO_FRAMES, CLI_IMH, CLI_IMH, n_arrays))
+
+    ref_out = vcfg.train_outdir(out, GEO_SCENE, "ref_nfr")
+    video = ["gen-video", GEO_SCENE, *common, "--video-root", video_root,
+             "--preset-override", "imh=%d" % CLI_IMH, "--test-envmap-dir",
+             env_dir]
+    n_vq = find_vq(os.path.join(vcfg.train_outdir(out, GEO_SCENE, "vq_nfr"),
+                                "vis_vali", "epoch%09d" % 1))
+    _step("gen-video gen_comps", lambda: cli.main(
+        [*video, "--mode", "gen_comps", "--n-vq", str(n_vq)]), steps)
+    comps = os.path.join(ref_out, "vis_video", "gen_comps")
+    embeds = [np.load(os.path.join(comps, "batch%09d" % i, "pred_embed.npy"))
+              for i in range(VIDEO_FRAMES)]
+    code = _most_common_code(embeds[0])
+    edit_root = os.path.join(root, "video_edit")
+    vio.write_json(edit_client.MATERIAL_DB["gold"],
+                   os.path.join(edit_root, "dst.json"))
+    for i, e in enumerate(embeds):
+        m = edit_client.auto_select_mask(e, code, dilate=1)
+        np.save(os.path.join(edit_root, "test_%03d.npy" % i),
+                np.repeat(m[..., None], 3, axis=-1))
+    modes = {"recon": [], "relight": [], "vq_dcomps": ["--n-vq", str(n_vq)],
+             "edit": ["--edit-root", edit_root, "--dst-env", "probe00"]}
+    for mode, extra in modes.items():
+        _step("gen-video " + mode,
+              lambda: cli.main([*video, "--mode", mode, *extra]), steps)
+    for mode in ("recon", "gen_comps", "edit", "vq_dcomps", "relight"):
+        name = "gen-video " + mode
+        n = steps[name]["launches"]["fused_brdf_render"]
+        # the ref_fast_render of recon and gen_comps and the vq_fast_render
+        # of edit and vq_dcomps take the kernel; relight's probes do not
+        if mode == "relight":
+            if n:
+                raise AssertionError(f"{name} launched the render kernel")
+        else:
+            _assert_vector_render(steps[name], name)
+        d = os.path.join(ref_out, "vis_video", mode)
+        if sorted(f for f in os.listdir(d) if f.startswith("batch")) != \
+                ["batch%09d" % i for i in range(VIDEO_FRAMES)]:
+            raise AssertionError(f"{name} wrote {os.listdir(d)}")
+        n_arrays = _check_finite_npy(d)
+        if mode in ("recon", "gen_comps"):
+            got = avi_header(os.path.join(d, "video.avi"))
+            if got != (VIDEO_FRAMES, CLI_IMH, CLI_IMH, 24):
+                raise AssertionError(f"{name}: video.avi of (frames, width, "
+                                     f"height, fps) {got}")
+        print("%s: %d frames, %d arrays finite%s" % (
+            name, VIDEO_FRAMES, n_arrays,
+            ", video.avi's header: %d frames of %dx%d at 24 fps"
+            % (VIDEO_FRAMES, CLI_IMH, CLI_IMH)
+            if mode in ("recon", "gen_comps") else ""), flush=True)
+
+    # the edit server from a shell, sent one edit, then terminated
+    ws = os.path.join(root, "server_ws")
+    test_dir = os.path.join(ref_out, "vis_test", "latest", "pd_vq",
+                            "batch%09d" % 0)
+    emb = np.load(os.path.join(test_dir, "pred_embed.npy"))
+    cfg, _ = vcfg.decomp_config_for_scene(GEO_SCENE)
+    k = cfg.imh // emb.shape[0]  # the server loads the preset's 512x512
+    mask = edit_client.auto_select_mask(
+        np.repeat(np.repeat(emb, k, axis=0), k, axis=1),
+        _most_common_code(emb))
+
+    report = os.path.join(root, "edit_server_launches.json")
+
+    def server_subprocess():
+        proc = subprocess.Popen(
+            [sys.executable, "-c", SERVER_LAUNCHER, report, "edit-server",
+             GEO_SCENE, *common, "--root", ws, "--test-envmap-dir", env_dir],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            edit_client.submit_edit(ws, "gold", [mask], env="probe00")
+            t0 = time.perf_counter()
+            while True:
+                status = edit.read_status(os.path.join(ws, "status",
+                                                       "status.json"))
+                if status == {"status": "finished"}:
+                    break
+                if proc.poll() is not None:
+                    raise AssertionError(
+                        f"edit-server exited {proc.returncode}: "
+                        f"{proc.stderr.read()[-2000:]}")
+                if time.perf_counter() - t0 > CLI_TIMEOUT_S:
+                    raise AssertionError("edit-server did not finish")
+                time.sleep(0.1)
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        return proc.returncode
+
+    name = "python -m cli edit-server"
+    t0 = time.perf_counter()
+    rc = server_subprocess()
+    seconds = time.perf_counter() - t0
+    if rc != 0 or not os.path.exists(report):
+        raise AssertionError(f"edit-server exited {rc} on SIGTERM without "
+                             "its launch counts")
+    # the process's own counts and peak memory, from start to SIGTERM
+    steps[name] = dict(vio.read_json(report), seconds=seconds)
+    print("edit/video %s: %.3f s, peak %.3f GiB, kernel launches %s (the "
+          "subprocess's own)" % (name, seconds,
+                                 steps[name]["peak_bytes"] / 2**30,
+                                 steps[name]["launches"]), flush=True)
+    _assert_vector_render(steps[name], name)
+    served = os.path.join(ws, "pd_edited", "batch%09d" % 0)
+    if not os.path.exists(os.path.join(served, "pred_rgb.png")):
+        raise AssertionError(f"edit-server wrote {_files(ws)}")
+    n_arrays = _check_finite_npy(served)
+    print("edit-server (python -m, a subprocess): uploaded -> finished, "
+          "%d arrays finite in pd_edited, terminated (exit %s)"
+          % (n_arrays, rc), flush=True)
+    return steps
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2145,6 +2692,12 @@ def main():
         view = ds.load_view(ds.files[0])
         sys.stdout.flush()
 
+        # ---- editing at serving's width, with the trained models ----------
+        t0 = time.perf_counter()
+        edit_steps = edit_phase(cfg, vq, ref, ds, outroot, paths["env_dir"],
+                                root, device)
+        print("edit phase: %.1f s" % (time.perf_counter() - t0), flush=True)
+
         # ---- stage 1: geometry training, then extraction from it ---------
         neus = neus_train_phase(root, device, profile)
         sys.stdout.flush()
@@ -2179,10 +2732,26 @@ def main():
               % (time.perf_counter() - t0, json.dumps(cli_seconds)),
               flush=True)
 
+        # ---- video and the edit server from the command line --------------
+        t0 = time.perf_counter()
+        edit_steps.update(video_cli_phase(root, paths["env_dir"], device))
+        print("edit and video phase: %.1f s in all, %.1f s of it the video "
+              "and edit-server subcommands; steps %s" % (
+                  sum(st["seconds"] for st in edit_steps.values()),
+                  time.perf_counter() - t0,
+                  json.dumps({k: {"seconds": round(v["seconds"], 3),
+                                  "peak_gib": round(v["peak_bytes"] / 2**30,
+                                                    3)}
+                              for k, v in edit_steps.items()})), flush=True)
+
     for entry in (render_entry, vq_entry, fwd_entry, fwdgrad_entry):
         by_sub = {sub: n[entry["name"]] for sub, n in cli_launches.items()}
         entry["cli_launches"] = sum(by_sub.values())
         entry["cli_launches_by_subcommand"] = by_sub
+        by_step = {step: st["launches"][entry["name"]]
+                   for step, st in edit_steps.items()}
+        entry["edit_video_launches"] = sum(by_step.values())
+        entry["edit_video_launches_by_step"] = by_step
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [render_entry, vq_entry, fwd_entry,
                                   fwdgrad_entry]}))

@@ -1,6 +1,7 @@
 """The port's CLI end to end on the CPU (``--device cpu``), through its
 argparse surface: geo-train -> gen-geo --no-vis -> decomp-train --phase
-all -> test -> gen-z -> reselect-main --dry-run -> ini-train, on a tiny
+all -> test -> gen-z -> reselect-main --dry-run -> ini-train, and
+geo-video --no-vis -> gen-video in the gen_comps and edit modes, on a tiny
 written scene, with the output tree of the JAX CLI checked file by file
 (the pattern of tests/test_cli_e2e.py). Also: ``--device cuda`` without a
 card exits with an error and writes nothing, and gen-geo's multi-device
@@ -187,6 +188,48 @@ def test_debug_flag_runs_one_view(chain, tmp_path):
     state = torch.load(join(dbg, "train", SCENE + "_vq_nfr", "lr5e-4",
                             "checkpoints", "ckpt-1"), weights_only=False)
     assert int(state["ema"].counter) == 1  # one view, one step
+
+
+def test_video_chain(chain, tmp_path):
+    """geo-video on a trajectory of two frames, then gen-video from its
+    tree: gen_comps (stitched into video.avi) and edit (a workspace of
+    dst.json and a mask a frame)."""
+    from tests.test_torch_video import (_decode_with_cv2,
+                                        _write_nerf_trajectory)
+    out, common = chain["out"], chain["common"]
+    _write_nerf_trajectory(chain["data"])
+    main(["geo-video", SCENE, *common, "--no-vis", "--n-samples", "8"])
+    video_root = join(out, "surf", "nerf_surf", SCENE, "video")
+    assert sorted(os.listdir(video_root)) == ["test_000", "test_001"]
+    meta = vio.read_json(join(video_root, "test_000", "metadata.json"))
+    assert "focal" in meta and len(meta["cam_transform_mat"]) == 4
+    assert np.isfinite(np.load(join(video_root, "test_001", "xyz.npy"))).all()
+
+    ref_out = join(out, "train", SCENE + "_ref_nfr", "lr5e-4")
+    video = ["gen-video", SCENE, *common, "--video-root", video_root,
+             "--preset-override", SMALL]
+    main([*video, "--mode", "gen_comps", "--fps", "12"])
+    comps = join(ref_out, "vis_video", "gen_comps")
+    frames, fps = _decode_with_cv2(join(comps, "video.avi"))
+    assert frames.shape == (2, 12, 12, 3) and fps == 12
+    assert os.path.exists(join(comps, "batch000000001", "embed_map.png"))
+
+    edit_root = str(tmp_path / "edited")
+    vio.write_json({"diff": [0.8, 0.1, 0.1], "spec": [-1.0, 0.0, 0.0],
+                    "rough": [0.3]}, join(edit_root, "dst.json"))
+    emask = np.zeros((12, 12, 3), np.float32)
+    emask[4:8, 4:8] = 1.0
+    for i in range(2):
+        np.save(join(edit_root, "test_%03d.npy" % i), emask)
+    main([*video, "--mode", "edit", "--edit-root", edit_root])
+    edit = join(ref_out, "vis_video", "edit", "batch000000000")
+    rough = np.load(join(edit, "pred_rough.npy"))
+    alpha = vio.load_img_f32(join(edit, "gt_alpha.png")) > 0
+    inside = emask[..., 0] > 0
+    np.testing.assert_allclose(rough[inside & alpha], 0.3, rtol=1e-6)
+    assert os.path.exists(join(edit, "pred_rgb.png"))
+    with pytest.raises(SystemExit, match="--edit-root"):
+        main([*video, "--mode", "edit"])
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs no card")

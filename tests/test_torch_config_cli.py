@@ -12,8 +12,8 @@ JAX package's, on the CPU:
   * ``reselect_main`` on a validation directory the test writes: the same
     k and the same moved marker;
   * ``utils/profiling``: the trace written, ``None`` a no-op;
-  * ``scripts/torch_{geo,train,test}.sh``: the JAX scripts' commands on
-    the port's CLI.
+  * ``scripts/torch_{geo,train,test,video}.sh``: the JAX scripts' commands
+    on the port's CLI.
 """
 
 import argparse
@@ -45,7 +45,8 @@ from vqnerf_release_torch.pipelines import gen_z as t_gen_z
 from vqnerf_release_torch.utils import profiling
 
 SUBCOMMANDS = ["geo-train", "gen-geo", "decomp-train", "test", "ini-train",
-               "gen-z", "reselect-main"]
+               "gen-z", "reselect-main", "edit-server", "edit-ui",
+               "gen-video", "geo-video"]
 FAMILY_SCENES = ["lego_3072", "chair0_3072", "dtu_scan24", "colmap_bottle",
                  "rabbit_-1"]
 
@@ -158,9 +159,13 @@ def _surface(main, sub, monkeypatch):
 def test_cli_surface_equals_jax(sub, monkeypatch):
     j_help, j_actions = _surface(j_cli.main, sub, monkeypatch)
     t_help, t_actions = _surface(t_cli.main, sub, monkeypatch)
-    assert t_actions.pop(("--device",))[:2] == ("cuda", False)
+    device = t_actions.pop(("--device",), None)
+    if sub == "edit-ui":  # the web page computes nothing: JAX's options
+        assert device is None
+    else:
+        assert device[:2] == ("cuda", False)
     assert t_actions == j_actions
-    for opts in list(t_actions) + [("--device",)]:
+    for opts in list(t_actions) + [("--device",)] * (device is not None):
         if opts[0].startswith("-"):
             assert all(o in t_help for o in opts), opts
 
@@ -255,7 +260,7 @@ def test_profiling_trace_and_step_timer(tmp_path):
     assert json.load(open(tmp_path / "t" / "steps.json")) == s
 
 
-@pytest.mark.parametrize("name", ["geo", "train", "test"])
+@pytest.mark.parametrize("name", ["geo", "train", "test", "video"])
 def test_shell_scripts_are_the_jax_ones_on_the_port(name):
     """scripts/torch_<name>.sh runs the port's CLI with the arguments and
     defaults of scripts/<name>.sh."""

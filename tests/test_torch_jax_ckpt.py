@@ -12,6 +12,11 @@ Then the port takes the imports as its own: the CLI's loader builds the
 served models from them (strict), ``NeuSRunner.try_resume`` resumes the
 NeuS one, and one resumed epoch of ``train_nfr_unit`` starts from the
 imported epoch with fresh random streams (a JAX checkpoint holds none).
+Last, a vq_nfr and a ref_nfr each one JAX training step past their init,
+checkpointed by the JAX package, are served by the port's ``cli test``
+and by the JAX ``cli test``: every written array within rtol 1e-4 /
+atol 1e-5 and every PNG within 1 LSB, as tests/test_torch_test_driver.py
+holds the two drivers.
 """
 
 import importlib.util
@@ -230,3 +235,98 @@ def test_resumed_epoch_starts_from_the_import_and_follows_jax(tmp_path):
         assert moved[key].shape == start.shape, key
     assert any(not np.array_equal(moved[k], v) for k, v in
                jax_ckpt.flatten_tree(state["params"]).items())
+
+
+def _one_jax_step(kind, cfg, params, seed):
+    """(params, opt_state, ema) after one JAX training step of ``kind``
+    from ``params`` on a seeded batch."""
+    import jax.numpy as jnp
+    from tests.test_torch_models import batch_np
+    from vqnerf_release_tpu.models import decomp_common as j_dc
+    from vqnerf_release_tpu.ops.vq import init_vq_ema_state
+    from vqnerf_release_tpu.train import decomp_trainer as j_dt
+
+    lxyz, lareas = j_dc.light_constants(cfg)
+    batch = {k: jnp.asarray(v) for k, v in
+             batch_np(64, cfg.n_lights, seed=seed).items()}
+    params = jax.tree_util.tree_map(jnp.asarray, params)
+    step = jnp.asarray(0, jnp.float32)
+    if kind == "vq_nfr":
+        tx, fn = j_dt.make_vq_nfr_step(cfg, lxyz, lareas)
+        del batch["ref"]
+        params, ema, opt, _ = fn(
+            params, init_vq_ema_state(cfg.z_dim, cfg.num_embed),
+            tx.init(params), batch, jnp.asarray(cfg.train_thres()),
+            jax.random.PRNGKey(seed), step)
+        return params, opt, ema
+    tx, fn = j_dt.make_ref_nfr_step(cfg, lxyz, lareas)
+    params, opt, _ = fn(params, tx.init(params["train"]), batch, step)
+    return params, opt, None
+
+
+def test_jax_checkpoint_served_by_the_port_as_by_jax(tmp_path):
+    import cv2
+    from vqnerf_release_tpu import cli as j_cli
+    from vqnerf_release_tpu.models.ref_nfr import init_ref_nfr
+
+    data_root, surf_root = _make_synth_scene(
+        str(tmp_path / "data" / "nfr_blender"), n_val=1)  # one served view
+    rs = np.random.RandomState(3)
+    d = tmp_path / "data" / "vis_comps" / "scene" / "val_000"
+    os.makedirs(d)
+    for name in ("albedo.png", "metal.png"):  # the albedo scale's GT maps
+        cv2.imwrite(str(d / name), (rs.rand(16, 16, 3) * 255).astype(
+            np.uint8))
+    env_dir = str(tmp_path / "envs")
+    os.makedirs(env_dir)
+    cv2.imwrite(join(env_dir, "city.hdr"),
+                (rs.rand(2, 4, 3) * 3).astype(np.float32))
+    j_cfg, t_cfg = _configs("vq_nfr")
+    from tests.test_torch_models import jax_params
+    _, vq0, _ = jax_params()
+    vq, vq_opt, ema = _one_jax_step("vq_nfr", j_cfg, vq0, 1)
+    light = (rs.rand(*j_cfg.light_res, 3) * 0.5).astype(np.float32)
+    ref0 = init_ref_nfr(0, j_cfg, jax.tree_util.tree_map(np.asarray, vq),
+                        light)
+    ref, ref_opt, _ = _one_jax_step("ref_nfr", j_cfg, ref0, 2)
+    states = {"vq_nfr": {"params": vq, "ema": ema, "opt_state": vq_opt,
+                         "epoch": 1},
+              "ref_nfr": {"params": ref, "opt_state": ref_opt, "epoch": 1}}
+
+    j_out, t_out = str(tmp_path / "jax_out"), str(tmp_path / "port_out")
+    for kind, state in states.items():
+        j_dir = t_config.train_outdir(j_out, SCENE, kind)
+        j_ckpt.save_ckpt(j_dir, 1, state)
+        npz = str(tmp_path / (kind + ".npz"))
+        EXPORT.export(j_dir, npz, kind, j_cfg)
+        jax_ckpt.import_npz(npz, t_config.train_outdir(t_out, SCENE, kind),
+                            kind, t_cfg)
+    for out in (j_out, t_out):  # the selected code count, main_3
+        os.makedirs(join(t_config.train_outdir(out, SCENE, "vq_nfr"),
+                         "vis_vali", "epoch000000001", "main_3"))
+    common = ["test", SCENE, "--data-root", data_root, "--surf-root",
+              surf_root, "--test-envmap-dir", env_dir, "--preset-override",
+              OVERRIDE]
+    j_cli.main([*common, "--output-root", j_out])
+    t_cli.main([*common, "--output-root", t_out, "--device", "cpu"])
+
+    served = [join(t_config.train_outdir(out, SCENE, "ref_nfr"), "vis_test",
+                   "latest") for out in (j_out, t_out)]
+    files = sorted(os.path.relpath(join(d, n), served[0])
+                   for d, _, names in os.walk(served[0]) for n in names)
+    assert len(files) > 30 and any("pd_relit" in f for f in files)
+    got = sorted(os.path.relpath(join(d, n), served[1])
+                 for d, _, names in os.walk(served[1]) for n in names)
+    assert got == files
+    for f in files:
+        jp, tp = join(served[0], f), join(served[1], f)
+        if f.endswith(".npy"):
+            np.testing.assert_allclose(np.load(tp), np.load(jp), rtol=1e-4,
+                                       atol=1e-5, err_msg=f)
+        elif f.endswith(".png"):
+            want = cv2.imread(jp, cv2.IMREAD_UNCHANGED).astype(int)
+            have = cv2.imread(tp, cv2.IMREAD_UNCHANGED).astype(int)
+            assert have.shape == want.shape, f
+            assert np.abs(have - want).max() <= 1, f
+        else:
+            assert json.load(open(tp)) == json.load(open(jp)), f

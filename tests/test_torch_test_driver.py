@@ -247,7 +247,7 @@ def test_port_runs_without_jax_or_cv2():
 
 def test_port_sources_do_not_import_the_jax_package():
     """No file of the port, nor chip_smoke.py, has an import of jax, optax,
-    orbax, cv2 or the JAX package."""
+    orbax, cv2, PIL, imageio or the JAX package."""
     import ast
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(REPO, "vqnerf_release_torch")):
@@ -255,10 +255,15 @@ def test_port_sources_do_not_import_the_jax_package():
     assert len(paths) > 40
     assert any(p.endswith(os.path.join("pipelines", "gen_geo.py"))
                for p in paths)
-    for name in ("cli.py", os.path.join("interop", "jax_ckpt.py")):
+    for name in ("cli.py", os.path.join("interop", "jax_ckpt.py"),
+                 os.path.join("pipelines", "edit.py"),
+                 os.path.join("pipelines", "edit_client.py"),
+                 os.path.join("pipelines", "edit_web.py"),
+                 os.path.join("pipelines", "gen_video.py")):
         assert any(p.endswith(os.path.join("vqnerf_release_torch", name))
                    for p in paths), name
-    banned = {"jax", "jaxlib", "optax", "orbax", "cv2", "vqnerf_release_tpu"}
+    banned = {"jax", "jaxlib", "optax", "orbax", "cv2", "PIL", "imageio",
+              "vqnerf_release_tpu"}
     for path in paths:
         with open(path) as f:
             tree = ast.parse(f.read())

@@ -10,15 +10,22 @@ defaults and output tree:
   * ini-train               one phase from a reference-format INI
   * gen-z         <scene>   nfr_unit material maps (pipelines/gen_z.py)
   * reselect-main <scene>   the elbow selection again (pipelines/gen_main.py)
+  * edit-server   <scene>   the material-editing server (pipelines/edit.py)
+  * edit-ui                 its browser frontend (pipelines/edit_web.py)
+  * gen-video     <scene>   a trajectory rendered in one of five modes
+                            (pipelines/gen_video.py)
+  * geo-video     <scene>   the trajectory's geometry buffers
 
     python -m vqnerf_release_torch.cli <subcommand> ... [--device cuda]
 
 Paths: --data-root (scene data) and --output-root (./output), under which
 the tree is exp/<scene>/<family>/checkpoints (geometry),
-surf/<family>_surf/<scene>/<view> (buffers) and
-train/<scene>_<model>/lr5e-4 (each phase). Every subcommand runs on
---device, "cuda" unless it says otherwise, and exits with an error when
-that device is not there: nothing falls back to the CPU. Checkpoints are
+surf/<family>_surf/<scene>/<view> (buffers),
+surf/<family>_surf/<scene>/video/test_NNN (trajectory buffers) and
+train/<scene>_<model>/lr5e-4 (each phase). Every subcommand but edit-ui,
+which computes nothing, runs on --device, "cuda" unless it says otherwise,
+and exits with an error when that device is not there: nothing falls back
+to the CPU. Checkpoints are
 the port's ``torch.save`` files (utils/ckpt.py); a checkpoint of the JAX
 package is brought over with ``python -m
 vqnerf_release_torch.interop.jax_ckpt``.
@@ -231,6 +238,17 @@ def _np_light(vq_out):
     return np.load(path) if os.path.exists(path) else None
 
 
+def _served_models(args, cfg):
+    """(vq_nfr, ref_nfr) of the scene's latest checkpoints, on
+    --device."""
+    vq_out = vcfg.train_outdir(args.output_root, args.scene, "vq_nfr")
+    ref_out = vcfg.train_outdir(args.output_root, args.scene, "ref_nfr")
+    vq = _load_phase_model(vq_out, cfg, "vq_nfr", args.device)
+    ref = _load_phase_model(ref_out, cfg, "ref_nfr", args.device, vq=vq,
+                            light=_np_light(vq_out))
+    return vq, ref
+
+
 def _views(data_root, surf_root, cfg, mode, with_ref=False):
     from .data.shape_dataset import ShapeDataset
 
@@ -315,9 +333,7 @@ def cmd_test(args):
         os.path.join(args.output_root, "surf"), args.scene)
     vq_out = vcfg.train_outdir(args.output_root, args.scene, "vq_nfr")
     ref_out = vcfg.train_outdir(args.output_root, args.scene, "ref_nfr")
-    vq = _load_phase_model(vq_out, cfg, "vq_nfr", args.device)
-    ref = _load_phase_model(ref_out, cfg, "ref_nfr", args.device, vq=vq,
-                            light=_np_light(vq_out))
+    vq, ref = _served_models(args, cfg)
 
     epoch_dirs = sorted(
         glob.glob(os.path.join(vq_out, "vis_vali", "epoch*")))
@@ -421,6 +437,134 @@ def cmd_reselect_main(args):
                       apply=not args.dry_run)
     print(f"reselect-main: k={k} ({'dry run' if args.dry_run else 'applied'})"
           f" in {epoch_dir}")
+
+
+def cmd_geo_video(args):
+    """The geometry buffers of every frame of the scene's test trajectory
+    into surf/<family>_surf/<scene>/video/test_NNN/, the tree that
+    gen-video --video-root reads."""
+    from .data.neus_dataset import (DtuSceneDataset, DtuTrajectoryDataset,
+                                    NerfSceneDataset, TrajectoryDataset)
+    from .models.neus import init_neus
+    from .pipelines.gen_geo import GeoExtractor
+    from .pipelines.gen_video import extract_trajectory
+    from .utils import ckpt as ckpt_util
+
+    cfg, tcfg, meta = _geo_cfgs(args, extraction=True)
+    exp_dir = os.path.join(
+        args.output_root, "exp", args.scene, meta["family"])
+    params = init_neus(args.seed or 0, cfg)
+    latest = ckpt_util.latest_ckpt(exp_dir)
+    if latest:
+        params.load_state_dict(ckpt_util.load_ckpt(latest)["params"])
+    if meta["family"] in ("dtu", "ours"):
+        train_ds = DtuSceneDataset(args.data_root, is_train=True,
+                                   new_h=meta["new_h"])
+        traj = DtuTrajectoryDataset(args.data_root, train_ds)
+    else:
+        train_ds = NerfSceneDataset(args.data_root, is_train=True,
+                                    near=meta["near"], far=meta["far"],
+                                    new_h=meta["new_h"])
+        traj = TrajectoryDataset(args.data_root, imh=train_ds.H,
+                                 imw=train_ds.W, near=meta["near"],
+                                 far=meta["far"])
+    out_root = os.path.join(vcfg.surf_dir(
+        os.path.join(args.output_root, "surf"), args.scene), "video")
+    no_vis = args.no_vis or args.scene not in vcfg.CG_SCENES
+    ex = GeoExtractor(params, cfg, traj, out_root,
+                      use_white_bkgd=tcfg.use_white_bkgd,
+                      fast_vis=not no_vis and not args.no_fast_vis,
+                      use_fused_sdf=True if args.pallas else None,
+                      device=args.device)
+    dirs = extract_trajectory(ex, traj, out_root, no_vis=no_vis)
+    print(f"geo-video: {len(dirs)} frames under {out_root}")
+
+
+def cmd_edit_server(args):
+    """The material-editing server over a trained scene: polls
+    <root>/status/status.json until stopped."""
+    from .data.shape_dataset import ShapeDataset
+    from .pipelines.edit import edit_server_loop
+    from .pipelines.test_driver import load_novel_lights
+
+    cfg, _ = vcfg.decomp_config_for_scene(args.scene)
+    surf_root = args.surf_root or vcfg.surf_dir(
+        os.path.join(args.output_root, "surf"), args.scene)
+    vq, ref = _served_models(args, cfg)
+    ds = ShapeDataset(args.data_root, surf_root, data_type=cfg.data_type,
+                      imh=cfg.imh, white_bg=cfg.white_bg, mode="test",
+                      with_ref=True)
+    views = [ds.load_view(f) for f in ds.files]
+    probes = probe_names = None
+    if args.test_envmap_dir:
+        probe_names, probes, _, _ = load_novel_lights(
+            args.test_envmap_dir, cfg.light_h, white_bg=cfg.white_bg)
+    print("edit server: polling", os.path.join(args.root, "status"),
+          flush=True)
+    edit_server_loop(ref, vq, cfg, views, args.root, novel_probes=probes,
+                     probe_names=probe_names, device=args.device)
+
+
+def cmd_edit_ui(args):
+    """The browser frontend of a running edit-server's workspace."""
+    from .pipelines.edit_web import serve_edit_ui
+
+    serve_edit_ui(args.root, args.views_dir, port=args.port,
+                  envs=[e.strip() for e in args.envs.split(",") if e],
+                  host=args.host)
+
+
+def cmd_gen_video(args):
+    """The trajectory that geo-video extracted (--video-root), rendered in
+    one mode into train/<scene>_ref_nfr/lr5e-4/vis_video/<mode>/; recon
+    and gen_comps are also stitched into video.avi there."""
+    from .data import io as vio
+    from .data.shape_dataset import VideoDataset
+    from .pipelines.gen_video import compose_video, render_video
+    from .pipelines.test_driver import load_novel_lights
+
+    cfg, _ = vcfg.decomp_config_for_scene(args.scene)
+    cfg = _apply_preset_overrides(cfg, args.preset_override)
+    vq, ref = _served_models(args, cfg)
+    ds = VideoDataset(args.video_root, data_type=cfg.data_type,
+                      imh=cfg.imh, white_bg=cfg.white_bg)
+    views = [ds.load_view(f) for f in ds.files]
+    probes = probe_names = olats = olat_names = None
+    if args.test_envmap_dir:
+        probe_names, probes, olat_names, olats = load_novel_lights(
+            args.test_envmap_dir, cfg.light_h, white_bg=cfg.white_bg)
+    edit_material = edit_masks = None
+    if args.mode == "edit":
+        # the edit workspace: the edit server's dst.json and a mask a frame
+        if args.edit_root is None:
+            raise SystemExit("--mode edit requires --edit-root "
+                             "(the workspace holding dst.json + "
+                             "test_NNN.npy masks)")
+        edit_material = vio.read_json(os.path.join(args.edit_root,
+                                                   "dst.json"))
+        edit_masks = []
+        for i in range(len(views)):
+            mp = os.path.join(args.edit_root, "test_%03d.npy" % i)
+            if not os.path.exists(mp):
+                raise SystemExit(f"--mode edit: missing mask {mp}")
+            edit_masks.append(np.load(mp).reshape(-1, 3).astype(np.float32))
+        if args.dst_env and args.dst_env != "original" \
+                and probe_names is None:
+            raise SystemExit("--dst-env needs --test-envmap-dir")
+    opt_scale = None
+    if args.opt_scale:
+        opt_scale = [float(x) for x in args.opt_scale.split(",")]
+    ref_out = vcfg.train_outdir(args.output_root, args.scene, "ref_nfr")
+    outroot = os.path.join(ref_out, "vis_video", args.mode)
+    dirs = render_video(
+        args.mode, cfg, views, outroot, ref_model=ref, vq_model=vq,
+        n_vq=args.n_vq, novel_probes=probes, probe_names=probe_names,
+        novel_olat=olats, olat_names=olat_names, opt_scale=opt_scale,
+        edit_material=edit_material, edit_masks=edit_masks,
+        dst_env_name=args.dst_env, device=args.device)
+    if args.mode in ("recon", "gen_comps"):
+        compose_video(dirs, "pred_rgb.png",
+                      os.path.join(outroot, "video.avi"), fps=args.fps)
 
 
 def main(argv=None):
@@ -542,13 +686,72 @@ def main(argv=None):
     p.add_argument("--dry-run", action="store_true")
     p.set_defaults(fn=cmd_reselect_main)
 
-    for p in sub.choices.values():
-        _add_device(p)
+    p = sub.add_parser("edit-server")
+    _add_common(p)
+    p.add_argument("--surf-root", default=None)
+    p.add_argument("--root", required=True,
+                   help="edit workspace (status/ + edited/)")
+    p.add_argument("--test-envmap-dir", default=None)
+    p.set_defaults(fn=cmd_edit_server)
+
+    p = sub.add_parser("edit-ui", help="browser frontend for edit-server")
+    p.add_argument("--root", required=True,
+                   help="edit workspace shared with edit-server")
+    p.add_argument("--views-dir", required=True,
+                   help="test pass with batch%%09d/pred_rgb.png + "
+                        "pred_embed.npy (e.g. .../pd_vq)")
+    p.add_argument("--port", type=int, default=8008)
+    p.add_argument("--host", default="127.0.0.1",
+                   help="bind address; submits trigger server-side compute, "
+                        "so non-loopback exposure must be explicit")
+    p.add_argument("--envs", default="original",
+                   help="comma-separated illumination names the server "
+                        "was started with")
+    p.set_defaults(fn=cmd_edit_ui)
+
+    p = sub.add_parser("gen-video")
+    _add_common(p)
+    p.add_argument("--video-root", required=True)
+    p.add_argument("--mode", default="gen_comps",
+                   choices=["recon", "relight", "edit", "vq_dcomps",
+                            "gen_comps"])
+    p.add_argument("--n-vq", type=int, default=None)
+    p.add_argument("--fps", type=int, default=24)
+    p.add_argument("--test-envmap-dir", default=None)
+    p.add_argument("--edit-root", default=None,
+                   help="edit workspace with dst.json + test_NNN.npy "
+                        "masks (required for --mode edit)")
+    p.add_argument("--dst-env", default=None,
+                   help="envmap name to relight the edit under "
+                        "('original' = trained light)")
+    p.add_argument("--opt-scale", default=None,
+                   help="r,g,b albedo scale (test driver's "
+                        "compute_rgb_scales output)")
+    p.add_argument("--preset-override", default="")
+    p.set_defaults(fn=cmd_gen_video)
+
+    p = sub.add_parser("geo-video",
+                       help="stage-1 trajectory geometry extraction")
+    _add_common(p)
+    p.add_argument("--no-vis", action="store_true")
+    p.add_argument("--no-fast-vis", action="store_true")
+    p.add_argument("--geo-override", default="")
+    p.add_argument("--n-samples", type=int, default=0)
+    p.add_argument("--pallas", action="store_true",
+                   help="the fused SDF kernels for the no-grad render "
+                        "passes (use_fused_sdf=True; without the flag they "
+                        "are on for CUDA and off on the CPU)")
+    p.set_defaults(fn=cmd_geo_video)
+
+    for name, p in sub.choices.items():
+        if name != "edit-ui":  # the web page computes nothing
+            _add_device(p)
 
     args = ap.parse_args(argv)
     from .utils.device import resolve_device
     try:
-        args.device = resolve_device(args.device)
+        if hasattr(args, "device"):
+            args.device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"vqnerf-torch {args.cmd}: {e}")
     args.fn(args)

@@ -1,9 +1,13 @@
 """Image and array IO without OpenCV (counterpart of
 vqnerf_release_tpu/data/io.py, which reads and writes through cv2).
 
-  * PNG: a reader and a writer in numpy and zlib, for 8- and 16-bit gray,
-    gray+alpha, RGB and RGBA, non-interlaced. The reader undoes all five
-    row filters; the writer writes filter 0 (None).
+  * PNG: a decoder and an encoder of bytes in numpy and zlib (and the file
+    reader and writer on them), for 8- and 16-bit gray, gray+alpha, RGB and
+    RGBA, non-interlaced. The decoder undoes all five row filters (Average
+    and Paeth rows an anti-diagonal of pixels a step); the encoder writes
+    filter 0 (None).
+  * AVI: a writer and a reader of uncompressed 24-bit frames ('DIB ') in
+    a RIFF AVI 1.0 file with its index (what OpenCV writes is MJPG).
   * Radiance .hdr: a reader for flat and run-length-encoded scanlines and
     a flat writer, with OpenCV's RGBE conversion (rgbe.c: value =
     mantissa * 2^(exponent - 136), no half-step offset).
@@ -25,7 +29,8 @@ import zlib
 import numpy as np
 
 __all__ = [
-    "read_png", "write_png", "write_apng", "load_img_f32", "write_img",
+    "decode_png", "encode_png", "read_png", "write_png", "write_apng",
+    "write_avi", "load_img_f32", "write_img",
     "read_rgba16", "resize_u8_linear", "read_hdr",
     "write_hdr", "read_envmap", "resize", "vis_light", "alpha_blend",
     "read_json", "write_json", "sortglob",
@@ -66,58 +71,89 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
+def _unfilter_diagonals(cur, kinds, bpp):
+    """Undo the filters of every row of ``cur`` (int32 [h, stride]) by
+    anti-diagonals.
+
+    A byte depends on the bytes bpp to its left, above and above-left,
+    whichever filter its row uses, so every pixel of one anti-diagonal
+    y + x = d is decoded in one vectorised step: h + w - 1 steps. The image
+    lives in a flat buffer with a zero row and a zero column in front,
+    where the pixels of a diagonal lie w apart and their left, upper and
+    upper-left neighbours are the same strided slice shifted by 1, w + 1
+    and w + 2."""
+    h, stride = cur.shape
+    w = stride // bpp
+    w1 = w + 1
+    buf = np.zeros(((h + 1) * w1, bpp), np.int32)
+    data = cur.reshape(h * w, bpp)
+    step = max(w - 1, 1)  # data's step along a diagonal
+    for d in range(h + w - 1):
+        y0, y1 = max(0, d - w + 1), min(h, d + 1)
+        m = y1 - y0
+        # pixel (y, d - y) sits at (y + 1) * w1 + d - y + 1 in buf
+        p0 = y0 * w + w1 + d + 1
+        left = buf[p0 - 1:p0 + (m - 1) * w:w]
+        up = buf[p0 - w1:p0 - w1 + (m - 1) * w + 1:w]
+        up_left = buf[p0 - w1 - 1:p0 - w1 + (m - 1) * w:w]
+        q0 = y0 * (w - 1) + d
+        x = data[q0:q0 + (m - 1) * step + 1:step]
+        kind = kinds[y0:y1, None]
+        pred = np.select(
+            [kind == 1, kind == 2, kind == 3, kind == 4],
+            [left, up, (left + up) >> 1, _paeth(left, up, up_left)], 0)
+        buf[p0:p0 + (m - 1) * w + 1:w] = (x + pred) & 255
+    return buf.reshape(h + 1, w1, bpp)[1:, 1:].reshape(h, stride)
+
+
 def _unfilter(raw, h, stride, bpp):
-    """Undo the per-row PNG filters; returns uint8 [h, stride]."""
+    """Undo the per-row PNG filters; returns uint8 [h, stride]. An image
+    with Average or Paeth rows, whose bytes depend on their left
+    neighbours, is decoded by anti-diagonals (``_unfilter_diagonals``);
+    one of None, Sub and Up rows only, as every PNG the port writes, a row
+    a step, which is far faster (scripts/torch_png_decode_time.py times
+    both)."""
     rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    kinds = rows[:, 0].astype(np.int32)
+    if np.any(kinds > 4):
+        raise ValueError(f"bad PNG filter type {kinds.max()}")
+    cur = rows[:, 1:].astype(np.int32)
+    if np.any(kinds >= 3):
+        return _unfilter_diagonals(cur, kinds, bpp).astype(np.uint8)
     out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.int32)
     for y in range(h):
-        kind = rows[y, 0]
-        cur = rows[y, 1:].astype(np.int32)
-        if kind == 1:  # Sub: running sum along each byte lane
-            cur = np.cumsum(cur.reshape(-1, bpp), axis=0).reshape(-1) & 255
-        elif kind == 2:  # Up
-            cur = (cur + prev) & 255
-        elif kind in (3, 4):  # Average, Paeth: depend on the left pixel
-            cur = cur.reshape(-1, bpp)
-            up = prev.reshape(-1, bpp)
-            left = np.zeros(bpp, np.int32)
-            up_left = np.zeros(bpp, np.int32)
-            for x in range(cur.shape[0]):
-                if kind == 3:
-                    pred = (left + up[x]) >> 1
-                else:
-                    pred = _paeth(left, up[x], up_left)
-                left = (cur[x] + pred) & 255
-                cur[x] = left
-                up_left = up[x]
-            cur = cur.reshape(-1)
-        elif kind != 0:
-            raise ValueError(f"bad PNG filter type {kind}")
-        out[y] = cur
-        prev = cur
+        row = cur[y]
+        if kinds[y] == 1:  # Sub: running sum along each byte lane
+            row = np.cumsum(row.reshape(-1, bpp), axis=0).reshape(-1)
+        elif kinds[y] == 2:  # Up
+            row = row + prev
+        prev = row & 255
+        out[y] = prev
     return out
 
 
-def read_png(path):
-    """PNG -> uint8 or uint16 array, [H, W] for gray, else [H, W, C] in
-    file order (RGB / RGBA / gray+alpha)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_png(data, what="PNG"):
+    """PNG bytes -> uint8 or uint16 array, [H, W] for gray, else [H, W, C]
+    in file order (RGB / RGBA / gray+alpha). ``what`` names the source in
+    errors."""
     if data[:8] != _PNG_SIG:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{what}: not a PNG file")
     idat = []
+    ihdr = None
     for kind, body in _png_chunks(data):
         if kind == b"IHDR":
-            w, h, depth, ctype, _, _, interlace = struct.unpack(
-                ">IIBBBBB", body)
+            ihdr = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
             break
+    if ihdr is None:
+        raise ValueError(f"{what}: no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = ihdr
     if ctype not in _PNG_CHANNELS or depth not in (8, 16) or interlace:
         raise NotImplementedError(
-            f"{path}: PNG color type {ctype}, bit depth {depth}, interlace "
+            f"{what}: PNG color type {ctype}, bit depth {depth}, interlace "
             f"{interlace}; supported are gray/RGB/gray+alpha/RGBA at 8 or "
             "16 bits, non-interlaced")
     ch = _PNG_CHANNELS[ctype]
@@ -128,6 +164,12 @@ def read_png(path):
         img = (img[..., 0].astype(np.uint16) << 8) | img[..., 1]
     img = img.reshape(h, w, ch)
     return img[..., 0] if ch == 1 else img
+
+
+def read_png(path):
+    """PNG file -> array, as ``decode_png``."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), what=str(path))
 
 
 def _png_chunk(kind, data):
@@ -155,12 +197,19 @@ def _png_parts(img, what):
             (w, h))
 
 
+def encode_png(img):
+    """uint8 or uint16 [H, W] or [H, W, C] (C in 1-4, RGB order) -> PNG
+    bytes."""
+    ihdr, data, _ = _png_parts(img, "encode_png")
+    return (_PNG_SIG + ihdr + _png_chunk(b"IDAT", data)
+            + _png_chunk(b"IEND", b""))
+
+
 def write_png(path, img):
-    """uint8 or uint16 [H, W] or [H, W, C] (C in 1-4, RGB order) -> PNG."""
-    ihdr, data, _ = _png_parts(img, "write_png")
+    """``encode_png(img)`` written to ``path``."""
+    data = encode_png(img)
     with open(path, "wb") as f:
-        f.write(_PNG_SIG + ihdr + _png_chunk(b"IDAT", data)
-                + _png_chunk(b"IEND", b""))
+        f.write(data)
 
 
 def write_apng(path, frames, duration_ms=1000):
@@ -216,6 +265,68 @@ def write_img(arr, path, clip=True):
     os.makedirs(os.path.dirname(str(path)) or ".", exist_ok=True)
     write_png(path, arr)
     return arr
+
+
+# ---------------------------------------------------------------------------
+# AVI: uncompressed 24-bit DIB frames in a RIFF AVI 1.0 container
+
+_AVIF_HASINDEX = 0x10
+_AVIIF_KEYFRAME = 0x10
+_AVI_MAX_BYTES = 2**31 - 1  # readers take the RIFF size as signed
+
+
+def _riff_chunk(fourcc, data):
+    pad = b"\0" if len(data) % 2 else b""
+    return fourcc + struct.pack("<I", len(data)) + data + pad
+
+
+def _riff_list(kind, body):
+    return _riff_chunk(b"LIST", kind + body)
+
+
+def write_avi(path, frames, fps=24):
+    """uint8 RGB frames [N, H, W, 3] (or a list of [H, W, 3] of one shape)
+    -> an AVI of uncompressed BGR frames ('DIB '), with an idx1 index.
+    Rows are stored top-down (a negative DIB height): FFmpeg, which
+    OpenCV reads AVIs through, mishandles the bottom-up form. Returns the
+    number of frames."""
+    frames = [np.asarray(f) for f in frames]
+    if not frames:
+        raise ValueError("write_avi: no frames")
+    h, w = frames[0].shape[:2]
+    for f in frames:
+        if f.shape != (h, w, 3) or f.dtype != np.uint8:
+            raise ValueError(f"write_avi takes uint8 [{h}, {w}, 3] frames, "
+                             f"got {f.dtype} {f.shape}")
+    row = (3 * w + 3) & ~3  # DIB rows are padded to 4 bytes
+    size = row * h
+    if (size + 24) * len(frames) + 4096 > _AVI_MAX_BYTES:
+        raise ValueError(f"write_avi: {len(frames)} frames of {w}x{h} "
+                         "exceed the 2 GiB of an AVI 1.0 file")
+    n, fps = len(frames), int(fps)
+    usec = int(round(1e6 / fps))
+    avih = struct.pack("<14I", usec, size * fps, 0, _AVIF_HASINDEX, n, 0, 1,
+                       size, w, h, 0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", b"DIB ", 0, 0, 0, 0,
+                       1, fps, 0, n, size, 0xFFFFFFFF, 0, 0, 0, w, h)
+    strf = struct.pack("<IiiHHIIiiII", 40, w, -h, 1, 24, 0, size, 0, 0, 0, 0)
+    hdrl = _riff_list(b"hdrl", _riff_chunk(b"avih", avih) + _riff_list(
+        b"strl", _riff_chunk(b"strh", strh) + _riff_chunk(b"strf", strf)))
+    chunks, index, offset = [], [], 4  # offsets from the 'movi' fourcc
+    for f in frames:
+        dib = np.zeros((h, row), np.uint8)
+        dib[:, :3 * w] = f[:, :, ::-1].reshape(h, 3 * w)
+        chunk = _riff_chunk(b"00db", dib.tobytes())
+        index.append(struct.pack("<4sIII", b"00db", _AVIIF_KEYFRAME, offset,
+                                 size))
+        chunks.append(chunk)
+        offset += len(chunk)
+    movi = _riff_list(b"movi", b"".join(chunks))
+    body = b"AVI " + hdrl + movi + _riff_chunk(b"idx1", b"".join(index))
+    os.makedirs(os.path.dirname(str(path)) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+    return n
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,11 @@ of vqnerf_release_tpu/data/neus_dataset.py, on the port's own io and rays).
     camera frustum corners.
   * DTU convention: {train,val}.json with world_mat/scale_mat lists;
     P-matrix decomposition; radius 1; per-ray sphere near/far (mid -/+ 1).
+  * Video trajectories (cameras only, no images): transforms_test.json in
+    the NeRF convention, or DTU's test.json (c2w poses and one intrinsic at
+    the capture resolution, found two directories up when the scene has
+    none), each frame's full-frame rays and the metadata that the stage-2
+    video dataset reads back.
 
 Images are preloaded to host numpy; rays are generated on the host and
 copied to the device by the caller.
@@ -21,7 +26,8 @@ import numpy as np
 from . import io as vio
 from . import rays as vrays
 
-__all__ = ["NerfSceneDataset", "DtuSceneDataset"]
+__all__ = ["NerfSceneDataset", "DtuSceneDataset", "TrajectoryDataset",
+           "DtuTrajectoryDataset"]
 
 
 def _resize_all(imgs, new_h):
@@ -152,3 +158,75 @@ class DtuSceneDataset(_Base):
 
     def near_far(self, rays_o, rays_d):
         return vrays.near_far_sphere(rays_o, rays_d)
+
+
+class TrajectoryDataset(_Base):
+    """The cameras of a NeRF-convention video trajectory,
+    ``transforms_test.json``, at imh x imw; fixed near/far."""
+
+    def __init__(self, data_dir, imh, imw, near=2.0, far=6.0,
+                 transforms_name="transforms_test.json"):
+        with open(os.path.join(data_dir, transforms_name)) as f:
+            cams = json.load(f)
+        self.H, self.W = imh, imw
+        self.near_v, self.far_v = near, far
+        self.cx = cams.get("cx")
+        self.cy = cams.get("cy")
+        self.focal = 0.5 * imw / np.tan(0.5 * cams["camera_angle_x"])
+        self.cam_angle_x = cams["camera_angle_x"]
+        self.poses = []
+        for fr in cams["frames"]:
+            pm = fr["transform_matrix"]
+            if isinstance(pm, str):
+                pm = [float(x) for x in pm.split(",")]
+            self.poses.append(np.asarray(pm, np.float64).reshape(4, 4))
+        self.n_images = len(self.poses)
+        self.max_radius = vrays.max_radius_from_poses(self.poses, near, far)
+        self.masks = None  # a novel trajectory has no GT masks
+
+    _rays_at_pixels = NerfSceneDataset._rays_at_pixels
+    near_far = NerfSceneDataset.near_far
+
+    def frame_metadata(self, idx):
+        """The video metadata form (focal, cx/cy, c2w as nested lists) plus
+        the train metadata's keys, so that either reader takes the frame."""
+        return {
+            "focal": float(self.focal),
+            "cx": self.cx, "cy": self.cy,
+            "imh": self.H, "imw": self.W,
+            "cam_angle_x": self.cam_angle_x,
+            "cam_transform_mat": self.poses[idx].tolist(),
+        }
+
+
+class DtuTrajectoryDataset(_Base):
+    """The cameras of a DTU-convention video trajectory: ``test.json``'s
+    c2w poses and its one intrinsic, scaled by the train set's resize
+    factor; frame size from the train set."""
+
+    def __init__(self, data_dir, train_set, cameras_name="test.json"):
+        path = os.path.join(data_dir, cameras_name)
+        if not os.path.exists(path):
+            path = os.path.join(
+                os.path.dirname(os.path.dirname(os.path.abspath(data_dir))),
+                cameras_name)
+        with open(path) as f:
+            cams = json.load(f)
+        self.H, self.W = train_set.H, train_set.W
+        intr = np.asarray(cams["intrinsic"], np.float64).reshape(4, 4)
+        intr[:2, :3] *= train_set.k
+        self.intrinsic = intr
+        self.poses = [np.asarray(p, np.float64).reshape(4, 4)
+                      for p in cams["poses"]]
+        self.n_images = len(self.poses)
+        self.intrinsics_inv = [np.linalg.inv(intr)] * self.n_images
+        self.max_radius = 1.0
+        self.masks = None
+
+    _rays_at_pixels = DtuSceneDataset._rays_at_pixels
+    near_far = DtuSceneDataset.near_far
+
+    def frame_metadata(self, idx):
+        """The DTU video metadata form: the scaled intrinsic and c2w."""
+        return {"intrinsic": self.intrinsic.tolist(),
+                "cam_transform_mat": self.poses[idx].tolist()}

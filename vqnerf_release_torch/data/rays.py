@@ -8,12 +8,16 @@ bit).
   * DTU convention (world/scale projection matrices): P = world_mat @
     scale_mat decomposed into K and c2w; directions are K^-1 pixel,
     normalized in camera space, then rotated.
+  * The video-trajectory metadata forms that stage-1 trajectory extraction
+    writes (focal + c2w, or intrinsic + c2w), read back by the stage-2
+    video dataset.
 """
 
 import numpy as np
 
 __all__ = ["nerf_rays", "dtu_rays", "decompose_projection",
-           "near_far_fixed", "near_far_sphere", "max_radius_from_poses"]
+           "near_far_fixed", "near_far_sphere", "max_radius_from_poses",
+           "video_nerf_rays", "video_dtu_rays"]
 
 
 def nerf_rays(c2w, cam_angle_x, imh, imw, cx=None, cy=None, normalize=False):
@@ -120,3 +124,37 @@ def max_radius_from_poses(c2ws, near, far):
         pts = (np.asarray(c2w) @ bd)[:3, :]
         r = max(r, float(np.max(np.sqrt(np.sum(pts**2, axis=0)))))
     return r
+
+
+def video_nerf_rays(c2w, focal, imh, imw, cx=None, cy=None):
+    """Rays from the video-trajectory metadata form (focal + c2w), the
+    NeRF branch of datasets/video_nfr.py:292-317 — unnormalized
+    directions, cx/cy defaulting to the image center."""
+    c2w = np.asarray(c2w, np.float64)
+    if cx is None:
+        cx = 0.5 * imw
+    if cy is None:
+        cy = 0.5 * imh
+    xs, ys = np.meshgrid(
+        np.arange(imw, dtype=np.float64), np.arange(imh, dtype=np.float64))
+    dirs = np.stack(
+        ((xs - cx) / focal, -(ys - cy) / focal, -np.ones_like(xs)), axis=-1)
+    rayd = np.einsum("hwk,rk->hwr", dirs, c2w[:3, :3])
+    rayo = np.broadcast_to(c2w[:3, 3], rayd.shape).copy()
+    return rayo.astype(np.float32), rayd.astype(np.float32)
+
+
+def video_dtu_rays(c2w, intrinsic, imh, imw):
+    """Rays from the DTU video-trajectory metadata form (intrinsic + c2w),
+    the dtu branch of datasets/video_nfr.py:292-311 — K^-1 pixel dirs,
+    camera-space normalized, rotated into world."""
+    c2w = np.asarray(c2w, np.float64)
+    intrinsic_inv = np.linalg.inv(np.asarray(intrinsic, np.float64)[:3, :3])
+    xs, ys = np.meshgrid(
+        np.arange(imw, dtype=np.float64), np.arange(imh, dtype=np.float64))
+    p = np.stack((xs, ys, np.ones_like(xs)), axis=-1)
+    p = np.einsum("rk,hwk->hwr", intrinsic_inv, p)
+    rayd = p / np.linalg.norm(p, axis=-1, keepdims=True)
+    rayd = np.einsum("rk,hwk->hwr", c2w[:3, :3], rayd)
+    rayo = np.broadcast_to(c2w[:3, 3], rayd.shape).copy()
+    return rayo.astype(np.float32), rayd.astype(np.float32)

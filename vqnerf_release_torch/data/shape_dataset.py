@@ -8,6 +8,11 @@ JAX loader: collapsed xyz moved 0.1 along the ray, zero normals set to
 (0, 1, 0) and renormalized, RGB alpha-blended onto the background, and in
 test mode the ground-truth alpha replaced by the predicted one. Rays come
 from the port's own ``data/rays.py``.
+
+``VideoDataset`` reads a video trajectory: <video_root>/test_NNN/ holds a
+frame's metadata.json and all its buffers, the rendered rgb.png stands for
+both the pseudo-GT rgb and the reference buffer, and frames are taken every
+``interp``-th.
 """
 
 import glob
@@ -18,11 +23,10 @@ from typing import List, Optional
 
 import numpy as np
 
+from . import io as vio
 from . import rays as vrays
 
-from . import io as vio
-
-__all__ = ["ShapeView", "ShapeDataset"]
+__all__ = ["ShapeView", "ShapeDataset", "VideoDataset"]
 
 
 @dataclass
@@ -51,6 +55,17 @@ class ShapeView:
         if self.ref is not None:
             b["ref"] = self.ref
         return b
+
+
+def _fix_buffers(xyz, normal, rayo, rayd):
+    """Move collapsed xyz (on the ray origin) 0.1 along the ray, in place;
+    returns the normals with zero ones set to (0, 1, 0), renormalized."""
+    zero_bg = np.linalg.norm(xyz - rayo, axis=-1) == 0.0
+    xyz[zero_bg] = rayo[zero_bg] + rayd[zero_bg] * 0.1
+    zero_n = np.mean(normal, axis=-1) == 0.0
+    normal[zero_n] = np.array([0.0, 1.0, 0.0], np.float32)
+    return normal / np.maximum(
+        np.linalg.norm(normal, axis=-1, keepdims=True), 1e-12)
 
 
 class ShapeDataset:
@@ -142,14 +157,7 @@ class ShapeDataset:
         if imh != rgb.shape[0]:
             rgb = vio.resize(rgb, new_h=imh)
 
-        # collapsed xyz -> 0.1 along the ray
-        zero_bg = np.linalg.norm(xyz - rayo, axis=-1) == 0.0
-        xyz[zero_bg] = rayo[zero_bg] + rayd[zero_bg] * 0.1
-        # zero normals -> (0, 1, 0), renormalize
-        zero_n = np.mean(normal, axis=-1) == 0.0
-        normal[zero_n] = np.array([0.0, 1.0, 0.0], np.float32)
-        normal = normal / np.maximum(
-            np.linalg.norm(normal, axis=-1, keepdims=True), 1e-12)
+        normal = _fix_buffers(xyz, normal, rayo, rayd)
 
         bg = np.ones_like(rgb) if self.white_bg else np.zeros_like(rgb)
         rgb = vio.alpha_blend(rgb, alpha, bg).astype(np.float32)
@@ -171,4 +179,100 @@ class ShapeDataset:
             if imh != ref.shape[0]:
                 ref = vio.resize(ref, new_h=imh)
             view.ref = ref.reshape(-1, 3)
+        return view
+
+
+class VideoDataset(ShapeDataset):
+    """The frames of a video trajectory, in test mode (no GT alpha)."""
+
+    def __init__(self, video_root, data_type="nerf", imh=512,
+                 white_bg=True, interp=1, with_ref=True):
+        self.video_root = video_root
+        self.data_root = video_root
+        self.data_nerf_root = video_root
+        self.data_type = data_type
+        self.imh = imh
+        self.white_bg = white_bg
+        self.mode = "test"
+        self.with_ref = with_ref
+        self.interp = interp
+        self.files = self._glob_video()
+
+    def _glob_video(self):
+        metas = sorted(
+            glob.glob(join(self.video_root, "test_???", "metadata.json")))
+        out = []
+        for mp in metas[:: self.interp]:
+            d = dirname(mp)
+            need = [join(d, "xyz.npy"), join(d, "normal.npy"),
+                    join(d, "alpha.png"), join(d, "rgb.png")]
+            if self.data_type == "nerf":
+                need.append(join(d, "lvis.npy"))
+            if all(os.path.exists(p) for p in need):
+                out.append(mp)
+        return out
+
+    def _gen_video_rays(self, metadata, buf_h, buf_w):
+        """Rays from a frame's metadata: focal/cx/cy + c2w (NeRF-style
+        trajectories) or intrinsic + c2w (DTU), at the buffers' size
+        rescaled to ``imh``; the train metadata's form otherwise."""
+        cm = metadata["cam_transform_mat"]
+        c2w = np.asarray(
+            [float(x) for x in cm.split(",")] if isinstance(cm, str)
+            else cm, np.float64).reshape(4, 4)
+        k = self.imh / buf_h
+        imh, imw = self.imh, int(round(buf_w * k))
+        if "intrinsic" in metadata:
+            intr = np.asarray(metadata["intrinsic"], np.float64).copy()
+            intr = intr.reshape(4, 4)
+            intr[:2, :3] *= k
+            return vrays.video_dtu_rays(c2w, intr, imh, imw)
+        if "focal" in metadata:
+            cx = metadata.get("cx")
+            cy = metadata.get("cy")
+            return vrays.video_nerf_rays(
+                c2w, metadata["focal"] * k, imh, imw,
+                cx=None if cx is None else cx * k,
+                cy=None if cy is None else cy * k)
+        return self._gen_rays(metadata)
+
+    def load_view(self, metadata_path) -> ShapeView:
+        metadata = vio.read_json(metadata_path)
+        vdir = dirname(metadata_path)
+        buf_shape = np.load(join(vdir, "xyz.npy"), mmap_mode="r").shape
+        rayo, rayd = self._gen_video_rays(
+            metadata, buf_shape[0], buf_shape[1])
+        imh, imw = rayo.shape[:2]
+
+        xyz = np.load(join(vdir, "xyz.npy")).astype(np.float32)
+        normal = np.load(join(vdir, "normal.npy")).astype(np.float32)
+        pred_alpha = vio.load_img_f32(join(vdir, "alpha.png"))
+        if pred_alpha.ndim == 3:
+            pred_alpha = pred_alpha[..., 0]
+        rgb = vio.load_img_f32(join(vdir, "rgb.png"))[..., :3]
+
+        if imh != xyz.shape[0]:
+            xyz = vio.resize(xyz, new_h=imh)
+        if imh != normal.shape[0]:
+            normal = vio.resize(normal, new_h=imh)
+        if imh != pred_alpha.shape[0]:
+            pred_alpha = vio.resize(pred_alpha, new_h=imh)
+        if imh != rgb.shape[0]:
+            rgb = vio.resize(rgb, new_h=imh)
+        normal = _fix_buffers(xyz, normal, rayo, rayd)
+
+        alpha = pred_alpha.reshape(-1, 1).astype(np.float32)
+        view = ShapeView(
+            id=basename(vdir), h=imh, w=imw,
+            rayo=rayo.reshape(-1, 3), rayd=rayd.reshape(-1, 3),
+            rgb=rgb.reshape(-1, 3).astype(np.float32),
+            alpha=alpha, pred_alpha=alpha,
+            xyz=xyz.reshape(-1, 3), normal=normal.reshape(-1, 3))
+        if self.data_type == "nerf":
+            lvis = np.load(join(vdir, "lvis.npy")).astype(np.float32)
+            if imh != lvis.shape[0]:
+                lvis = vio.resize(lvis, new_h=imh)
+            view.lvis = np.clip(lvis, 0, 1).reshape(imh * imw, -1)
+        if self.with_ref:
+            view.ref = view.rgb
         return view

@@ -27,6 +27,7 @@ from ..models import decomp_common as dc
 from ..models.ref_nfr import ref_fast_render
 from ..models.vq_nfr import vq_fast_embed, vq_fast_render
 from ..ops.colorspace import linear2srgb
+from ..utils.device import check_model_device
 from ..utils.vis import vis_view
 
 __all__ = ["load_novel_lights", "find_vq", "compute_rgb_scales", "run_test"]
@@ -115,13 +116,6 @@ def _forward_chunked(forward, batch, chunk):
     return {k: torch.cat([p[k] for p in preds]) for k in preds[0]}
 
 
-def _check_device(model, device):
-    for p in model.parameters():
-        if p.device != device:
-            raise ValueError(f"model parameters on {p.device}, run_test "
-                             f"device is {device}")
-
-
 @torch.inference_mode()
 def run_test(ref_model, vq_model, cfg: dc.DecompConfig, dataset, outroot,
              test_envmap_dir, vali_epoch_dir=None, data_root=None,
@@ -135,8 +129,8 @@ def run_test(ref_model, vq_model, cfg: dc.DecompConfig, dataset, outroot,
     Returns {"opt_scale", "n_vq", "seconds": wall time of each pass}.
     """
     device = torch.device(device)
-    _check_device(ref_model, device)
-    _check_device(vq_model, device)
+    check_model_device(ref_model, device, "run_test")
+    check_model_device(vq_model, device, "run_test")
 
     def to_dev(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)

@@ -2,7 +2,7 @@
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "check_model_device"]
 
 
 def resolve_device(device):
@@ -22,3 +22,12 @@ def resolve_device(device):
             device = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
     return device
+
+
+def check_model_device(model, device, what):
+    """Raise ValueError unless every parameter of ``model`` is on
+    ``device``; ``what`` names the entry point in the message."""
+    for p in model.parameters():
+        if p.device != device:
+            raise ValueError(f"model parameters on {p.device}, {what} "
+                             f"device is {device}")
