@@ -16,7 +16,8 @@ fast-vis shadow pass.)
    the SDF library, which must not be 0;
 3. writes a synthetic sphere scene in the reference layout to a temporary
    directory: 4 train and 2 val views of 512x512 rays with 512-light lvis,
-   the vis_comps GT-albedo mirror and 16 probe .hdr files;
+   the vis_comps GT-albedo mirror and 16 probe .hdr files (the first 8
+   named by metric_eval.ENV_LIGHTS_CG);
 4. TRAINS on the GPU at the DecompConfig defaults for every width
    (mlp_width 128, z_dim 256, 512 lights, 15 codes, 2048 rows per step):
    train_nfr_unit for 2 epochs, then train_vq_nfr for 2 epochs, with a
@@ -148,14 +149,35 @@ fast-vis shadow pass.)
    edit-server` as a subprocess (SERVER_LAUNCHER), sent one edit, waited
    for and terminated, which reports its own launch counts and peak memory
    (kernel 1 launched, every launch of the 16-byte instance);
-12. prints the pass times, peak device memory of each path, each
+12. evaluates and imports ("eval and import"; every kernel's launch count
+   set to 0 just before each step and read just after): metric-eval
+   (family nerf: rgb, kd with the albedo scale, relights under the 8
+   ENV_LIGHTS_CG probes of step 3) through cli.main on step 10's trained
+   tree, bridged to resolve_scene_dirs' layout by ckpt-1 links, with
+   LPIPS from random weights of AlexNet's shapes; eval_dataset (family
+   mat: 512 -> 420, ks and rough) and cluster-eval on step 5's served
+   views; mean shift on step 10's gen-z materials and on seeded
+   materials of 5 clusters over two 512x512 views (at least 3 centres);
+   the CSV tables; each on the card and again on the CPU (JSONs and CSV
+   float cells within 1e-9 relative, label maps equal, other CSV cells
+   equal; no kernel launched), and the SSIM and LPIPS times of one
+   512x512 view. Then step 10's trained vq_nfr and ref_nfr written as
+   reference-layout TF checkpoints (write_tf_checkpoint: there is no
+   TensorFlow on the card), imported by tf_import.main into a fresh tree
+   (every tensor equal to the trained one bit for bit) and served by
+   `test` (kernel 1, every launch of the 16-byte instance; every array
+   within rtol 2e-4 / atol 1e-5 of the direct serve); the ref_nfr import
+   again through `python -m vqnerf_release_torch.interop.tf_import`,
+   its checkpoint equal to the in-process one;
+13. prints the pass times, peak device memory of each path, each
    subcommand's seconds, the script's total, a {"kernels": [...]} line with
    all four kernels (each with ms, device_ms, plain_ms, bound_ms; kernel
    3's launches are those of NeuS training and extraction, given apart on
    an earlier line; cli_launches, the launches of step 10, and
    cli_launches_by_subcommand; edit_video_launches and
-   edit_video_launches_by_step, those of step 11), and as the last line
-   {"ok": true, "device": {...}}.
+   edit_video_launches_by_step, those of step 11; eval_import_launches
+   and eval_import_launches_by_step, those of step 12), and as the last
+   line {"ok": true, "device": {...}}.
 
 Cuts, all of scale and none of width: 4 train views and 1 validation view
 in place of a scene's 100 and 8, 2 epochs in place of 150, 2 served views;
@@ -166,19 +188,25 @@ and mesh at the last step; for the command line 3 train views and 1 val
 view of 128x128, CLI_GEO_ITERS geometry steps, 1 epoch a phase and a VQ
 evaluation set of CLI_VQ_SAMPLES rows, printed in its "cli cuts" line; for
 video VIDEO_FRAMES trajectory frames of 128x128 in place of a test
-trajectory's 200 or more, and 2 edited views.
+trajectory's 200 or more, and 2 edited views; for evaluation 1 view of
+128x128 (the cli tree) and 2 of 512x512 in place of a scene's 8 at
+800x800, 1 view's materials for gen-z's mean shift.
 
 Any failure raises and exits non-zero; without CUDA it exits 1 before doing
 anything.
 """
 
 import copy
+import csv
 import dataclasses
+import functools
 import glob
+import io
 import json
 import math
 import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -206,8 +234,11 @@ from vqnerf_release_torch.models.neus import (NeuSConfig, init_neus,
 from vqnerf_release_torch.models.nfr_unit import init_nfr_unit
 from vqnerf_release_torch.models.ref_nfr import init_ref_nfr
 from vqnerf_release_torch.data.neus_dataset import NerfSceneDataset
+from vqnerf_release_torch.eval import (cluster_eval, meanshift, metric_eval,
+                                       metrics, vis_csv)
 from vqnerf_release_torch.interop import jax_ckpt
 from vqnerf_release_torch.interop import jax_params
+from vqnerf_release_torch.interop import tf_bundle, tf_import
 from vqnerf_release_torch.ops.vq import VqEmaState, vq_lookup
 from vqnerf_release_torch.pipelines import (edit, edit_client, edit_web,
                                             gen_geo)
@@ -328,6 +359,14 @@ def _look_at(eye):
     return c2w
 
 
+def probe_names(n_probes):
+    """The probes' names: metric_eval.ENV_LIGHTS_CG first (metric-eval
+    scores the relights of those names), then probe<NN>."""
+    names = list(metric_eval.ENV_LIGHTS_CG)
+    names += ["probe%02d" % j for j in range(len(names), n_probes)]
+    return names[:n_probes]
+
+
 def write_scene(root, imh, n_views, light_h, n_probes, n_vq, seed, n_train=0):
     """A unit sphere seen from n_views val cameras and n_train train
     cameras, in the reference layout.
@@ -388,8 +427,8 @@ def write_scene(root, imh, n_views, light_h, n_probes, n_vq, seed, n_train=0):
                     np.float16))
 
     env_dir = os.path.join(root, "test_envs")
-    for j in range(n_probes):
-        vio.write_hdr(os.path.join(env_dir, "probe%02d.hdr" % j),
+    for name in probe_names(n_probes):
+        vio.write_hdr(os.path.join(env_dir, name + ".hdr"),
                       2.0 * rs.random((light_h, 2 * light_h, 3)))
     vali_dir = os.path.join(root, "vis_vali", "epoch000000150")
     if n_vq is not None:
@@ -2161,7 +2200,7 @@ def cli_phase(root, env_dir, device="cuda"):
 # ---- edit and video ---------------------------------------------------------
 
 
-def _step(name, fn, steps):
+def _step(name, fn, steps, label="edit/video"):
     """fn() with every kernel's launch count set to 0 just before and read
     just after; its seconds (synchronised) and peak device memory go into
     ``steps[name]``. Returns fn's result."""
@@ -2176,9 +2215,10 @@ def _step(name, fn, steps):
                    "launches": _launch_counts(),
                    "render_instances": dict(
                        render_kernel.LAUNCHES_BY_INSTANCE)}
-    print("edit/video %s: %.3f s, peak %.3f GiB, kernel launches %s"
-          % (name, steps[name]["seconds"], steps[name]["peak_bytes"] / 2**30,
-             steps[name]["launches"]), flush=True)
+    print("%s %s: %.3f s, peak %.3f GiB, kernel launches %s"
+          % (label, name, steps[name]["seconds"],
+             steps[name]["peak_bytes"] / 2**30, steps[name]["launches"]),
+          flush=True)
     return out
 
 
@@ -2514,7 +2554,8 @@ def video_cli_phase(root, env_dir, device):
         np.save(os.path.join(edit_root, "test_%03d.npy" % i),
                 np.repeat(m[..., None], 3, axis=-1))
     modes = {"recon": [], "relight": [], "vq_dcomps": ["--n-vq", str(n_vq)],
-             "edit": ["--edit-root", edit_root, "--dst-env", "probe00"]}
+             "edit": ["--edit-root", edit_root, "--dst-env",
+                      probe_names(1)[0]]}
     for mode, extra in modes.items():
         _step("gen-video " + mode,
               lambda: cli.main([*video, "--mode", mode, *extra]), steps)
@@ -2564,7 +2605,8 @@ def video_cli_phase(root, env_dir, device):
             cwd=os.path.dirname(os.path.abspath(__file__)),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
-            edit_client.submit_edit(ws, "gold", [mask], env="probe00")
+            edit_client.submit_edit(ws, "gold", [mask],
+                                    env=probe_names(1)[0])
             t0 = time.perf_counter()
             while True:
                 status = edit.read_status(os.path.join(ws, "status",
@@ -2608,6 +2650,614 @@ def video_cli_phase(root, env_dir, device):
     print("edit-server (python -m, a subprocess): uploaded -> finished, "
           "%d arrays finite in pd_edited, terminated (exit %s)"
           % (n_arrays, rc), flush=True)
+    return steps
+
+
+# ---- reference TF checkpoints, written without TensorFlow ----------------
+
+TF_DTYPES = {np.dtype(np.float32): 1, np.dtype(np.float64): 2,
+             np.dtype(np.int32): 3, np.dtype(np.int64): 9,
+             np.dtype(np.bool_): 10, np.dtype(np.float16): 19}
+
+
+def _pb_varint(n):
+    out = bytearray()
+    while True:
+        low, n = n & 0x7F, n >> 7
+        out.append(low | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _pb_field(num, kind, value):
+    """One protobuf field: kind 0 a varint, 2 bytes, 5 a fixed32."""
+    tag = _pb_varint(num << 3 | kind)
+    if kind == 0:
+        return tag + _pb_varint(value)
+    if kind == 2:
+        return tag + _pb_varint(len(value)) + value
+    return tag + struct.pack("<I", value)
+
+
+def tf_bundle_entry(dtype, shape, offset, size, crc):
+    """A BundleEntryProto (shard 0), zero fields left out as proto3 does."""
+    dims = b"".join(_pb_field(2, 2, _pb_field(1, 0, d) if d else b"")
+                    for d in shape)
+    out = _pb_field(1, 0, dtype) + _pb_field(2, 2, dims)
+    if offset:
+        out += _pb_field(4, 0, offset)
+    if size:
+        out += _pb_field(5, 0, size)
+    if crc:
+        out += _pb_field(6, 5, crc)
+    return out
+
+
+def tf_table_block(items):
+    """A LevelDB table block of (key, value) bytes in key order, every
+    entry a restart point (no shared prefixes), with its 5-byte trailer:
+    type 0 (uncompressed) and the masked CRC-32C."""
+    body, restarts = bytearray(), []
+    for key, value in items:
+        restarts.append(len(body))
+        body += (_pb_varint(0) + _pb_varint(len(key)) + _pb_varint(len(value))
+                 + key + value)
+    restarts = restarts or [0]
+    body += struct.pack("<%dI" % (len(restarts) + 1), *restarts,
+                        len(restarts))
+    body += b"\x00"
+    return bytes(body) + struct.pack("<I", tf_bundle.masked_crc32c(body))
+
+
+def tf_index_file(entries):
+    """The .index table of {key: BundleEntryProto bytes}: one data block
+    (the header under "" first), an empty meta-index, the index block and
+    the footer with the table magic."""
+    header = _pb_field(1, 0, 1) + _pb_field(3, 2, _pb_field(1, 0, 1))
+    items = [(b"", header)] + sorted((k.encode(), v)
+                                     for k, v in entries.items())
+    data = tf_table_block(items)
+    meta = tf_table_block([])
+    index = tf_table_block([(items[-1][0], _pb_varint(0)
+                             + _pb_varint(len(data) - 5))])
+    footer = (_pb_varint(len(data)) + _pb_varint(len(meta) - 5)
+              + _pb_varint(len(data) + len(meta)) + _pb_varint(len(index) - 5))
+    footer = footer.ljust(40, b"\x00") + struct.pack(
+        "<Q", tf_bundle.TABLE_MAGIC)
+    return data + meta + index + footer
+
+
+def write_tf_checkpoint(directory, tensors, step=1):
+    """A TensorFlow 2 checkpoint <directory>/ckpt-<step> (one shard) of
+    {key: numpy array} and the "checkpoint" file naming it, as
+    tf.train.CheckpointManager leaves them; returns the prefix."""
+    os.makedirs(directory, exist_ok=True)
+    prefix = os.path.join(directory, "ckpt-%d" % step)
+    entries, offset = {}, 0
+    with open(prefix + ".data-00000-of-00001", "wb") as f:
+        for key in sorted(tensors, key=str.encode):
+            arr = np.asarray(tensors[key])
+            buf = np.ascontiguousarray(arr, arr.dtype.newbyteorder("<")) \
+                .tobytes()
+            f.write(buf)
+            entries[key] = tf_bundle_entry(
+                TF_DTYPES[arr.dtype.newbyteorder("=")], arr.shape, offset,
+                len(buf), tf_bundle.masked_crc32c(buf))
+            offset += len(buf)
+    with open(prefix + ".index", "wb") as f:
+        f.write(tf_index_file(entries))
+    with open(os.path.join(directory, "checkpoint"), "w") as f:
+        f.write('model_checkpoint_path: "ckpt-%d"\n'
+                'all_model_checkpoint_paths: "ckpt-%d"\n' % (step, step))
+    return prefix
+
+
+def reference_tf_tensors(model, kind, ema=None, vq_decay=0.999, step=1):
+    """{object-graph key: array} of a trained model as the reference's
+    tf.train.Checkpoint(step, net=model) names them (the keys
+    tests/test_tf_import.py's tf.Module mimic gives): every MLP layer of
+    the JAX tree as net/net_<name>_layer<i>/{kernel,bias}, the light,
+    codebook and gamma as net/_<name>, the VQ EMA (kind "vq_nfr") under
+    net/vq_layer/ema_{cluster_size,dw}/{_hidden,average,_counter}. A
+    ref_nfr checkpoint holds only its trainable part, as the reference's
+    does."""
+    tree = jax_params.to_jax(model, kind)
+    if kind == "ref_nfr":
+        tree = dict(tree["train"], light=tree["frozen"]["light"])
+    value = "/.ATTRIBUTES/VARIABLE_VALUE"
+    out = {"step" + value: np.asarray(step, np.int64),
+           "save_counter" + value: np.asarray(1, np.int64)}
+    for name, leaf in tree.items():
+        if isinstance(leaf, list):
+            for i, layer in enumerate(leaf):
+                for part, key in (("w", "kernel"), ("b", "bias")):
+                    out["net/net_%s_layer%d/%s%s" % (name, i, key, value)] = \
+                        np.asarray(layer[part], np.float32)
+        else:
+            out["net/_%s%s" % (name, value)] = np.asarray(leaf, np.float32)
+    if ema is not None:
+        ema = jax_params.ema_to_jax(ema)
+        counter = int(ema["counter"])
+        for which, hidden in (("cluster_size", ema["hidden_cluster_size"]),
+                              ("dw", ema["hidden_dw"])):
+            base = "net/vq_layer/ema_%s/" % which
+            out[base + "_hidden" + value] = hidden
+            out[base + "average" + value] = (
+                hidden / (1.0 - vq_decay ** max(counter, 1))).astype(
+                    np.float32)
+            out[base + "_counter" + value] = np.asarray(counter, np.int64)
+    return out
+
+
+# ---- evaluation and reference checkpoints -----------------------------------
+
+
+def _alexnet_weights(path, seed):
+    """Random LPIPS weights at AlexNet's shapes (conv 64, 192, 384, 256,
+    256, kernels 11, 5, 3, 3, 3, and the five linear heads): the trained
+    ones cannot be fetched."""
+    rs = np.random.RandomState(seed)
+    widths, ks = [3, 64, 192, 384, 256, 256], [11, 5, 3, 3, 3]
+    w = {}
+    for i in range(5):
+        fan_in = ks[i] * ks[i] * widths[i]
+        w["conv%d/kernel" % (i + 1)] = (rs.randn(
+            ks[i], ks[i], widths[i], widths[i + 1])
+            / np.sqrt(fan_in)).astype(np.float32)
+        w["conv%d/bias" % (i + 1)] = (0.01 * rs.randn(widths[i + 1])).astype(
+            np.float32)
+        w["lin%d/kernel" % i] = rs.rand(1, 1, widths[i + 1], 1).astype(
+            np.float32)
+    np.savez(path, **w)
+    return path
+
+
+def _eval_step(name, fn, steps):
+    """fn() timed (synchronised), its peak device memory and kernel
+    launches in ``steps[name]``; no kernel may run in an evaluation step."""
+    out = _step(name, fn, steps, "eval and import")
+    if any(steps[name]["launches"].values()):
+        raise AssertionError(f"{name} launched {steps[name]['launches']}")
+    return out
+
+
+def _same_scores(got, want, what, rel=1e-9):
+    """Two score JSONs (nested dicts of lists of floats, or of floats) with
+    the same keys and every value within ``rel`` relative."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"{what}: keys {sorted(got)} != "
+                                 f"{sorted(want)}")
+        return max([0.0] + [_same_scores(got[k], want[k], f"{what}/{k}", rel)
+                            for k in want])
+    if isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: {len(got)} != {len(want)} values")
+        return max([0.0] + [_same_scores(g, w, what, rel)
+                            for g, w in zip(got, want)])
+    if isinstance(want, str):
+        if got != want:
+            raise AssertionError(f"{what}: {got!r} != {want!r}")
+        return 0.0
+    if not (np.isfinite(got) and np.isfinite(want)):
+        raise AssertionError(f"{what}: {got} / {want} not finite")
+    err = abs(got - want) / max(abs(want), 1e-300)
+    if err > rel:
+        raise AssertionError(f"{what}: {got} != {want} (relative {err:.3e})")
+    return err
+
+
+def _float(cell):
+    try:
+        return float(cell)
+    except ValueError:
+        return None
+
+
+def _same_csv(a, b, what, rel=1e-9):
+    """Two CSV files with the same rows and columns, every float cell
+    within ``rel`` relative (as the score JSONs: the convolutions of SSIM
+    and LPIPS sum in cuDNN's order on the card and in another on the CPU)
+    and every other cell equal. Returns (cells that differ, cells)."""
+    rows_a = list(csv.reader(io.StringIO(a.decode())))
+    rows_b = list(csv.reader(io.StringIO(b.decode())))
+    if not a or len(rows_a) != len(rows_b) or rows_a[:1] != rows_b[:1]:
+        raise AssertionError(f"{what}.csv: the card's and the CPU's differ")
+    n_diff = n_cells = 0
+    for ra, rb in zip(rows_a[1:], rows_b[1:]):
+        if len(ra) != len(rb):
+            raise AssertionError(f"{what}.csv: rows {ra} and {rb}")
+        for x, y in zip(ra, rb):
+            n_cells += 1
+            if x == y:
+                continue
+            fx, fy = _float(x), _float(y)
+            if fx is None or fy is None or not (
+                    abs(fx - fy) <= rel * abs(fy)):
+                raise AssertionError(f"{what}.csv: {x} on the card, {y} "
+                                     "on the CPU")
+            n_diff += 1
+    return n_diff, n_cells
+
+
+def _link_bridge(ref_out, epoch):
+    """metric_eval.resolve_scene_dirs reads ref_nfr renders from
+    <ref_out>/pd_test/<ckpt-5 or the newest dir> and pd_relit/<the same>,
+    where `test` writes vis_test/latest/{pd_test,pd_relit} (the JAX
+    package does the same): a ckpt-<epoch> link in each bridges the two."""
+    for sub in ("pd_test", "pd_relit"):
+        os.makedirs(os.path.join(ref_out, sub), exist_ok=True)
+        os.symlink(os.path.join(ref_out, "vis_test", "latest", sub),
+                   os.path.join(ref_out, sub, "ckpt-%d" % epoch))
+
+
+def _write_eval_gt(gt_scene, data_scene, views, albedo, envs, with_rough):
+    """GT trees of metric_eval: per view rgba.png (the scene's own),
+    albedo.png, metal.png (zeros), rough.png (with_rough) and
+    rgba_<env>.png (the rgb tinted per env, the scene's alpha)."""
+    for i, view in enumerate(views):
+        rgba = vio.load_img_f32(os.path.join(data_scene, view, "rgba.png"))
+        d = os.path.join(gt_scene, view)
+        os.makedirs(d)
+        shutil.copy(os.path.join(data_scene, view, "rgba.png"), d)
+        h, w = rgba.shape[:2]
+        vio.write_img(np.broadcast_to(albedo, (h, w, 3)),
+                      os.path.join(d, "albedo.png"))
+        vio.write_img(np.zeros((h, w, 3)), os.path.join(d, "metal.png"))
+        if with_rough:
+            vio.write_img(np.full((h, w, 3), 0.45),
+                          os.path.join(d, "rough.png"))
+        for j, env in enumerate(envs):
+            tint = 0.6 + 0.4 * np.array([j % 2, (j // 2) % 2, j / 8.0])
+            vio.write_img(np.dstack([rgba[..., :3] * tint, rgba[..., 3]]),
+                          os.path.join(d, "rgba_%s.png" % env))
+
+
+def _write_idx(label_dir, rgba_path):
+    """A GT label map in cluster_eval.SEL_COLORS: the image split in four
+    quadrants (labels 1-4), background label 0 (black)."""
+    alpha = vio.load_img_f32(rgba_path)[..., 3]
+    h, w = alpha.shape
+    yy, xx = np.mgrid[:h, :w]
+    lab = 1 + (yy >= h // 2) * 2 + (xx >= w // 2)
+    lab[alpha <= 0.5] = 0
+    pal = np.array([[0, 0, 0]] + [list(c) for c in
+                                  cluster_eval.SEL_COLORS[:4]], np.uint8)
+    os.makedirs(label_dir)
+    vio.write_png(os.path.join(label_dir, "idx.png"), pal[lab])
+
+
+# albedo (3), spec (3), rough (1) of the planted materials, 0.85 or more
+# apart, far beyond mean shift's bandwidth of 0.2
+MS_MATERIALS = np.array([
+    [0.8, 0.2, 0.2, 0.1, 0.1, 0.1, 0.3],
+    [0.2, 0.8, 0.2, 0.1, 0.1, 0.1, 0.6],
+    [0.2, 0.2, 0.8, 0.5, 0.5, 0.5, 0.2],
+    [0.9, 0.9, 0.9, 0.1, 0.1, 0.1, 0.9],
+    [0.1, 0.1, 0.1, 0.8, 0.8, 0.8, 0.1]])
+
+
+def _write_clustered_materials(mat_dirs, size, seed):
+    """gen-z's per-view albedo/spec/rough .npy of the planted materials: a
+    disc of radius 0.4 * size cut into sectors of unequal angles, material
+    k in sector k, float32 with noise of sigma 0.03, zero outside (the
+    background mean shift skips). Returns each view's [size, size] map of
+    the planted material (-1 outside)."""
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:size, :size] - (size - 1) / 2.0
+    edges = np.cumsum([0.0, 0.9, 1.1, 1.2, 1.35, 1.45]) * 2 * np.pi / 6.0
+    sector = np.searchsorted(edges, np.arctan2(yy, xx) + np.pi) - 1
+    truth = np.where(np.hypot(yy, xx) < 0.4 * size, sector, -1)
+    maps = []
+    for d in mat_dirs:
+        f = MS_MATERIALS[np.clip(truth, 0, None)] + 0.03 * rs.randn(
+            size, size, 7)
+        f = np.where(truth[..., None] >= 0, f, 0.0).astype(np.float32)
+        os.makedirs(d)
+        for name, sl in (("albedo", slice(0, 3)), ("spec", slice(3, 6)),
+                         ("rough", slice(6, 7))):
+            np.save(os.path.join(d, name + ".npy"), f[..., sl])
+        maps.append(truth)
+    return maps
+
+
+def _cluster_table_json(cluster_json, path):
+    """cluster-eval's {"vq": {scene: scores}} as vis_csv's per-method
+    {"vq": {score: [a value a scene]}}."""
+    scores = vio.read_json(cluster_json)["vq"]
+    keys = next(iter(scores.values())).keys()
+    vio.write_json({"vq": {k: [s[k] for s in scores.values()]
+                           for k in keys}}, path)
+    return path
+
+
+def eval_import_phase(root, paths, serve_root, device):
+    """Evaluation and reference TF checkpoints ("eval and import"), each
+    step on the card and again on the CPU, every kernel's launch count set
+    to 0 just before and read just after:
+
+    * metric-eval (family nerf: rgb, kd with the albedo scale, relights
+      under the eight ENV_LIGHTS_CG probes) through cli.main on the "cli"
+      phase's trained tree, bridged to resolve_scene_dirs's layout, with
+      LPIPS from random weights of AlexNet's shapes;
+    * eval_dataset (family mat, scene_dirs) on step 5's two served
+      512x512 views: the 512 -> 420 area downscale, ks and rough;
+    * cluster-eval of the same views' pd_vq embed maps against GT labels;
+    * meanshift_segmentation of gen-z's exported materials, and of planted
+      ones (_write_clustered_materials), whose 5 materials it must find;
+    * the CSV tables of both score JSONs;
+    the card's JSONs and CSV float cells within 1e-9 relative of the
+    CPU's, the label maps and the other CSV cells equal; no kernel
+    launched. Then the trained vq_nfr and ref_nfr written as
+    reference-layout TF checkpoints (write_tf_checkpoint), imported by
+    tf_import.main into a fresh tree, equal to the trained ones bit for
+    bit, and served by `test` (kernel 1, all of the 16-byte instance)
+    within rtol 2e-4 / atol 1e-5 of the direct serve; `python -m
+    vqnerf_release_torch.interop.tf_import` writes the same ref_nfr
+    checkpoint. Returns the steps."""
+    cli_out = os.path.join(root, "cli", "output")
+    cli_data = os.path.join(root, "cli", "data", "nfr_blender", GEO_SCENE)
+    ev = os.path.join(root, "eval")
+    os.makedirs(ev)
+    lpips_npz = _alexnet_weights(os.path.join(ev, "alexnet_random.npz"),
+                                 SEED)
+    old_env = os.environ.get("VQNERF_LPIPS_WEIGHTS")
+    os.environ["VQNERF_LPIPS_WEIGHTS"] = lpips_npz
+    steps, out = {}, {}
+    try:
+        # metric-eval on the "cli" tree
+        ref_out = vcfg.train_outdir(cli_out, GEO_SCENE, "ref_nfr")
+        _link_bridge(ref_out, 1)
+        gt_cli = os.path.join(ev, "gt_cli")
+        cli_views = ["val_%03d" % i for i in range(CLI_VAL_VIEWS)]
+        _write_eval_gt(os.path.join(gt_cli, GEO_SCENE), cli_data, cli_views,
+                       [0.8, 0.5, 0.3], metric_eval.ENV_LIGHTS_CG, False)
+        for dev in (str(device), "cpu"):
+            js = os.path.join(ev, "metric_cli_%s.json" % dev)
+            _eval_step("metric-eval (%s)" % dev, lambda: cli.main(
+                ["metric-eval", "--family", "nerf", "--scenes", GEO_SCENE,
+                 "--pred-root", os.path.join(cli_out, "train"),
+                 "--gt-root", gt_cli, "--out-json", js, "--device", dev]),
+                steps)
+            out.setdefault("metric_cli", []).append(vio.read_json(js))
+        got, want = out["metric_cli"]
+        bufs = got[GEO_SCENE]
+        if set(bufs) != {"rgb", "kd", "env"} or got["_lpips_impl"] != \
+                "alexnet" or len(bufs["env"]["psnr"]) != \
+                len(metric_eval.ENV_LIGHTS_CG) * CLI_VAL_VIEWS:
+            raise AssertionError(f"metric-eval scored {bufs.keys()}, "
+                                 f"{len(bufs.get('env', {}).get('psnr', []))}"
+                                 f" relights, lpips {got['_lpips_impl']}")
+        err = _same_scores(got, want, "metric-eval, card against CPU")
+
+        # eval_dataset, family mat, on step 5's served views
+        gt_mat = os.path.join(ev, "gt_mat")
+        views = ["val_%03d" % i for i in range(N_VIEWS)]
+        _write_eval_gt(os.path.join(gt_mat, SCENE), paths["data_root"],
+                       views, [0.6, 0.4, 0.3], [], True)
+        scene_dirs = {SCENE: (os.path.join(serve_root, "pd_test"), None)}
+        for dev in (str(device), "cpu"):
+            js = os.path.join(ev, "metric_mat_%s.json" % dev)
+            out.setdefault("metric_mat", []).append(_eval_step(
+                "eval_dataset mat (%s)" % dev,
+                lambda: metric_eval.eval_dataset(
+                    [SCENE], "mat", None, gt_mat, out_json=js,
+                    scene_dirs=scene_dirs, device=dev), steps))
+        got, want = out["metric_mat"]
+        if set(got[SCENE]) != {"rgb", "kd", "ks", "rough"}:
+            raise AssertionError(f"eval_dataset mat scored {got[SCENE]}")
+        err = max(err, _same_scores(got, want, "eval_dataset, card "
+                                    "against CPU"))
+
+        # cluster-eval of the served pd_vq maps
+        labels = os.path.join(ev, "labels")
+        pred = os.path.join(ev, "pred")
+        os.makedirs(pred)
+        os.symlink(os.path.join(serve_root, "pd_vq"),
+                   os.path.join(pred, SCENE))
+        for view in views:
+            _write_idx(os.path.join(labels, SCENE, view),
+                       os.path.join(paths["data_root"], view, "rgba.png"))
+        for dev in (str(device), "cpu"):
+            js = os.path.join(ev, "cluster_%s.json" % dev)
+            _eval_step("cluster-eval (%s)" % dev, lambda: cli.main(
+                ["cluster-eval", "--scenes", SCENE, "--rgba-root",
+                 os.path.dirname(paths["data_root"]), "--label-root",
+                 labels, "--pred-root", pred, "--out-json", js,
+                 "--device", dev]), steps)
+            out.setdefault("cluster", []).append(vio.read_json(js))
+        if out["cluster"][0] != out["cluster"][1]:
+            raise AssertionError(f"cluster-eval: card {out['cluster'][0]} "
+                                 f"!= CPU {out['cluster'][1]}")
+
+        # mean shift on gen-z's materials, and on planted ones of two
+        # 512x512 views (the shipped max_pixels subsample of 20,000)
+        gz = os.path.join(vcfg.train_outdir(cli_out, GEO_SCENE, "nfr_unit"),
+                          "gen_z")
+        planted = [os.path.join(ev, "planted", v) for v in views]
+        truth = _write_clustered_materials(planted, 512, SEED)
+        n_ms = {}
+        for what, mat_dirs in (("gen-z", [os.path.join(gz, v)
+                                          for v in cli_views]),
+                               ("planted", planted)):
+            labs = []
+            for dev in (str(device), "cpu"):
+                dirs = [os.path.join(ev, "meanshift_%s_%s" % (what, dev),
+                                     os.path.basename(d)) for d in mat_dirs]
+                n, _ = _eval_step(
+                    "meanshift %s (%s)" % (what, dev),
+                    lambda: meanshift.meanshift_segmentation(
+                        mat_dirs, dirs, device=dev), steps)
+                n_ms.setdefault(what, []).append(n)
+                labs.append([np.load(os.path.join(d, "labels.npy"))
+                             for d in dirs])
+            if n_ms[what][0] != n_ms[what][1] or not all(
+                    np.array_equal(a, b) for a, b in zip(*labs)):
+                raise AssertionError(f"meanshift {what}: {n_ms[what]} "
+                                     "centres on the card and the CPU, or "
+                                     "other labels")
+        if n_ms["planted"][0] != len(MS_MATERIALS):
+            raise AssertionError(f"meanshift found {n_ms['planted'][0]} of "
+                                 f"{len(MS_MATERIALS)} planted materials")
+        for lab, t in zip(labs[0], truth):
+            pairs = np.unique(np.stack([t.ravel(), lab.ravel()]), axis=1)
+            if len(pairs[0]) != len(MS_MATERIALS) + 1 or len(
+                    np.unique(pairs[0])) != len(pairs[0]) or len(
+                    np.unique(pairs[1])) != len(pairs[1]):
+                raise AssertionError("meanshift: the labels are not the "
+                                     f"planted sectors ({pairs.tolist()})")
+
+        # the CSV tables
+        csvs = {}
+        for dev in (str(device), "cpu"):
+            for name, fn, src in (
+                    ("metric_cli", vis_csv.metric_json_to_csv,
+                     os.path.join(ev, "metric_cli_%s.json" % dev)),
+                    ("metric_mat", vis_csv.metric_json_to_csv,
+                     os.path.join(ev, "metric_mat_%s.json" % dev)),
+                    ("cluster", vis_csv.cluster_json_to_csv,
+                     _cluster_table_json(
+                         os.path.join(ev, "cluster_%s.json" % dev),
+                         os.path.join(ev, "cluster_table_%s.json" % dev)))):
+                path = os.path.join(ev, "%s_%s.csv" % (name, dev))
+                fn(src, path)
+                with open(path, "rb") as f:
+                    csvs.setdefault(name, []).append(f.read())
+        csv_cells = [_same_csv(a, b, name)
+                       for name, (a, b) in csvs.items()]
+
+        # SSIM and LPIPS of one 512x512 view, on the card
+        gt_img = (vio.load_img_f32(os.path.join(
+            paths["data_root"], views[0], "rgba.png"))[..., :3] * 255).astype(
+                np.uint8)
+        pd_img = vio.read_png(os.path.join(serve_root, "pd_test",
+                                           "batch%09d" % 0, "pred_rgb.png"))
+        timing = {}
+        for name, fn in (("ssim", metrics.ssim), ("lpips", metrics.lpips)):
+            call = functools.partial(fn, gt_img, pd_img, device=device)
+            timing[name + "_ms"] = _time_ms(call, reps=5)
+            timing[name + "_device_ms"], timing[name + "_kernels"] = \
+                _device_ms(call, reps=5)
+        print("eval and import: card against CPU, the score JSONs within "
+              "relative %.3e, cluster-eval equal, meanshift %d (gen-z) and "
+              "%d (planted) centres and equal label maps, %d CSV tables "
+              "with %d of %d cells in their last digits (within 1e-9), the "
+              "rest equal; one 512x512 view: %s"
+              % (err, n_ms["gen-z"][0], n_ms["planted"][0], len(csvs),
+                 sum(n for n, _ in csv_cells), sum(m for _, m in csv_cells),
+                 json.dumps(timing)), flush=True)
+        print("metric-eval (cli tree, nerf, %d relights): %s" % (
+            len(metric_eval.ENV_LIGHTS_CG), json.dumps(
+                {b: {m: float(np.mean(v)) for m, v in ms.items()}
+                 for b, ms in out["metric_cli"][0][GEO_SCENE].items()})))
+        print("eval_dataset (served 512x512 views, mat, 512 -> 420): %s; "
+              "cluster-eval %s" % (json.dumps(
+                  {b: {m: float(np.mean(v)) for m, v in ms.items()}
+                   for b, ms in out["metric_mat"][0][SCENE].items()}),
+                  json.dumps(out["cluster"][0])), flush=True)
+    finally:
+        if old_env is None:
+            os.environ.pop("VQNERF_LPIPS_WEIGHTS", None)
+        else:
+            os.environ["VQNERF_LPIPS_WEIGHTS"] = old_env
+
+    # reference-layout TF checkpoints of the trained models, imported
+    cfg, _ = vcfg.decomp_config_for_scene(GEO_SCENE, imh=CLI_IMH)
+    train = {m: vcfg.train_outdir(cli_out, GEO_SCENE, m)
+             for m in ("vq_nfr", "ref_nfr")}
+    tf_root = os.path.join(root, "tf_ckpt")
+    fresh = os.path.join(root, "tf_imported")
+    vq_state = ckpt_util.load_ckpt(ckpt_util.latest_ckpt(train["vq_nfr"]))
+    vq_model = cli._load_phase_model(train["vq_nfr"], cfg, "vq_nfr", "cpu")
+    ref_model = cli._load_phase_model(train["ref_nfr"], cfg, "ref_nfr",
+                                      "cpu", vq=vq_model)
+    n_vq = find_vq(os.path.join(train["vq_nfr"], "vis_vali",
+                                "epoch%09d" % 1))
+
+    def import_argv(kind, out_root):
+        extra = (["--main-k", str(n_vq)] if kind == "vq_nfr" else
+                 ["--vq-ckpt", os.path.join(tf_root, "vq_nfr")])
+        return ["--phase", kind, "--ckpt", os.path.join(tf_root, kind),
+                "--out", vcfg.train_outdir(out_root, GEO_SCENE, kind),
+                *extra]
+
+    def tf_import_both():
+        write_tf_checkpoint(os.path.join(tf_root, "vq_nfr"),
+                            reference_tf_tensors(vq_model, "vq_nfr",
+                                                 vq_state["ema"],
+                                                 cfg.vq_decay))
+        write_tf_checkpoint(os.path.join(tf_root, "ref_nfr"),
+                            reference_tf_tensors(ref_model, "ref_nfr"))
+        for kind in ("vq_nfr", "ref_nfr"):
+            tf_import.main(import_argv(kind, fresh))
+
+    _eval_step("tf import", tf_import_both, steps)
+    # the command a user runs, in a process of its own: its launches are
+    # not the parent's to count, so it stays out of ``steps``
+    by_cmd = os.path.join(root, "tf_imported_cmd")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vqnerf_release_torch.interop.tf_import",
+         *import_argv("ref_nfr", by_cmd)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    cmd_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m ...tf_import --phase ref_nfr exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    cmd_state, in_proc = (ckpt_util.load_ckpt(ckpt_util.latest_ckpt(
+        vcfg.train_outdir(r, GEO_SCENE, "ref_nfr"))) for r in (by_cmd, fresh))
+    if set(cmd_state["params"]) != set(in_proc["params"]) or not all(
+            torch.equal(cmd_state["params"][k], v)
+            for k, v in in_proc["params"].items()):
+        raise AssertionError("python -m ...tf_import wrote another ref_nfr "
+                             "checkpoint than tf_import.main")
+    print("eval and import python -m ...tf_import --phase ref_nfr: %.3f s, "
+          "its checkpoint equal to tf_import.main's" % cmd_s, flush=True)
+    n_tensors = 0
+    for kind in ("vq_nfr", "ref_nfr"):
+        got = ckpt_util.load_ckpt(ckpt_util.latest_ckpt(
+            vcfg.train_outdir(fresh, GEO_SCENE, kind)))
+        want = ckpt_util.load_ckpt(ckpt_util.latest_ckpt(train[kind]))
+        if set(got["params"]) != set(want["params"]):
+            raise AssertionError(f"{kind}: imported keys differ")
+        pairs = [(k, got["params"][k], want["params"][k])
+                 for k in want["params"]]
+        if kind == "vq_nfr":
+            pairs += [(f, g, w) for f, g, w in zip(
+                VqEmaState._fields, got["ema"], want["ema"])]
+        for k, g, w in pairs:
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"{kind} {k}: imported != trained")
+        n_tensors += len(pairs)
+    test_argv = ["test", GEO_SCENE, "--data-root", cli_data,
+                 "--output-root", fresh, "--surf-root",
+                 vcfg.surf_dir(os.path.join(cli_out, "surf"), GEO_SCENE),
+                 "--test-envmap-dir", paths["env_dir"], "--preset-override",
+                 "imh=%d" % CLI_IMH, "--device", str(device)]
+    _step("test (TF-imported)", lambda: cli.main(test_argv), steps,
+          "eval and import")
+    _assert_vector_render(steps["test (TF-imported)"], "test (TF-imported)")
+    served = os.path.join(ref_out, "vis_test", "latest")
+    again = os.path.join(vcfg.train_outdir(fresh, GEO_SCENE, "ref_nfr"),
+                         "vis_test", "latest")
+    if _files(again) != _files(served):
+        raise AssertionError("the TF-imported models wrote other files")
+    max_err, n_cmp = 0.0, 0
+    for rel in _files(served):
+        if rel.endswith(".npy"):
+            max_err = max(max_err, _compare(
+                torch.from_numpy(np.load(os.path.join(again, rel))).double(),
+                torch.from_numpy(np.load(os.path.join(served, rel))).double(),
+                "TF-imported against direct, " + rel))
+            n_cmp += 1
+    print("tf import: %d tensors of vq_nfr and ref_nfr equal to the trained "
+          "ones bit for bit; test on the imported models: %d arrays within "
+          "rtol %g / atol %g of the direct serve (max abs err %.3e), %d "
+          "render-kernel launches, all of the 16-byte instance"
+          % (n_tensors, n_cmp, RTOL, ATOL, max_err,
+             steps["test (TF-imported)"]["launches"]["fused_brdf_render"]),
+          flush=True)
     return steps
 
 
@@ -2744,6 +3394,15 @@ def main():
                                                     3)}
                               for k, v in edit_steps.items()})), flush=True)
 
+        # ---- evaluation, and the reference's TF checkpoints imported -----
+        t0 = time.perf_counter()
+        eval_steps = eval_import_phase(root, paths, outroot, device)
+        print("eval and import phase: %.1f s; steps %s" % (
+            time.perf_counter() - t0,
+            json.dumps({k: {"seconds": round(v["seconds"], 3),
+                            "peak_gib": round(v["peak_bytes"] / 2**30, 3)}
+                        for k, v in eval_steps.items()})), flush=True)
+
     for entry in (render_entry, vq_entry, fwd_entry, fwdgrad_entry):
         by_sub = {sub: n[entry["name"]] for sub, n in cli_launches.items()}
         entry["cli_launches"] = sum(by_sub.values())
@@ -2752,6 +3411,10 @@ def main():
                    for step, st in edit_steps.items()}
         entry["edit_video_launches"] = sum(by_step.values())
         entry["edit_video_launches_by_step"] = by_step
+        by_step = {step: st["launches"][entry["name"]]
+                   for step, st in eval_steps.items()}
+        entry["eval_import_launches"] = sum(by_step.values())
+        entry["eval_import_launches_by_step"] = by_step
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [render_entry, vq_entry, fwd_entry,
                                   fwdgrad_entry]}))

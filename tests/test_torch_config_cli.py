@@ -46,7 +46,7 @@ from vqnerf_release_torch.utils import profiling
 
 SUBCOMMANDS = ["geo-train", "gen-geo", "decomp-train", "test", "ini-train",
                "gen-z", "reselect-main", "edit-server", "edit-ui",
-               "gen-video", "geo-video"]
+               "gen-video", "geo-video", "metric-eval", "cluster-eval"]
 FAMILY_SCENES = ["lego_3072", "chair0_3072", "dtu_scan24", "colmap_bottle",
                  "rabbit_-1"]
 

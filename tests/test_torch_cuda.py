@@ -1029,3 +1029,67 @@ def test_ref_nfr_step_cuda_matches_cpu(cuda_device):
             assert not torch.equal(sd_g[k], frozen0[k]), k
             torch.testing.assert_close(sd_g[k], sd_c[k], rtol=1e-3,
                                        atol=1e-5, msg=k)
+
+
+# ---- evaluation: the card against the CPU -----------------------------------
+
+
+def _eval_images(h=160, w=200, seed=0):
+    rs = np.random.RandomState(seed)
+    a = (rs.rand(h, w, 3) * 255).astype(np.uint8)
+    b = np.clip(a.astype(int) + rs.randint(-40, 40, a.shape), 0,
+                255).astype(np.uint8)
+    return a, b
+
+
+@pytest.mark.cuda
+def test_ssim_and_proxy_cuda_match_cpu(cuda_device):
+    """float64 on both: within 1e-9 relative (sums in another order)."""
+    from vqnerf_release_torch.eval import metrics
+    a, b = _eval_images()
+    for fn in (metrics.ssim, metrics._lpips_proxy):
+        got, want = fn(a, b, device=cuda_device), fn(a, b, device="cpu")
+        assert abs(got - want) <= 1e-9 * abs(want), (fn.__name__, got, want)
+
+
+@pytest.mark.cuda
+def test_lpips_alexnet_cuda_matches_cpu(cuda_device, tmp_path):
+    """AlexNet LPIPS at the published widths (random weights) in float64,
+    the card against the CPU within 1e-9 relative."""
+    from vqnerf_release_torch.eval.lpips_net import lpips_from_weights
+    rs = np.random.RandomState(1)
+    widths, ks = [3, 64, 192, 384, 256, 256], [11, 5, 3, 3, 3]
+    w = {}
+    for i in range(5):
+        w[f"conv{i + 1}/kernel"] = (0.05 * rs.randn(
+            ks[i], ks[i], widths[i], widths[i + 1])).astype(np.float32)
+        w[f"conv{i + 1}/bias"] = (0.05 * rs.randn(widths[i + 1])).astype(
+            np.float32)
+        w[f"lin{i}/kernel"] = rs.rand(1, 1, widths[i + 1], 1).astype(
+            np.float32)
+    path = str(tmp_path / "alex.npz")
+    np.savez(path, **w)
+    a, b = _eval_images(256, 256, 2)
+    got = lpips_from_weights(a, b, path, device=cuda_device)
+    want = lpips_from_weights(a, b, path, device="cpu")
+    assert abs(got - want) <= 1e-9 * abs(want), (got, want)
+
+
+@pytest.mark.cuda
+def test_meanshift_cuda_matches_cpu(cuda_device):
+    """The same centres within 1e-9 and the same labels, the card against
+    the CPU, on clustered float32 features as gen-z exports them."""
+    from vqnerf_release_torch.eval import meanshift
+    rs = np.random.RandomState(3)
+    centres = rs.rand(6, 7)
+    x = (centres[rs.randint(0, 6, 8000)]
+         + 0.03 * rs.randn(8000, 7)).astype(np.float32)
+    got = meanshift.mean_shift(x, 0.2, device=cuda_device)
+    want = meanshift.mean_shift(x, 0.2, device="cpu")
+    assert got.shape == want.shape and got.shape[0] >= 4
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    pts = torch.as_tensor(x, dtype=torch.float64)
+    lab_g = meanshift.nearest_center(pts.to(cuda_device),
+                                     torch.as_tensor(got, device=cuda_device))
+    lab_c = meanshift.nearest_center(pts, torch.as_tensor(want))
+    assert torch.equal(lab_g.cpu(), lab_c)

@@ -146,7 +146,12 @@ def test_resize_matches_cv2_area(shape, new_h):
 def test_resize_rejects_other_factors():
     img = np.zeros((30, 60, 3), np.float32)
     with pytest.raises(NotImplementedError):
-        t_io.resize(img, new_h=20)  # 1.5x down
+        t_io.resize(img.astype(np.uint8), new_h=20)  # an integer image 1.5x
+    # a float image 1.5x down is cv2.INTER_AREA's weighted mean now
+    flt = np.random.RandomState(0).rand(30, 60, 3).astype(np.float32)
+    np.testing.assert_array_equal(
+        t_io.resize(flt, new_h=20),
+        cv2.resize(flt, (40, 20), interpolation=cv2.INTER_AREA))
     with pytest.raises(NotImplementedError):
         t_io.resize(img.astype(np.uint8), new_h=60)  # an integer image up
     with pytest.raises(NotImplementedError):

@@ -247,7 +247,8 @@ def test_port_runs_without_jax_or_cv2():
 
 def test_port_sources_do_not_import_the_jax_package():
     """No file of the port, nor chip_smoke.py, has an import of jax, optax,
-    orbax, cv2, PIL, imageio or the JAX package."""
+    orbax, cv2, PIL, imageio, sklearn, pandas, tensorflow or the JAX
+    package."""
     import ast
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(REPO, "vqnerf_release_torch")):
@@ -259,11 +260,17 @@ def test_port_sources_do_not_import_the_jax_package():
                  os.path.join("pipelines", "edit.py"),
                  os.path.join("pipelines", "edit_client.py"),
                  os.path.join("pipelines", "edit_web.py"),
-                 os.path.join("pipelines", "gen_video.py")):
+                 os.path.join("pipelines", "gen_video.py"),
+                 os.path.join("eval", "metric_eval.py"),
+                 os.path.join("eval", "cluster_eval.py"),
+                 os.path.join("eval", "meanshift.py"),
+                 os.path.join("eval", "vis_csv.py"),
+                 os.path.join("interop", "tf_bundle.py"),
+                 os.path.join("interop", "tf_import.py")):
         assert any(p.endswith(os.path.join("vqnerf_release_torch", name))
                    for p in paths), name
     banned = {"jax", "jaxlib", "optax", "orbax", "cv2", "PIL", "imageio",
-              "vqnerf_release_tpu"}
+              "sklearn", "pandas", "tensorflow", "vqnerf_release_tpu"}
     for path in paths:
         with open(path) as f:
             tree = ast.parse(f.read())

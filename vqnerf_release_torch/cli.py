@@ -15,6 +15,10 @@ defaults and output tree:
   * gen-video     <scene>   a trajectory rendered in one of five modes
                             (pipelines/gen_video.py)
   * geo-video     <scene>   the trajectory's geometry buffers
+  * metric-eval             PSNR/SSIM/LPIPS of test renders against GT
+                            (eval/metric_eval.py)
+  * cluster-eval            segmentation scores of the pd_vq embed maps
+                            (eval/cluster_eval.py)
 
     python -m vqnerf_release_torch.cli <subcommand> ... [--device cuda]
 
@@ -28,7 +32,8 @@ and exits with an error when that device is not there: nothing falls back
 to the CPU. Checkpoints are
 the port's ``torch.save`` files (utils/ckpt.py); a checkpoint of the JAX
 package is brought over with ``python -m
-vqnerf_release_torch.interop.jax_ckpt``.
+vqnerf_release_torch.interop.jax_ckpt``, a reference TensorFlow
+checkpoint with ``python -m vqnerf_release_torch.interop.tf_import``.
 """
 
 import argparse
@@ -567,6 +572,41 @@ def cmd_gen_video(args):
                       os.path.join(outroot, "video.avi"), fps=args.fps)
 
 
+def cmd_metric_eval(args):
+    from .eval.metric_eval import eval_dataset
+    scores = eval_dataset(
+        args.scenes.split(","), args.family, args.pred_root,
+        args.gt_root, out_json=args.out_json, model_name=args.model,
+        device=args.device)
+    print("lpips_impl:", scores.get("_lpips_impl", "proxy"))
+    for scene, bufs in scores.items():
+        if scene.startswith("_"):
+            continue
+        for buf, ms in bufs.items():
+            if ms["psnr"]:
+                print(scene, buf,
+                      "psnr %.2f" % np.mean(ms["psnr"]),
+                      "ssim %.4f" % np.mean(ms["ssim"]),
+                      "lpips %.4f" % np.mean(ms["lpips"]))
+
+
+def cmd_cluster_eval(args):
+    import json
+
+    from .eval.cluster_eval import eval_scene_segmentation
+    out = {}
+    for scene in args.scenes.split(","):
+        m = eval_scene_segmentation(
+            os.path.join(args.rgba_root, scene),
+            os.path.join(args.label_root, scene),
+            os.path.join(args.pred_root, scene), device=args.device)
+        out[scene] = m
+        print(scene, m)
+    os.makedirs(os.path.dirname(args.out_json) or ".", exist_ok=True)
+    with open(args.out_json, "w") as f:
+        json.dump({"vq": out}, f)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser("vqnerf-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -742,6 +782,25 @@ def main(argv=None):
                         "passes (use_fused_sdf=True; without the flag they "
                         "are on for CUDA and off on the CPU)")
     p.set_defaults(fn=cmd_geo_video)
+
+    p = sub.add_parser("metric-eval")
+    p.add_argument("--family", required=True,
+                   choices=["nerf", "mat", "dtu", "ours", "hw"])
+    p.add_argument("--scenes", required=True,
+                   help="comma-separated scene names")
+    p.add_argument("--pred-root", required=True)
+    p.add_argument("--gt-root", required=True)
+    p.add_argument("--out-json", default="scores/ref_nfr.json")
+    p.add_argument("--model", default="ref_nfr")
+    p.set_defaults(fn=cmd_metric_eval)
+
+    p = sub.add_parser("cluster-eval")
+    p.add_argument("--scenes", required=True)
+    p.add_argument("--rgba-root", required=True)
+    p.add_argument("--label-root", required=True)
+    p.add_argument("--pred-root", required=True)
+    p.add_argument("--out-json", default="cluster.json")
+    p.set_defaults(fn=cmd_cluster_eval)
 
     for name, p in sub.choices.items():
         if name != "edit-ui":  # the web page computes nothing

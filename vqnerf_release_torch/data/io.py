@@ -12,9 +12,13 @@ vqnerf_release_tpu/data/io.py, which reads and writes through cv2).
     a flat writer, with OpenCV's RGBE conversion (rgbe.c: value =
     mantissa * 2^(exponent - 136), no half-step offset).
   * ``resize``: the same size passes through; an integer-factor
-    downscale is a block mean, which is what cv2.INTER_AREA gives there; a
-    float image is upscaled bilinearly, as cv2.INTER_LINEAR does. Other
-    cases raise NotImplementedError.
+    downscale is a block mean, which is what cv2.INTER_AREA gives there; any
+    other downscale of a float image is cv2.INTER_AREA's weighted area mean
+    (its table of source spans, float32 weights, a horizontal then a
+    vertical pass); a float image is upscaled bilinearly, as
+    cv2.INTER_LINEAR does. Other cases (a non-integer downscale of an
+    integer image, a downscale along one axis with an upscale along the
+    other) raise NotImplementedError.
   * ``read_rgba16`` and ``resize_u8_linear``: the stage-1 loaders' 16-bit
     RGBA read (floor-divided to 8 bits) and their bilinear resize of uint8
     images to a new height, in cv2's 11-bit fixed point.
@@ -22,6 +26,7 @@ vqnerf_release_tpu/data/io.py, which reads and writes through cv2).
 
 import glob
 import json
+import math
 import os
 import struct
 import zlib
@@ -486,9 +491,57 @@ def resize_u8_linear(img, new_h, new_w):
     return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
 
 
+def _area_terms(n, new_n):
+    """cv2.INTER_AREA's table along one axis (resize.cpp
+    computeResizeAreaTab): for destination cell d the source span
+    [d * s, (d + 1) * s), s = 1 / (new_n / n), a partial weight at either
+    end where the fraction exceeds 1e-3, and every weight divided by the
+    cell's width. Returns (source index, float32 weight), each [new_n, T],
+    the terms of a cell in cv2's order and padded with weight 0."""
+    scale = 1.0 / (new_n / n)
+    cells = []
+    for d in range(new_n):
+        fs1 = d * scale
+        fs2 = fs1 + scale
+        width = min(scale, n - fs1)
+        s1, s2 = math.ceil(fs1), math.floor(fs2)
+        s2 = min(s2, n - 1)
+        s1 = min(s1, s2)
+        terms = []
+        if s1 - fs1 > 1e-3:
+            terms.append((s1 - 1, (s1 - fs1) / width))
+        terms += [(s, 1.0 / width) for s in range(s1, s2)]
+        if fs2 - s2 > 1e-3:
+            terms.append((s2, min(min(fs2 - s2, 1.0), width) / width))
+        cells.append(terms)
+    t = max(len(c) for c in cells)
+    idx = np.zeros((new_n, t), np.int64)
+    wts = np.zeros((new_n, t), np.float32)
+    for d, terms in enumerate(cells):
+        for j, (s, a) in enumerate(terms):
+            idx[d, j], wts[d, j] = s, np.float32(a)
+    return idx, wts
+
+
+def _area_axis(img, new_n, axis):
+    """One pass of the area mean along ``axis``: each cell's terms summed
+    in cv2's order in the image's float type (first term times its
+    weight, then each further term times its weight added)."""
+    idx, wts = _area_terms(img.shape[axis], new_n)
+    shape = [1] * img.ndim
+    shape[axis] = new_n
+    out = None
+    for j in range(idx.shape[1]):
+        term = np.take(img, idx[:, j], axis=axis) * wts[:, j].astype(
+            img.dtype).reshape(shape)
+        out = term if out is None else out + term
+    return out
+
+
 def resize(img, new_h=None, new_w=None):
     """Passthrough at the same size; integer-factor area downscale (block
-    mean, as cv2.INTER_AREA); bilinear upscale of float images (as
+    mean, as cv2.INTER_AREA); any other downscale of a float image as
+    cv2.INTER_AREA computes it; bilinear upscale of float images (as
     cv2.INTER_LINEAR). Any other case raises."""
     h, w = img.shape[:2]
     if new_h is not None and new_w is None:
@@ -498,14 +551,22 @@ def resize(img, new_h=None, new_w=None):
     if (new_h, new_w) == (h, w):
         return img
     img = np.asarray(img)
-    if new_h >= h and new_w >= w and np.issubdtype(img.dtype, np.floating):
+    floating = np.issubdtype(img.dtype, np.floating)
+    if new_h >= h and new_w >= w and floating:
         out = _bilinear_axis(img.astype(np.float32), new_w, 1)
         return _bilinear_axis(out, new_h, 0).astype(img.dtype)
-    if new_h > h or new_w > w or h % new_h or w % new_w:
+    if new_h > h or new_w > w:
         raise NotImplementedError(
-            f"resize {h}x{w} -> {new_h}x{new_w}: only integer-factor "
-            "downscales and float upscales are ported (a cv2-equal general "
-            "resize is later work)")
+            f"resize {h}x{w} -> {new_h}x{new_w}: a downscale along one axis "
+            "with an upscale along the other is not ported")
+    if h % new_h or w % new_w:
+        if not floating:
+            raise NotImplementedError(
+                f"resize {h}x{w} -> {new_h}x{new_w} of a {img.dtype} image: "
+                "only integer-factor downscales of integer images are "
+                "ported")
+        # horizontal, then vertical, as cv2's ResizeArea_Invoker sums
+        return _area_axis(_area_axis(img, new_w, 1), new_h, 0)
     fy, fx = h // new_h, w // new_w
     blocks = img.reshape((new_h, fy, new_w, fx) + img.shape[2:])
     out = blocks.astype(np.float64).mean(axis=(1, 3))
