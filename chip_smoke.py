@@ -169,15 +169,45 @@ fast-vis shadow pass.)
    within rtol 2e-4 / atol 1e-5 of the direct serve); the ref_nfr import
    again through `python -m vqnerf_release_torch.interop.tf_import`,
    its checkpoint equal to the in-process one;
-13. prints the pass times, peak device memory of each path, each
+13. turns a capture into a scene and reads the remaining file formats
+   ("capture and formats"; every kernel's launch count set to 0 just
+   before each step and read just after, each step's seconds and peak
+   memory printed; a kernel launched where none should be fails): right
+   after step 11's edits, step 3's probes rewritten as float32 ZIP EXRs
+   (and HALF_PROBES as half EXRs, ZIPS and NONE) and `test`'s run_test
+   over one served 512x512 view with each probe directory (kernel 1
+   launched, all of the 16-byte instance; the float32 EXRs' pd_relit PNGs
+   equal the .hdr run's bit for bit, the half probes' difference
+   printed). After step 12: the textured sphere rendered as a capture
+   (CAPTURE_TRAIN + CAPTURE_VAL 8-bit views of CAPTURE_IMH), a binary
+   COLMAP model of its cameras (PINHOLE, qvec / tvec, points with tracks
+   on the sphere and on the table it stands on), imgs2poses(run_sfm=False)
+   (every world_mat K.w2c, 99% of the points inside scale_mat's unit
+   sphere), the colmap_* scene layout ({train,val}.json, 16-bit rgba.png),
+   the DtuSceneDataset's rays against the frames' alpha (99% of the pixels
+   agree), then cli.main geo-train (CAPTURE_GEO_ITERS steps at the "ours"
+   preset: 512 rays, new_h 420, kernel 3 exactly up_sample_steps a step)
+   and gen-geo (kernel 3, no lvis so no kernel 4); the same views through
+   the ArUco conversion (convert_cameras with a crop: world mats with the
+   principal point shifted, the crops equal the frames') and
+   make_real_dataset at CAPTURE_REAL_IMH (the rays of NerfSceneDataset and
+   NerfRaysDataset equal nerf_rays of the capture's c2w); the committed
+   JPEG fixtures (tests/data/torch_jpeg) equal to cv2's decodes committed
+   beside them, with the decode seconds on the host; a seeded 35 MB MERL
+   .binary through merl_to_npz and read_merl; render_brdf_sphere at its
+   defaults and ShapeRefine's forward, loss and backward at DecompConfig
+   widths over CAPTURE_SHAPE_RAYS rays, each on the card and on the CPU
+   (rtol 1e-5);
+14. prints the pass times, peak device memory of each path, each
    subcommand's seconds, the script's total, a {"kernels": [...]} line with
    all four kernels (each with ms, device_ms, plain_ms, bound_ms; kernel
    3's launches are those of NeuS training and extraction, given apart on
    an earlier line; cli_launches, the launches of step 10, and
    cli_launches_by_subcommand; edit_video_launches and
    edit_video_launches_by_step, those of step 11; eval_import_launches
-   and eval_import_launches_by_step, those of step 12), and as the last
-   line {"ok": true, "device": {...}}.
+   and eval_import_launches_by_step, those of step 12; capture_launches
+   and capture_launches_by_step, those of step 13), and as the last line
+   {"ok": true, "device": {...}}.
 
 Cuts, all of scale and none of width: 4 train views and 1 validation view
 in place of a scene's 100 and 8, 2 epochs in place of 150, 2 served views;
@@ -190,7 +220,10 @@ evaluation set of CLI_VQ_SAMPLES rows, printed in its "cli cuts" line; for
 video VIDEO_FRAMES trajectory frames of 128x128 in place of a test
 trajectory's 200 or more, and 2 edited views; for evaluation 1 view of
 128x128 (the cli tree) and 2 of 512x512 in place of a scene's 8 at
-800x800, 1 view's materials for gen-z's mean shift.
+800x800, 1 view's materials for gen-z's mean shift; for the capture 6
+train and 2 val views of 560x560 in place of a capture's tens of
+photographs at several megapixels, CAPTURE_GEO_ITERS geometry steps in
+place of 100,000, and one served view a probe directory.
 
 Any failure raises and exits non-zero; without CUDA it exits 1 before doing
 anything.
@@ -1223,48 +1256,63 @@ def check_vq_kernel(trained, cfg, device):
     }
 
 
-def write_stage1_scene(root, imh, n_train, n_val, seed, eye_dist=2.0):
-    """A NeRF-convention stage-1 scene: transforms_{train,val}.json and a
-    16-bit rgba.png per view. The cameras lie on a circle of radius
-    eye_dist (height 0.15 eye_dist) and look at the origin, the train views
-    evenly spaced and the val views between them. The object is a sphere of
-    radius
-    GEO_GT_RADIUS with a texture fixed to its surface (smooth blobs of its
-    base colour), so that the views agree on where each surface point lies;
-    the background is white. Both carry 3% of per-pixel noise."""
-    rs = np.random.default_rng(seed)
-    angle_x = 0.8
+def circle_c2w(i, n_train, mode, eye_dist=2.0):
+    """The c2w (NeRF convention) of write_stage1_scene's view i: on a
+    circle of radius eye_dist at height 0.15 eye_dist, looking at the
+    origin, the train views evenly spaced and the val views between
+    them."""
+    ang = 2 * np.pi * (i + (0.5 if mode == "val" else 0.0)) \
+        / max(n_train, 1)
+    eye = eye_dist * np.array([np.sin(ang), 0.15, np.cos(ang)])
+    fwd = -eye / np.linalg.norm(eye)
+    right = np.cross(fwd, [0.0, 1.0, 0.0])
+    right /= np.linalg.norm(right)
+    c2w = np.eye(4)
+    c2w[:3, 0], c2w[:3, 1] = right, np.cross(right, fwd)
+    c2w[:3, 2], c2w[:3, 3] = -fwd, eye
+    return c2w
+
+
+def sphere_rgba(c2w, imh, angle_x, rs):
+    """A view [imh, imh, 4] in [0, 1] of the textured sphere of radius
+    GEO_GT_RADIUS at the origin from ``c2w``: pixel (x, y) looks along
+    ((x - imh // 2) / f, -(y - imh // 2) / f, -1); the texture is fixed to
+    the surface (smooth blobs of its base colour), the background white,
+    both with 3% of per-pixel noise from ``rs``; alpha is the hit mask."""
     fl = 0.5 * imh / np.tan(0.5 * angle_x)
     xs, ys = np.meshgrid(np.arange(imh, dtype=np.float64),
                          np.arange(imh, dtype=np.float64))
     dirs = np.stack(((xs - imh // 2) / fl, -(ys - imh // 2) / fl,
                      -np.ones_like(xs)), axis=-1)
+    eye = c2w[:3, 3]
+    rayd = dirs @ c2w[:3, :3].T
+    rayd /= np.linalg.norm(rayd, axis=-1, keepdims=True)
+    b = rayd @ eye
+    disc = b * b - (eye @ eye - GEO_GT_RADIUS**2)
+    hit = disc > 0
+    p = eye + (-b - np.sqrt(np.maximum(disc, 0.0)))[..., None] * rayd
+    blobs = np.prod(np.sin(9.0 * p), axis=-1)
+    rgba = np.empty((imh, imh, 4))
+    rgba[..., :3] = np.where(
+        hit[..., None],
+        np.array([0.8, 0.5, 0.3]) * (0.55 + 0.45 * blobs[..., None]),
+        1.0) * (0.97 + 0.03 * rs.random((imh, imh, 1)))
+    rgba[..., 3] = hit
+    return rgba
+
+
+def write_stage1_scene(root, imh, n_train, n_val, seed, eye_dist=2.0):
+    """A NeRF-convention stage-1 scene: transforms_{train,val}.json and a
+    16-bit rgba.png per view of ``sphere_rgba``'s textured sphere, from the
+    cameras of ``circle_c2w``."""
+    rs = np.random.default_rng(seed)
+    angle_x = 0.8
     for mode, n in (("train", n_train), ("val", n_val)):
         frames = []
         for i in range(n):
-            ang = 2 * np.pi * (i + (0.5 if mode == "val" else 0.0)) \
-                / max(n_train, 1)
-            eye = eye_dist * np.array([np.sin(ang), 0.15, np.cos(ang)])
-            fwd = -eye / np.linalg.norm(eye)
-            right = np.cross(fwd, [0.0, 1.0, 0.0])
-            right /= np.linalg.norm(right)
-            c2w = np.eye(4)
-            c2w[:3, 0], c2w[:3, 1] = right, np.cross(right, fwd)
-            c2w[:3, 2], c2w[:3, 3] = -fwd, eye
+            c2w = circle_c2w(i, n_train, mode, eye_dist)
             frames.append({"transform_matrix": c2w.tolist()})
-            rayd = dirs @ c2w[:3, :3].T
-            rayd /= np.linalg.norm(rayd, axis=-1, keepdims=True)
-            b = rayd @ eye
-            disc = b * b - (eye @ eye - GEO_GT_RADIUS**2)
-            hit = disc > 0
-            p = eye + (-b - np.sqrt(np.maximum(disc, 0.0)))[..., None] * rayd
-            blobs = np.prod(np.sin(9.0 * p), axis=-1)
-            rgba = np.empty((imh, imh, 4))
-            rgba[..., :3] = np.where(
-                hit[..., None],
-                np.array([0.8, 0.5, 0.3]) * (0.55 + 0.45 * blobs[..., None]),
-                1.0) * (0.97 + 0.03 * rs.random((imh, imh, 1)))
-            rgba[..., 3] = hit
+            rgba = sphere_rgba(c2w, imh, angle_x, rs)
             d = os.path.join(root, "%s_%03d" % (mode, i))
             os.makedirs(d)
             vio.write_png(os.path.join(d, "rgba.png"),
@@ -3261,6 +3309,493 @@ def eval_import_phase(root, paths, serve_root, device):
     return steps
 
 
+# ---- capture and formats ----------------------------------------------------
+
+CAPTURE_SCENE = "colmap_capture"  # the "ours" family, as colmap_* scenes
+CAPTURE_IMH = 560
+CAPTURE_TRAIN, CAPTURE_VAL = 6, 2
+CAPTURE_ANGLE_X = 0.8
+CAPTURE_SPHERE_POINTS, CAPTURE_TABLE_POINTS = 2000, 1000
+CAPTURE_GEO_ITERS = 300
+CAPTURE_CROP = 20
+CAPTURE_REAL_IMH = 420
+CAPTURE_SHAPE_RAYS = 2048
+CAPTURE_RTOL = 1e-5
+HALF_PROBES = 4
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "torch_jpeg")
+
+
+def rotmat2qvec(R):
+    """COLMAP's quaternion (w, x, y, z) of a rotation matrix, w >= 0."""
+    rxx, ryx, rzx, rxy, ryy, rzy, rxz, ryz, rzz = np.asarray(R).flat
+    k = np.array([
+        [rxx - ryy - rzz, 0, 0, 0],
+        [ryx + rxy, ryy - rxx - rzz, 0, 0],
+        [rzx + rxz, rzy + ryz, rzz - rxx - ryy, 0],
+        [ryz - rzy, rzx - rxz, rxy - ryx, rxx + ryy + rzz]]) / 3.0
+    vals, vecs = np.linalg.eigh(k)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return -q if q[0] < 0 else q
+
+
+def capture_views(imh, seed):
+    """The capture: CAPTURE_TRAIN + CAPTURE_VAL views of sphere_rgba's
+    textured sphere from circle_c2w's cameras, as 8-bit RGB frames and
+    masks. Returns [(c2w, w2c in the OpenCV convention, rgb uint8, mask
+    uint8)], train views first, and the pinhole K [3, 3]."""
+    rs = np.random.default_rng(seed)
+    fl = 0.5 * imh / np.tan(0.5 * CAPTURE_ANGLE_X)
+    K = np.array([[fl, 0.0, imh // 2], [0.0, fl, imh // 2], [0.0, 0.0, 1.0]])
+    views = []
+    for mode, n in (("train", CAPTURE_TRAIN), ("val", CAPTURE_VAL)):
+        for i in range(n):
+            c2w = circle_c2w(i, CAPTURE_TRAIN, mode)
+            rgba = sphere_rgba(c2w, imh, CAPTURE_ANGLE_X, rs)
+            w2c = np.linalg.inv(c2w @ np.diag([1.0, -1.0, -1.0, 1.0]))
+            views.append((c2w, w2c,
+                          np.round(rgba[..., :3] * 255).astype(np.uint8),
+                          (rgba[..., 3] * 255).astype(np.uint8)))
+    return views, K
+
+
+def capture_points(seed):
+    """The points SfM would reconstruct: CAPTURE_SPHERE_POINTS on the
+    sphere and CAPTURE_TABLE_POINTS on the table it stands on (a ring of
+    radius 0.45-0.8 at its foot, masked out of the frames). Returns
+    (xyz [P, 3], outward normal [P, 3])."""
+    rs = np.random.default_rng(seed)
+    d = rs.normal(size=(CAPTURE_SPHERE_POINTS, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    ang = rs.uniform(0, 2 * np.pi, CAPTURE_TABLE_POINTS)
+    rad = rs.uniform(0.45, 0.8, CAPTURE_TABLE_POINTS)
+    table = np.stack([rad * np.cos(ang), np.full_like(ang, -GEO_GT_RADIUS),
+                      rad * np.sin(ang)], 1)
+    up = np.tile([0.0, 1.0, 0.0], (CAPTURE_TABLE_POINTS, 1))
+    return (np.concatenate([GEO_GT_RADIUS * d, table]),
+            np.concatenate([d, up]))
+
+
+def write_colmap_model(model_dir, views, K, imh, pts, normals):
+    """A binary COLMAP sparse model of ``views``: one PINHOLE camera, each
+    view's qvec / tvec, and every point with its track (the views it faces
+    and projects into) and each view's 2D points."""
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 1, imh, imh))
+        f.write(struct.pack("<4d", K[0, 0], K[1, 1], K[0, 2], K[1, 2]))
+    tracks = [[] for _ in range(len(pts))]
+    with open(os.path.join(model_dir, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(views)))
+        for i, (c2w, w2c, _, _) in enumerate(views):
+            cam = pts @ w2c[:3, :3].T + w2c[:3, 3]
+            uv = cam[:, :2] / cam[:, 2:] * K[0, 0] + K[:2, 2]
+            faces = np.sum(normals * (c2w[:3, 3] - pts), axis=1) > 0
+            seen = np.flatnonzero(faces & (cam[:, 2] > 0)
+                                  & (uv >= 0).all(1) & (uv < imh).all(1))
+            f.write(struct.pack("<i", i + 1))
+            f.write(struct.pack("<4d", *rotmat2qvec(w2c[:3, :3])))
+            f.write(struct.pack("<3d", *w2c[:3, 3]))
+            f.write(struct.pack("<i", 1))
+            f.write(b"%03d.png\x00" % i)
+            f.write(struct.pack("<Q", len(seen)))
+            for k, p in enumerate(seen):
+                f.write(struct.pack("<3d", uv[p, 0], uv[p, 1], float(p + 1)))
+                tracks[p].append((i + 1, k))
+    with open(os.path.join(model_dir, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(pts)))
+        for p, xyz in enumerate(pts):
+            f.write(struct.pack("<Q", p + 1))
+            f.write(struct.pack("<3d", *xyz))
+            f.write(struct.pack("<3B", 200, 128, 77))
+            f.write(struct.pack("<d", 0.5))
+            f.write(struct.pack("<Q", len(tracks[p])))
+            for img_id, k in tracks[p]:
+                f.write(struct.pack("<2i", img_id, k))
+
+
+def _close_f32(got, want, what):
+    """float32 matrices a conversion chain rounds: within 1e-6 relative
+    (about 8 ulp) plus 1e-6 of the matrix's scale."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    tol = 1e-6 * np.abs(want) + 1e-6 * np.abs(want).max()
+    if not (np.abs(got - want) <= tol).all():
+        raise AssertionError(f"{what}: off by {np.abs(got - want).max()}")
+
+
+def _sphere_hits(rayo, rayd, center, radius):
+    oc = rayo - center
+    b = np.sum(oc * rayd, axis=-1) / np.linalg.norm(rayd, axis=-1)
+    c = np.sum(oc * oc, axis=-1) - radius**2
+    return (b * b - c > 0) & (b < 0)
+
+
+def capture_steps_colmap(root, device, steps):
+    """COLMAP -> scene -> geometry: the capture's frames, a binary COLMAP
+    model of its cameras, imgs2poses, the colmap_* scene layout, the
+    DtuSceneDataset's rays against the frames' alpha, then geo-train and
+    gen-geo through cli.main at the "ours" preset. Returns the views."""
+    from vqnerf_release_torch.data.neus_dataset import DtuSceneDataset
+    from vqnerf_release_torch.preprocess import colmap_wrapper
+
+    cap = os.path.join(root, "capture")
+    views, K = capture_views(CAPTURE_IMH, SEED)
+    pts, normals = capture_points(SEED)
+    sfm = os.path.join(cap, "sfm")
+
+    def colmap():
+        write_colmap_model(os.path.join(sfm, "sparse", "0"), views, K,
+                           CAPTURE_IMH, pts, normals)
+        return colmap_wrapper.imgs2poses(sfm, run_sfm=False)
+
+    pb = _step("imgs2poses", colmap, steps, label="capture")
+    cams = dict(np.load(os.path.join(sfm, "preprocessed",
+                                     "cameras_sphere.npz")))
+    if pb.shape != (len(views), 17) or not np.isfinite(pb).all() \
+            or not (pb[:, 15] < pb[:, 16]).all():
+        raise AssertionError(f"poses_bounds {pb.shape} not finite or near "
+                             ">= far")
+    K4 = np.eye(4)
+    K4[:3, :3] = K
+    for i, (_, w2c, _, _) in enumerate(views):
+        _close_f32(cams["world_mat_%d" % i], K4 @ w2c, "world_mat_%d" % i)
+    scale = cams["scale_mat_0"].astype(np.float64)
+    # 1e-6: the float32 rounding of the stored scale_mat
+    inside = np.linalg.norm((pts - scale[:3, 3]) / scale[0, 0],
+                            axis=1) <= 1 + 1e-6
+    if inside.mean() < 0.99:
+        raise AssertionError(f"scale_mat puts {inside.mean():.4f} of the "
+                             "points inside the unit sphere")
+
+    scene = os.path.join(cap, CAPTURE_SCENE)
+    split = {"train": range(CAPTURE_TRAIN),
+             "val": range(CAPTURE_TRAIN, CAPTURE_TRAIN + CAPTURE_VAL)}
+    for mode, idx in split.items():
+        vio.write_json({"world_mat": [cams["world_mat_%d" % i].tolist()
+                                      for i in idx],
+                        "scale_mat": [cams["scale_mat_%d" % i].tolist()
+                                      for i in idx]},
+                       os.path.join(scene, "%s.json" % mode))
+        for j, i in enumerate(idx):
+            rgba = np.dstack([views[i][2], views[i][3]]).astype(np.uint16)
+            d = os.path.join(scene, "%s_%03d" % (mode, j))
+            os.makedirs(d)
+            vio.write_png(os.path.join(d, "rgba.png"), rgba * 257)
+    ds = DtuSceneDataset(scene, is_train=True, new_h=0)
+    center = -scale[:3, 3] / scale[0, 0]
+    agree = []
+    for i in range(ds.n_images):
+        rayo, rayd = ds.gen_rays_at(i)
+        hit = _sphere_hits(rayo.astype(np.float64), rayd.astype(np.float64),
+                           center, GEO_GT_RADIUS / scale[0, 0])
+        agree.append(np.mean(hit == (ds.masks[i][..., 0] > 0.5)))
+    print("capture: %d views of %dx%d, %d points (%d on the sphere), "
+          "scale_mat radius %.4f, %.4f of the points inside the unit "
+          "sphere; DtuSceneDataset rays hit the sphere where the frames' "
+          "alpha is set on %.5f-%.5f of the pixels"
+          % (len(views), CAPTURE_IMH, CAPTURE_IMH, len(pts),
+             CAPTURE_SPHERE_POINTS, scale[0, 0], inside.mean(), min(agree),
+             max(agree)), flush=True)
+    if min(agree) < 0.99:
+        raise AssertionError(f"rays agree with alpha on {min(agree):.4f}")
+
+    out = os.path.join(cap, "output")
+    common = ["--data-root", scene, "--output-root", out, "--device",
+              str(device)]
+    shipped_cfg, shipped, meta = vcfg.neus_configs_for_scene(CAPTURE_SCENE)
+    warm = max(1, round(shipped.warm_up_end * CAPTURE_GEO_ITERS
+                        / shipped.end_iter))
+    print("capture cuts: %d train + %d val views of %dx%d (new_h %d, "
+          "%d rays a step: the %s preset), geo-train --end-iter %d for the "
+          "shipped %d, warm_up_end %d for %d"
+          % (CAPTURE_TRAIN, CAPTURE_VAL, CAPTURE_IMH, CAPTURE_IMH,
+             meta["new_h"], shipped.batch_size, meta["family"],
+             CAPTURE_GEO_ITERS, shipped.end_iter, warm, shipped.warm_up_end))
+    _step("geo-train", lambda: cli.main(
+        ["geo-train", CAPTURE_SCENE, *common, "--end-iter",
+         str(CAPTURE_GEO_ITERS), "--geo-override",
+         "warm_up_end=%d" % warm]), steps, label="capture")
+    tail_start = CAPTURE_GEO_ITERS - int(round(shipped.tail_frac
+                                               * CAPTURE_GEO_ITERS))
+    want = (shipped_cfg.up_sample_steps * tail_start
+            + vcfg.parse_sampler_spec(shipped.tail_sampler)["up_sample_steps"]
+            * (CAPTURE_GEO_ITERS - tail_start))
+    got = steps["geo-train"]["launches"]
+    if got["sdf_fwd"] != want or got["sdf_fwdgrad"]:
+        raise AssertionError(f"capture geo-train launched {got}; kernel 3 "
+                             f"should run {want} times")
+    _step("gen-geo", lambda: cli.main(["gen-geo", CAPTURE_SCENE, *common]),
+          steps, label="capture")
+    got = steps["gen-geo"]["launches"]
+    if got["sdf_fwd"] <= 0 or got["sdf_fwdgrad"]:
+        raise AssertionError(f"capture gen-geo launched {got}: kernel 3 and "
+                             "no lvis (kernel 4) for a colmap_* scene")
+    surf = vcfg.surf_dir(os.path.join(out, "surf"), CAPTURE_SCENE)
+    names = ["train_%03d" % i for i in range(CAPTURE_TRAIN)] + \
+        ["val_%03d" % i for i in range(CAPTURE_VAL)]
+    if sorted(os.listdir(surf)) != names or not all(
+            gen_geo.check_finished(os.path.join(surf, v), with_lvis=False)
+            for v in names):
+        raise AssertionError(f"gen-geo wrote {sorted(os.listdir(surf))}")
+    n = _check_finite_npy(surf)
+    alpha = np.mean([vio.load_img_f32(os.path.join(surf, v, "alpha.png"))
+                     .mean() for v in names])
+    print("capture gen-geo: %d views of %dx%d, %d arrays finite, mean "
+          "alpha %.4f" % (len(names), meta["new_h"], meta["new_h"], n,
+                          alpha), flush=True)
+    return views, K
+
+
+def capture_steps_aruco_real(root, views, K, steps):
+    """ArUco: tmp/poses.npy (rvec | tvec), tmp/intrinsic.npy and
+    tmp/image_undistort/*.png of the capture, convert_cameras with a crop;
+    then make_real_dataset on the frames and masks at CAPTURE_REAL_IMH,
+    loaded by NerfSceneDataset and NerfRaysDataset."""
+    from scipy.spatial.transform import Rotation
+
+    from vqnerf_release_torch.data import rays as vrays
+    from vqnerf_release_torch.data.nerf_rays_dataset import NerfRaysDataset
+    from vqnerf_release_torch.preprocess import aruco_cameras, data_gen
+
+    work = os.path.join(root, "capture", "aruco")
+    und = os.path.join(work, "tmp", "image_undistort")
+    os.makedirs(und)
+    np.save(os.path.join(work, "tmp", "poses.npy"), np.stack([
+        [Rotation.from_matrix(w2c[:3, :3]).as_rotvec(), w2c[:3, 3]]
+        for _, w2c, _, _ in views]))
+    np.save(os.path.join(work, "tmp", "intrinsic.npy"), K)
+    for i, (_, _, rgb, _) in enumerate(views):
+        vio.write_png(os.path.join(und, "%03d.png" % i), rgb)
+    out = _step("aruco", lambda: aruco_cameras.convert_cameras(
+        work, crop_pixels=CAPTURE_CROP), steps, label="capture")
+    cams = np.load(os.path.join(out, "cameras_sphere.npz"))
+    K4 = np.eye(4)
+    K4[:3, :3] = K
+    K4[:2, 2] -= CAPTURE_CROP
+    c = CAPTURE_CROP
+    for i, (_, w2c, rgb, _) in enumerate(views):
+        _close_f32(cams["world_mat_%d" % i], K4 @ w2c, "aruco world_mat")
+        img = vio.read_png(os.path.join(out, "image", "%03d.png" % i))
+        if not np.array_equal(img, rgb[c:-c, c:-c]):
+            raise AssertionError(f"aruco image {i} is not the frame's crop")
+        mask = vio.read_png(os.path.join(out, "mask", "%03d.png" % i))
+        if mask.shape != img.shape[:2] or (mask != 255).any():
+            raise AssertionError(f"aruco mask {i}")
+
+    real = os.path.join(root, "capture", "real")
+    frames, masks = [], []
+    for i, (_, _, rgb, mask) in enumerate(views):
+        frames.append(os.path.join(real, "frames", "%03d.png" % i))
+        masks.append(os.path.join(real, "masks", "%03d.png" % i))
+        os.makedirs(os.path.dirname(frames[-1]), exist_ok=True)
+        os.makedirs(os.path.dirname(masks[-1]), exist_ok=True)
+        vio.write_png(frames[-1], rgb)
+        vio.write_png(masks[-1], mask)
+    c2ws = [v[0] for v in views]
+    every = (CAPTURE_TRAIN + CAPTURE_VAL) // CAPTURE_VAL
+    counts = _step("make_real_dataset", lambda: data_gen.make_real_dataset(
+        frames, c2ws, CAPTURE_ANGLE_X, os.path.join(real, "scene"),
+        masks=masks, val_every=every, imh=CAPTURE_REAL_IMH), steps,
+        label="capture")
+    if counts != {"train": CAPTURE_TRAIN, "val": CAPTURE_VAL}:
+        raise AssertionError(f"make_real_dataset split {counts}")
+    scene = os.path.join(real, "scene")
+    order = [i for i in range(len(views)) if i % every != every - 1] + \
+        [i for i in range(len(views)) if i % every == every - 1]
+    n_rays = 0
+    for is_train in (True, False):
+        ds = NerfSceneDataset(scene, is_train=is_train)
+        rd = NerfRaysDataset(scene, mode="train" if is_train else "vali",
+                             imh=CAPTURE_REAL_IMH)
+        picks = order[:CAPTURE_TRAIN] if is_train else order[CAPTURE_TRAIN:]
+        if ds.n_images != len(picks) or len(rd) != len(picks) \
+                or ds.H != CAPTURE_REAL_IMH:
+            raise AssertionError("assembled scene: %d / %d views of height "
+                                 "%d" % (ds.n_images, len(rd), ds.H))
+        for j, i in enumerate(picks):
+            ro, rd_ = vrays.nerf_rays(views[i][0], CAPTURE_ANGLE_X,
+                                      CAPTURE_REAL_IMH, CAPTURE_REAL_IMH)
+            v = rd.load_view(rd.files[j])
+            if not (np.array_equal(v["rayo"], ro.reshape(-1, 3))
+                    and np.array_equal(v["rayd"], rd_.reshape(-1, 3))):
+                raise AssertionError(f"NerfRaysDataset rays of view {i}")
+            so, sd = ds.gen_rays_at(j)
+            _, unit = vrays.nerf_rays(views[i][0], CAPTURE_ANGLE_X,
+                                      CAPTURE_REAL_IMH, CAPTURE_REAL_IMH,
+                                      normalize=True)
+            if not (np.array_equal(so, ro)
+                    and np.abs(sd - unit).max() <= 1e-6):
+                raise AssertionError(f"NerfSceneDataset rays of view {i}")
+            n_rays += ro.size // 3
+    print("capture aruco: %d views cropped by %d to %dx%d, world mats and "
+          "crops checked; make_real_dataset: %s at %dx%d, %d rays of "
+          "NerfSceneDataset and NerfRaysDataset equal to nerf_rays"
+          % (len(views), c, CAPTURE_IMH - 2 * c, CAPTURE_IMH - 2 * c,
+             json.dumps(counts), CAPTURE_REAL_IMH, CAPTURE_REAL_IMH, n_rays),
+          flush=True)
+
+
+def exr_relight_steps(cfg, vq, ref, ds, vali_dir, paths, root, device,
+                      steps):
+    """EXR probes on the served model: step 3's probes rewritten as
+    float32 ZIP EXRs, and the first HALF_PROBES as half EXRs (ZIPS and
+    NONE in turn); `test`'s run_test over one 512x512 view with each probe
+    directory. The float32 EXRs' pd_relit PNGs must equal the .hdr run's
+    bit for bit; the half probes' differences are printed."""
+    from vqnerf_release_torch.data import exr
+
+    cap = os.path.join(root, "capture")
+    dirs = {"hdr": paths["env_dir"],
+            "exr32": os.path.join(cap, "probes_exr32"),
+            "exr16": os.path.join(cap, "probes_exr16")}
+    hdrs = sorted(glob.glob(os.path.join(paths["env_dir"], "*.hdr")))
+    for d in (dirs["exr32"], dirs["exr16"]):
+        os.makedirs(d)
+    for i, path in enumerate(hdrs):
+        name = os.path.basename(path)[:-4] + ".exr"
+        env = vio.read_hdr(path)
+        exr.write_exr(os.path.join(dirs["exr32"], name), env,
+                      compression="zip", dtype=np.float32)
+        if i < HALF_PROBES:
+            exr.write_exr(os.path.join(dirs["exr16"], name), env,
+                          compression=("zips", "none")[i % 2],
+                          dtype=np.float16)
+    one = copy.copy(ds)
+    one.files = ds.files[:1]
+    outs = {}
+    for key, env_dir in dirs.items():
+        outs[key] = os.path.join(cap, "serve_" + key)
+        _step("test " + key, functools.partial(
+            run_test, ref, vq, cfg, one, outs[key], env_dir,
+            vali_epoch_dir=vali_dir, data_root=paths["data_root"],
+            scene_name=SCENE, device=device), steps, label="capture")
+        _assert_vector_render(steps["test " + key], "capture test " + key)
+
+    def relit(key):
+        d = os.path.join(outs[key], "pd_relit", "batch%09d" % 0)
+        return {f: vio.read_png(os.path.join(d, f)) for f in sorted(
+            os.listdir(d)) if f.startswith("pred_rgb_probes_")}
+
+    hdr, f32, f16 = relit("hdr"), relit("exr32"), relit("exr16")
+    if sorted(hdr) != sorted(f32) or len(hdr) != len(hdrs) \
+            or len(f16) != HALF_PROBES:
+        raise AssertionError(f"relit files {len(hdr)} / {len(f32)} / "
+                             f"{len(f16)} for {len(hdrs)} probes")
+    for f in hdr:
+        if not np.array_equal(hdr[f], f32[f]):
+            raise AssertionError(f"{f}: the float32 EXR render differs from "
+                                 "the .hdr one")
+    half = max(int(np.abs(f16[f].astype(int) - hdr[f].astype(int)).max())
+               for f in f16)
+    print("capture EXR relight: %d float32-EXR probe renders equal the "
+          ".hdr ones bit for bit; %d half-EXR probes within %d of 255 "
+          "(max abs over the uint8 PNGs); kernel 1 launches %s"
+          % (len(f32), len(f16), half,
+             {k: steps["test " + k]["launches"]["fused_brdf_render"]
+              for k in dirs}), flush=True)
+
+
+def capture_steps_formats(root, device, steps):
+    """JPEG fixtures, MERL, the BRDF sphere and ShapeRefine (each on the
+    card and on the CPU)."""
+    from vqnerf_release_torch.data import merl
+    from vqnerf_release_torch.models import shape_refine
+    from vqnerf_release_torch.ops.sphere_render import render_brdf_sphere
+    from vqnerf_release_torch.preprocess import data_gen
+
+    seconds = {}
+
+    def jpegs():
+        jpgs = sorted(glob.glob(os.path.join(JPEG_FIXTURES, "*.jpg")))
+        if len(jpgs) != 6:
+            raise AssertionError(f"{len(jpgs)} JPEG fixtures")
+        for path in jpgs:
+            t0 = time.perf_counter()
+            got = vio.read_image(path)
+            seconds[os.path.basename(path)] = time.perf_counter() - t0
+            if not np.array_equal(got, vio.read_png(path[:-4] + ".png")):
+                raise AssertionError(f"{path}: not cv2's decode")
+
+    _step("jpeg", jpegs, steps, label="capture")
+    print("capture jpeg: %d fixtures equal cv2's decodes bit for bit; decode "
+          "seconds on this host %s" % (len(seconds), json.dumps(
+              {k: round(v, 4) for k, v in seconds.items()})), flush=True)
+
+    def merl_round_trip():
+        raw = np.random.default_rng(SEED).random((3,) + merl.MERL_DIMS)
+        path = os.path.join(root, "capture", "seeded.binary")
+        with open(path, "wb") as f:
+            f.write(struct.pack("3i", *merl.MERL_DIMS))
+            f.write(raw.tobytes())
+        npz = os.path.join(root, "capture", "seeded.npz")
+        shape = data_gen.merl_to_npz(path, npz)
+        cube = merl.read_merl(path)
+        want = raw * merl.MERL_SCALES[:, None, None, None]
+        if shape != want.shape or not np.array_equal(cube, want) \
+                or not np.array_equal(np.load(npz)["cube"], want):
+            raise AssertionError("MERL round trip")
+        return os.path.getsize(path)
+
+    size = _step("merl", merl_round_trip, steps, label="capture")
+    print("capture merl: a %d-byte .binary through merl_to_npz and read_merl "
+          "equal" % size, flush=True)
+
+    env = (np.random.default_rng(SEED + 1).random((16, 32, 3)) * 2).astype(
+        np.float32)
+    sphere_args = ([0.6, 0.3, 0.2], 0.8, [0.04, 0.05, 0.06], env)
+    card = _step("sphere", lambda: render_brdf_sphere(
+        *sphere_args, device=device), steps, label="capture")
+    plain = render_brdf_sphere(*sphere_args, device="cpu")
+    err = np.abs(card - plain)
+    tol = CAPTURE_RTOL * np.abs(plain) + 1e-6 * np.abs(plain).max()
+    if card.shape != (128, 128, 3) or not np.isfinite(card).all() \
+            or not (err <= tol).all():
+        raise AssertionError(f"sphere: card and CPU {err.max()} apart")
+    print("capture sphere: 128x128 at light_h 16, card against CPU max abs "
+          "err %.3g (rtol %g)" % (err.max(), CAPTURE_RTOL), flush=True)
+
+    cfg = dc.DecompConfig()
+    gen = torch.Generator().manual_seed(SEED)
+    model = shape_refine.init_shape_refine(gen, cfg)
+    rs = np.random.default_rng(SEED + 2)
+    batch = {"alpha": rs.random((CAPTURE_SHAPE_RAYS, 1)),
+             "xyz": rs.random((CAPTURE_SHAPE_RAYS, 3)) - 0.5,
+             "rayd": rs.normal(size=(CAPTURE_SHAPE_RAYS, 3)),
+             "normal": rs.normal(size=(CAPTURE_SHAPE_RAYS, 3))}
+    batch["alpha"][: CAPTURE_SHAPE_RAYS // 8] = 0.0
+
+    def refine(m, dev):
+        b = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+             for k, v in batch.items()}
+        m.zero_grad()
+        pred = shape_refine.shape_refine_forward(m, b, cfg)
+        loss = shape_refine.shape_refine_loss(pred, b, cfg)
+        loss.backward()
+        return (loss.item(), pred["normal"].detach().cpu().numpy(),
+                [p.grad.detach().cpu().numpy() for p in m.parameters()])
+
+    on_card = copy.deepcopy(model).to(device)
+    l_card, n_card, g_card = _step("shape_refine",
+                                   lambda: refine(on_card, device), steps,
+                                   label="capture")
+    l_cpu, n_cpu, g_cpu = refine(model, "cpu")
+    grad_err = max(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+                   for a, b in zip(g_card, g_cpu))
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    if not np.isfinite(l_card) or loss_err > CAPTURE_RTOL \
+            or grad_err > CAPTURE_RTOL \
+            or np.abs(n_card - n_cpu).max() > 1e-5:
+        raise AssertionError(
+            f"ShapeRefine: loss {loss_err}, normals "
+            f"{np.abs(n_card - n_cpu).max()}, gradients {grad_err} apart")
+    print("capture shape_refine: %d rays at DecompConfig widths, card "
+          "against CPU: loss %.3g relative, normals %.3g abs, gradients "
+          "%.3g norm-relative (rtol %g)"
+          % (CAPTURE_SHAPE_RAYS, loss_err, np.abs(n_card - n_cpu).max(),
+             grad_err, CAPTURE_RTOL), flush=True)
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3269,8 +3804,8 @@ def main():
         sys.exit("chip_smoke: torch.cuda.is_available() is false")
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
-    print("device:", name, flush=True)
+    device_name = torch.cuda.get_device_name(0)
+    print("device:", device_name, flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3348,6 +3883,14 @@ def main():
                                 root, device)
         print("edit phase: %.1f s" % (time.perf_counter() - t0), flush=True)
 
+        # ---- capture and formats, part 1: EXR probes on the served model -
+        capture_steps = {}
+        t0 = time.perf_counter()
+        exr_relight_steps(cfg, vq, ref, ds, trained["vali_dir"], paths, root,
+                          device, capture_steps)
+        print("capture EXR relight: %.1f s" % (time.perf_counter() - t0),
+              flush=True)
+
         # ---- stage 1: geometry training, then extraction from it ---------
         neus = neus_train_phase(root, device, profile)
         sys.stdout.flush()
@@ -3403,6 +3946,29 @@ def main():
                             "peak_gib": round(v["peak_bytes"] / 2**30, 3)}
                         for k, v in eval_steps.items()})), flush=True)
 
+        # ---- capture and formats, part 2: a capture into a scene ----------
+        t0 = time.perf_counter()
+        views, K = capture_steps_colmap(root, device, capture_steps)
+        capture_steps_aruco_real(root, views, K, capture_steps)
+        capture_steps_formats(root, device, capture_steps)
+        for step, st in capture_steps.items():
+            want = {"geo-train": ("sdf_fwd",), "gen-geo": ("sdf_fwd",)}.get(
+                step, ("fused_brdf_render",) if step.startswith("test ")
+                else ())
+            stray = {k: n for k, n in st["launches"].items()
+                     if n and k not in want}
+            if stray:
+                raise AssertionError(f"capture {step} launched {stray}")
+        print("capture and formats phase: %.1f s in all, %.1f s of it part "
+              "2; steps %s" % (
+                  sum(st["seconds"] for st in capture_steps.values()),
+                  time.perf_counter() - t0,
+                  json.dumps({k: {"seconds": round(v["seconds"], 3),
+                                  "peak_gib": round(v["peak_bytes"] / 2**30,
+                                                    3)}
+                              for k, v in capture_steps.items()})),
+              flush=True)
+
     for entry in (render_entry, vq_entry, fwd_entry, fwdgrad_entry):
         by_sub = {sub: n[entry["name"]] for sub, n in cli_launches.items()}
         entry["cli_launches"] = sum(by_sub.values())
@@ -3415,12 +3981,16 @@ def main():
                    for step, st in eval_steps.items()}
         entry["eval_import_launches"] = sum(by_step.values())
         entry["eval_import_launches_by_step"] = by_step
+        by_step = {step: st["launches"][entry["name"]]
+                   for step, st in capture_steps.items()}
+        entry["capture_launches"] = sum(by_step.values())
+        entry["capture_launches_by_step"] = by_step
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [render_entry, vq_entry, fwd_entry,
                                   fwdgrad_entry]}))
     print("nvidia-smi:", smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
 
 

@@ -105,8 +105,15 @@ def test_resize_area_equals_cv2(shape, new):
 
 
 def test_resize_integer_image_non_integer_factor_raises():
-    with pytest.raises(NotImplementedError, match="integer"):
-        tio.resize(np.zeros((800, 800, 3), np.uint8), 512, 512)
+    """A non-integer downscale of an integer image is ported now: cv2's
+    area mean in float32, rounded to nearest even, equal to cv2; only
+    integer types cv2 does not take raise."""
+    img = (np.random.RandomState(8).rand(800, 800, 3) * 255).astype(np.uint8)
+    np.testing.assert_array_equal(
+        tio.resize(img, 512, 512),
+        cv2.resize(img, (512, 512), interpolation=cv2.INTER_AREA))
+    with pytest.raises(NotImplementedError, match="uint8, uint16"):
+        tio.resize(np.zeros((800, 800, 3), np.int32), 512, 512)
 
 
 # ---- metrics ----------------------------------------------------------------
@@ -189,7 +196,14 @@ def _write_pred(view_dir, adapter, h, w, rs):
              adapter["spec"], adapter["spec_mul"], adapter["rough"]}
     names |= set(adapter["kd_scale"])
     for name in names - {None}:
-        _write(join(view_dir, name), 0.2 + 0.6 * rs.rand(h, w, 3))
+        img = 0.2 + 0.6 * rs.rand(h, w, 3)
+        if name.endswith(".jpg"):  # nero's renders are JPEG files
+            os.makedirs(view_dir, exist_ok=True)
+            cv2.imwrite(join(view_dir, name),
+                        (img[..., ::-1] * 255).astype(np.uint8),
+                        [cv2.IMWRITE_JPEG_QUALITY, 90])
+        else:
+            _write(join(view_dir, name), img)
     alpha = adapter["alpha"]
     if alpha.endswith(".npy"):
         np.save(join(view_dir, alpha), np.full((h, w, 1), 2.5, np.float32))
@@ -207,6 +221,7 @@ CASES = [
     ("nv", "mat", "machine1_3072", (600, 600), (600, 600), 1, []),
     ("pil", "mat", "ball_x", (420, 420), (420, 420), 1, []),
     ("ref_nfr", "dtu", "dtu_scan24", (512, 640), (512, 640), 1, []),
+    ("nero", "mat", "lego_3072", (420, 420), (420, 420), 1, []),
 ]
 
 
@@ -225,8 +240,8 @@ def _write_case(root, model, family, scene, gt_hw, pd_hw, n_views, envs,
                      "ckpt-10")
     adapter = tme.MODEL_ADAPTERS[model]
     for i in range(n_views):
-        name = ("val_%03d" if adapter["view_prefix"] == "val"
-                else "batch%09d") % i
+        name = {"val": "val_%03d", "numeric": "%d"}.get(
+            adapter["view_prefix"], "batch%09d") % i
         _write_pred(join(pd_scene, name), adapter, *pd_hw, rs)
         for env in envs:
             _write(join(relit, name, adapter["relit"].format(env=env)),
@@ -326,10 +341,26 @@ def test_eval_scene_scales_and_sizes(metric_cases):
                                jme.compute_scene_scales(*args), rtol=1e-6)
 
 
-def test_nero_adapter_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="nero.*JPEG"):
-        tme.eval_scene("lego_3072", "mat", str(tmp_path), str(tmp_path),
-                       model_name="nero", device="cpu")
+def test_nero_adapter_raises(metric_cases):
+    """The nero adapter raised while the port had no JPEG decoder; now its
+    .jpg renders (real JPEG files) decode to cv2's pixels and eval_scene
+    scores them as the JAX package does."""
+    case, model, family, scene, gt_root, pred_root, scores, _ = [
+        c for c in metric_cases if c[1] == "nero"][0]
+    pd_scene, _ = tme.resolve_scene_dirs(pred_root, scene, family, model)
+    jpg = join(pd_scene, "0", "rgb_pr.jpg")
+    with open(jpg, "rb") as f:
+        assert f.read(3) == b"\xff\xd8\xff"
+    np.testing.assert_array_equal(
+        tio.read_image(jpg), cv2.imread(jpg, cv2.IMREAD_UNCHANGED)[..., ::-1])
+    got = tme.eval_scene(scene, family, pd_scene, join(gt_root, scene),
+                         model_name=model, device="cpu")
+    want = scores[scene]  # the JAX eval_dataset's, from the fixture
+    assert set(got) == set(want) and {"rgb", "kd", "ks", "rough"} == set(got)
+    for buf, ms in want.items():
+        for m, vals in ms.items():
+            for g, w in zip(got[buf][m], vals):
+                assert abs(g - w) <= 1e-6 * max(1.0, abs(w)), (buf, m)
 
 
 def test_resolve_scene_dirs_equals_jax(tmp_path):

@@ -144,18 +144,31 @@ def test_resize_matches_cv2_area(shape, new_h):
 
 
 def test_resize_rejects_other_factors():
-    img = np.zeros((30, 60, 3), np.float32)
-    with pytest.raises(NotImplementedError):
-        t_io.resize(img.astype(np.uint8), new_h=20)  # an integer image 1.5x
-    # a float image 1.5x down is cv2.INTER_AREA's weighted mean now
-    flt = np.random.RandomState(0).rand(30, 60, 3).astype(np.float32)
+    """The cases that used to raise (a non-integer downscale or an upscale
+    of an integer image, a downscale along one axis with an upscale along
+    the other) are ported now and equal cv2 under the JAX choice of
+    interpolation; an integer type cv2 does not take still raises."""
+    rs = np.random.RandomState(0)
+    img = (rs.rand(30, 60, 3) * 255).astype(np.uint8)
+    flt = rs.rand(30, 60, 3).astype(np.float32)
+    np.testing.assert_array_equal(
+        t_io.resize(img, new_h=20),  # an integer image 1.5x down
+        cv2.resize(img, (40, 20), interpolation=cv2.INTER_AREA))
     np.testing.assert_array_equal(
         t_io.resize(flt, new_h=20),
         cv2.resize(flt, (40, 20), interpolation=cv2.INTER_AREA))
+    np.testing.assert_array_equal(
+        t_io.resize(img, new_h=60),  # an integer image up
+        cv2.resize(img, (120, 60), interpolation=cv2.INTER_LINEAR))
+    np.testing.assert_array_equal(
+        t_io.resize(img, new_h=20, new_w=90),  # down one way, up the other
+        cv2.resize(img, (90, 20), interpolation=cv2.INTER_AREA))
+    np.testing.assert_allclose(
+        t_io.resize(flt, new_h=60, new_w=30),  # up one way, down the other
+        cv2.resize(flt, (30, 60), interpolation=cv2.INTER_LINEAR),
+        rtol=0, atol=2e-7)
     with pytest.raises(NotImplementedError):
-        t_io.resize(img.astype(np.uint8), new_h=60)  # an integer image up
-    with pytest.raises(NotImplementedError):
-        t_io.resize(img, new_h=60, new_w=30)  # up one way, down the other
+        t_io.resize(img.astype(np.int32), new_h=20)
 
 
 @pytest.mark.parametrize("shape,new_h", [

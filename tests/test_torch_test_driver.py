@@ -54,6 +54,28 @@ def _files(root):
 
 
 def test_run_test_matches_jax(tmp_path):
+    _run_test_matches_jax(tmp_path, *_scene(tmp_path))
+
+
+def test_run_test_exr_probes_matches_jax(tmp_path):
+    """A probe directory of .exr files (float32, ZIP and half, ZIPS): both
+    drivers glob hdr and exr, and the port reads the EXRs as JAX does."""
+    from vqnerf_release_torch.data import exr as t_exr
+    from vqnerf_release_torch.data import io as t_io
+    data_root, surf_root, env_dir, vali_dir = _scene(tmp_path)
+    exr_dir = tmp_path / "exr_envs"
+    os.makedirs(exr_dir)
+    for name, comp, dtype in (("city", "zip", np.float32),
+                              ("studio", "zips", np.float16)):
+        t_exr.write_exr(str(exr_dir / f"{name}.exr"),
+                        t_io.read_hdr(os.path.join(env_dir, f"{name}.hdr")),
+                        compression=comp, dtype=dtype)
+    _run_test_matches_jax(tmp_path, data_root, surf_root, str(exr_dir),
+                          vali_dir)
+
+
+def _run_test_matches_jax(tmp_path, data_root, surf_root, env_dir,
+                          vali_dir):
     from vqnerf_release_tpu.data.shape_dataset import \
         ShapeDataset as JShapeDataset
     from vqnerf_release_tpu.models import decomp_common as j_dc
@@ -66,7 +88,6 @@ def test_run_test_matches_jax(tmp_path):
 
     small = dict(SMALL, light_h=LIGHT_H)
     jcfg, tcfg = j_dc.DecompConfig(**small), t_dc.DecompConfig(**small)
-    data_root, surf_root, env_dir, vali_dir = _scene(tmp_path)
     _, vq_np, ref_np = jax_params(light_h=LIGHT_H)
 
     j_out, t_out = str(tmp_path / "jax"), str(tmp_path / "torch")
@@ -213,11 +234,30 @@ with tempfile.TemporaryDirectory() as root:
                                vis_point_batch=16, batch_size=64)
     geo_ok = all(gen_geo.check_finished(d)
                  for d in done["train"] + done["val"])
+
+    # the capture front end and the file formats
+    from vqnerf_release_torch.data import io as vio
+    from vqnerf_release_torch.data import exr, merl, nerf_rays_dataset
+    from vqnerf_release_torch.models import shape_refine
+    from vqnerf_release_torch.ops import geom, sphere_render
+    from vqnerf_release_torch.preprocess import (aruco_cameras, colmap_model,
+                                                 colmap_wrapper, data_gen)
+    from vqnerf_release_torch.utils import backup
+    jpg = vio.read_image(os.path.join("tests", "data", "torch_jpeg",
+                                      "progressive_420_q90_512.jpg"))
+    exr.write_exr(os.path.join(root, "probe.exr"),
+                  np.ones((4, 8, 3), np.float32))
+    env = vio.read_envmap(os.path.join(root, "probe.exr"), new_h=2)
+    sphere = sphere_render.render_brdf_sphere(
+        [0.5] * 3, 0.5, [0.04] * 3, np.ones((4, 8, 3), np.float32), imh=8,
+        light_h=4, device="cpu")
+    formats_ok = (jpg.shape == (512, 512, 3) and env.shape == (2, 4, 3)
+                  and sphere.shape == (8, 8, 3))
 print(json.dumps({"n_vq": info["n_vq"], "arrays": n, "trained_k": k,
                   "geo_views": len(done["train"] + done["val"]),
                   "geo_ok": geo_ok,
                   "steps": int(ema.counter), "losses": h1 + h2 + h3,
-                  "neus_losses": h4,
+                  "neus_losses": h4, "formats_ok": formats_ok,
                   "loaded": sorted(
     m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "cv2", "optax", "orbax", "vqnerf_release_tpu"))}))
@@ -227,9 +267,10 @@ print(json.dumps({"n_vq": info["n_vq"], "arrays": n, "trained_k": k,
 def test_port_runs_without_jax_or_cv2():
     """A tiny CPU run_test through the port, from chip_smoke's own scene
     writer and ``build_models``, a 1-epoch CPU training of nfr_unit, vq_nfr
-    and ref_nfr, and a tiny stage-1 NeuS training and the geometry
-    extraction from its checkpoint, load neither jax nor cv2 nor any module
-    of the JAX package."""
+    and ref_nfr, a tiny stage-1 NeuS training and the geometry extraction
+    from its checkpoint, and the capture front end and file formats (the
+    preprocessing modules, a JPEG decode, an EXR probe, the BRDF sphere)
+    load neither jax nor cv2 nor any module of the JAX package."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -243,6 +284,7 @@ def test_port_runs_without_jax_or_cv2():
     assert len(result["losses"]) == 3 and np.isfinite(result["losses"]).all()
     assert len(result["neus_losses"]) == 4
     assert np.isfinite(result["neus_losses"]).all()
+    assert result["formats_ok"] is True
 
 
 def test_port_sources_do_not_import_the_jax_package():
@@ -266,7 +308,19 @@ def test_port_sources_do_not_import_the_jax_package():
                  os.path.join("eval", "meanshift.py"),
                  os.path.join("eval", "vis_csv.py"),
                  os.path.join("interop", "tf_bundle.py"),
-                 os.path.join("interop", "tf_import.py")):
+                 os.path.join("interop", "tf_import.py"),
+                 os.path.join("data", "jpeg.py"),
+                 os.path.join("data", "exr.py"),
+                 os.path.join("data", "merl.py"),
+                 os.path.join("data", "nerf_rays_dataset.py"),
+                 os.path.join("preprocess", "colmap_model.py"),
+                 os.path.join("preprocess", "colmap_wrapper.py"),
+                 os.path.join("preprocess", "aruco_cameras.py"),
+                 os.path.join("preprocess", "data_gen.py"),
+                 os.path.join("ops", "geom.py"),
+                 os.path.join("ops", "sphere_render.py"),
+                 os.path.join("models", "shape_refine.py"),
+                 os.path.join("utils", "backup.py")):
         assert any(p.endswith(os.path.join("vqnerf_release_torch", name))
                    for p in paths), name
     banned = {"jax", "jaxlib", "optax", "orbax", "cv2", "PIL", "imageio",

@@ -6,22 +6,26 @@ vqnerf_release_tpu/data/io.py, which reads and writes through cv2).
     RGBA, non-interlaced. The decoder undoes all five row filters (Average
     and Paeth rows an anti-diagonal of pixels a step); the encoder writes
     filter 0 (None).
+  * JPEG: ``data/jpeg.py``'s decoder, equal to cv2.imread bit for bit.
+    The readers tell PNG from JPEG by the file's signature, as cv2 does,
+    not by its extension (``decode_image``); ``imread_color`` is what
+    ``cv2.imread(path)`` (IMREAD_COLOR) gives.
   * AVI: a writer and a reader of uncompressed 24-bit frames ('DIB ') in
     a RIFF AVI 1.0 file with its index (what OpenCV writes is MJPG).
   * Radiance .hdr: a reader for flat and run-length-encoded scanlines and
     a flat writer, with OpenCV's RGBE conversion (rgbe.c: value =
-    mantissa * 2^(exponent - 136), no half-step offset).
-  * ``resize``: the same size passes through; an integer-factor
-    downscale is a block mean, which is what cv2.INTER_AREA gives there; any
-    other downscale of a float image is cv2.INTER_AREA's weighted area mean
-    (its table of source spans, float32 weights, a horizontal then a
-    vertical pass); a float image is upscaled bilinearly, as
-    cv2.INTER_LINEAR does. Other cases (a non-integer downscale of an
-    integer image, a downscale along one axis with an upscale along the
-    other) raise NotImplementedError.
+    mantissa * 2^(exponent - 136), no half-step offset). OpenEXR envmaps
+    through ``data/exr.py``.
+  * ``resize``: ``cv2.resize`` under the JAX package's choice of
+    interpolation (INTER_AREA where the height shrinks, else
+    INTER_LINEAR), every direction and factor, for uint8, uint16 and
+    float images. Integer images equal cv2's own resampler bit for bit;
+    float images too except the bilinear resampler, within a float32 ulp
+    of cv2 (which hands float and uint16 INTER_LINEAR to Intel IPP: a
+    uint16 bilinear result may then differ from cv2's by 1).
   * ``read_rgba16`` and ``resize_u8_linear``: the stage-1 loaders' 16-bit
     RGBA read (floor-divided to 8 bits) and their bilinear resize of uint8
-    images to a new height, in cv2's 11-bit fixed point.
+    images, in cv2's 11-bit fixed point.
 """
 
 import glob
@@ -33,8 +37,11 @@ import zlib
 
 import numpy as np
 
+from .jpeg import decode_jpeg, is_jpeg, read_jpeg
+
 __all__ = [
     "decode_png", "encode_png", "read_png", "write_png", "write_apng",
+    "decode_jpeg", "read_jpeg", "decode_image", "read_image", "imread_color",
     "write_avi", "load_img_f32", "write_img",
     "read_rgba16", "resize_u8_linear", "read_hdr",
     "write_hdr", "read_envmap", "resize", "vis_light", "alpha_blend",
@@ -242,19 +249,54 @@ def write_apng(path, frames, duration_ms=1000):
         f.write(b"".join(out))
 
 
+def decode_image(data, what="image"):
+    """PNG or JPEG bytes -> array (channels in RGB order), told apart by
+    the signature as cv2 tells them (89 50 4E 47 is PNG, FF D8 FF is
+    JPEG), whatever the file is called."""
+    if bytes(data[:8]) == _PNG_SIG:
+        return decode_png(data, what=what)
+    if is_jpeg(data):
+        return decode_jpeg(data, what=what)
+    raise NotImplementedError(
+        f"{what}: neither a PNG nor a JPEG file (signature "
+        f"{bytes(data[:4]).hex()})")
+
+
+def read_image(path):
+    """A PNG or JPEG file -> array, as ``cv2.imread(path,
+    IMREAD_UNCHANGED)`` with the channels in RGB(A) order."""
+    if not os.path.exists(str(path)):
+        raise FileNotFoundError(path)
+    with open(path, "rb") as f:
+        return decode_image(f.read(), what=str(path))
+
+
+def imread_color(path):
+    """``cv2.imread(path)`` (IMREAD_COLOR) in RGB order: uint8 [H, W, 3];
+    gray is replicated, alpha dropped, 16-bit samples shifted down by 8.
+    (cv2 would also apply a JPEG's EXIF orientation here; this does not.)"""
+    img = read_image(path)
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[2] in (1, 2):
+        img = np.repeat(img[..., :1], 3, axis=2)
+    return np.ascontiguousarray(img[..., :3])
+
+
 def load_img_f32(path):
-    """PNG -> float32 in [0, 1] (uint8 / 255, uint16 / 65535)."""
-    img = read_png(path)
+    """PNG or JPEG -> float32 in [0, 1] (uint8 / 255, uint16 / 65535)."""
+    img = read_image(path)
     scale = 255.0 if img.dtype == np.uint8 else 65535.0
     return img.astype(np.float32) / scale
 
 
 def read_rgba16(path, longint=True):
     """uint16 PNG -> uint8 (floor-divide by 256), as the stage-1 loaders
-    do; channels in file order (RGB / RGBA)."""
-    if not os.path.exists(str(path)):
-        raise FileNotFoundError(path)
-    img = read_png(str(path))
+    do; channels in file order (RGB / RGBA). 8-bit PNGs and JPEGs pass
+    through."""
+    img = read_image(str(path))
     if longint and img.dtype == np.uint16:
         img = (img // 256).astype(np.uint8)
     return np.clip(img, 0, 255)
@@ -416,16 +458,21 @@ def write_hdr(path, img):
 
 
 def read_envmap(path, new_h=None):
-    """.hdr or .npy envmap, optionally resized to height new_h."""
+    """.hdr, .exr or .npy envmap, optionally resized to height new_h; an
+    EXR's alpha channel is dropped."""
     ext = os.path.basename(str(path)).split(".")[-1].lower()
-    if ext == "hdr":
+    if ext == "exr":
+        from .exr import read_exr
+        arr = read_exr(path)
+        if arr.ndim == 3 and arr.shape[2] == 4:
+            arr = arr[..., :3]
+    elif ext == "hdr":
         arr = read_hdr(path)
     elif ext == "npy":
         arr = np.load(path).astype(np.float32)
     else:
         raise NotImplementedError(
-            f"{path}: envmaps are read from .hdr or .npy; .{ext} is not "
-            "ported yet")
+            f"{path}: envmaps are read from .hdr, .exr or .npy, not .{ext}")
     if new_h is not None and arr.shape[0] != new_h:
         arr = resize(arr, new_h=new_h)
     return arr
@@ -435,8 +482,10 @@ def read_envmap(path, new_h=None):
 
 
 def _bilinear_axis(img, new_n, axis):
-    """Linear interpolation along one axis with pixel centres at half
-    integers and the border replicated (cv2.INTER_LINEAR)."""
+    """Linear interpolation of a float image along one axis, pixel centres
+    at half integers, the source position in float64 and the border
+    replicated: within a float32 ulp of cv2.INTER_LINEAR, which runs float
+    images through Intel IPP."""
     n = img.shape[axis]
     src = (np.arange(new_n, dtype=np.float64) + 0.5) * (n / new_n) - 0.5
     lo = np.floor(src).astype(np.int64)
@@ -451,44 +500,78 @@ def _bilinear_axis(img, new_n, axis):
             + np.take(img, i1, axis=axis) * frac)
 
 
-def _linear_coeffs_u8(n, new_n):
-    """cv2.INTER_LINEAR's source indices and 11-bit integer weights along
-    one axis: (i0, i1, w0, w1), border replicated."""
-    scale = n / new_n
-    src = (np.arange(new_n, dtype=np.float64) + 0.5) * scale - 0.5
-    lo = np.floor(src).astype(np.int64)
-    frac = (src - lo).astype(np.float32)
-    frac[lo < 0] = 0.0
-    lo = np.maximum(lo, 0)
-    over = lo >= n - 1
-    frac[over] = 0.0
-    lo[over] = n - 1
-    w0 = np.rint((1.0 - frac) * np.float32(2048)).astype(np.int64)
-    w1 = np.rint(frac * np.float32(2048)).astype(np.int64)
-    return lo, np.minimum(lo + 1, n - 1), w0, w1
+def _resample_tab(n, new_n, area, edge):
+    """The source index and float32 fraction of each destination sample
+    along one axis, as cv2's generic resampler (resize.cpp, resize())
+    computes them: ``(d + 0.5) * scale - 0.5`` for INTER_LINEAR; for
+    INTER_AREA outside its pure-downscale path ``s = floor(d * scale)``
+    and ``(d + 1) - (s + 1) / scale`` clamped at 0, minus its floor. On
+    the horizontal axis (``edge``) an index outside the image is pulled in
+    with fraction 0; on the vertical one only the rows are clipped."""
+    inv = new_n / n
+    scale = 1.0 / inv
+    d = np.arange(new_n, dtype=np.float64)
+    if area:
+        lo = np.floor(d * scale).astype(np.int64)
+        frac = ((d + 1) - (lo + 1) * inv).astype(np.float32)
+        frac = np.where(frac <= 0, np.float32(0),
+                        frac - np.floor(frac)).astype(np.float32)
+    else:
+        f = ((d + 0.5) * scale - 0.5).astype(np.float32)
+        lo = np.floor(f).astype(np.int64)
+        frac = (f - lo.astype(np.float32)).astype(np.float32)
+    if edge:
+        frac[(lo < 0) | (lo >= n - 1)] = 0.0
+    return (np.clip(lo, 0, n - 1), np.clip(lo + 1, 0, n - 1),
+            np.float32(1) - frac, frac)
+
+
+def _saturate(out, dtype):
+    """Round to nearest even and saturate to an integer dtype
+    (cv2's saturate_cast)."""
+    info = np.iinfo(dtype)
+    return np.clip(np.rint(out), info.min, info.max).astype(dtype)
+
+
+def _resample(img, new_h, new_w, area=False):
+    """cv2's two-tap generic resampler (INTER_LINEAR, and INTER_AREA where
+    one axis grows): a horizontal pass, then a vertical one over the rows
+    it made. uint8 runs in cv2's 11-bit fixed point, whose vertical pass
+    shifts each row's term by 4, weights it, shifts by 16 and rounds the
+    sum with + 2 >> 2; other types in float32 (uint16 rounded to nearest
+    even and saturated, as saturate_cast does)."""
+    h, w = img.shape[:2]
+    x0, x1, a0, a1 = _resample_tab(w, new_w, area, True)
+    y0, y1, b0, b1 = _resample_tab(h, new_h, area, False)
+    tail = (1,) * (img.ndim - 2)
+    a0, a1 = a0.reshape((1, -1) + tail), a1.reshape((1, -1) + tail)
+    b0, b1 = b0.reshape((-1, 1) + tail), b1.reshape((-1, 1) + tail)
+    if img.dtype == np.uint8:
+        def fix(c):
+            return np.rint(c * np.float32(2048)).astype(np.int64)
+        src = img.astype(np.int64)
+        rows = src[:, x0] * fix(a0) + src[:, x1] * fix(a1)
+        out = (((rows[y0] >> 4) * fix(b0)) >> 16) \
+            + (((rows[y1] >> 4) * fix(b1)) >> 16)
+        return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
+    src = img.astype(np.float32)
+    rows = src[:, x0] * a0 + src[:, x1] * a1
+    out = rows[y0] * b0 + rows[y1] * b1
+    if np.issubdtype(img.dtype, np.integer):
+        return _saturate(out, img.dtype)
+    return out.astype(img.dtype)
 
 
 def resize_u8_linear(img, new_h, new_w):
     """Bilinear resize of a uint8 image [H, W] or [H, W, C] as
-    ``cv2.resize(img, (new_w, new_h))`` does it: 11-bit fixed-point weights
-    per axis, horizontal pass first, then cv2's vertical pass with its
-    split shifts (each row's term >> 4, weighted, >> 16; the sum + 2 >> 2).
-    Equal to cv2 on the downscales tried and within 1 on upscales."""
+    ``cv2.resize(img, (new_w, new_h))`` does it, bit for bit: 11-bit
+    fixed-point weights per axis, horizontal pass first (``_resample``)."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"resize_u8_linear takes uint8, got {img.dtype}")
-    h, w = img.shape[:2]
-    if (new_h, new_w) == (h, w):
+    if (new_h, new_w) == img.shape[:2]:
         return img
-    x0, x1, wx0, wx1 = _linear_coeffs_u8(w, new_w)
-    y0, y1, wy0, wy1 = _linear_coeffs_u8(h, new_h)
-    src = img.astype(np.int64)
-    tail = (1,) * (img.ndim - 2)
-    rows = (src[:, x0] * wx0.reshape((1, -1) + tail)
-            + src[:, x1] * wx1.reshape((1, -1) + tail))
-    out = (((rows[y0] >> 4) * wy0.reshape((-1, 1) + tail)) >> 16) \
-        + (((rows[y1] >> 4) * wy1.reshape((-1, 1) + tail)) >> 16)
-    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
+    return _resample(img, new_h, new_w)
 
 
 def _area_terms(n, new_n):
@@ -525,8 +608,8 @@ def _area_terms(n, new_n):
 
 def _area_axis(img, new_n, axis):
     """One pass of the area mean along ``axis``: each cell's terms summed
-    in cv2's order in the image's float type (first term times its
-    weight, then each further term times its weight added)."""
+    in cv2's order in float32 or the image's wider float type (first term
+    times its weight, then each further term times its weight added)."""
     idx, wts = _area_terms(img.shape[axis], new_n)
     shape = [1] * img.ndim
     shape[axis] = new_n
@@ -538,11 +621,50 @@ def _area_axis(img, new_n, axis):
     return out
 
 
+def _area_fast(img, fy, fx):
+    """cv2.INTER_AREA at integer factors (resizeAreaFast_). Integer images:
+    each block's integer sum times float32(1 / area), rounded to nearest
+    even; at 2x2 (cv2's vector path) the sum + 2 >> 2. Float images: the
+    block summed in float32 four terms at a time (((a + b) + c) + d added
+    to the running sum), times float32(1 / area); at 2x2 with 1 or 4
+    channels cv2's 4-lane vector path sums (row 0 pair) + (row 1 pair)
+    and times 0.25, up to the last multiple of 4 of a row's values."""
+    h, w = img.shape[:2]
+    blocks = img.reshape((h // fy, fy, w // fx, fx) + img.shape[2:])
+    if np.issubdtype(img.dtype, np.integer):
+        total = blocks.astype(np.int64).sum(axis=(1, 3))
+        if (fy, fx) == (2, 2):
+            return _saturate((total + 2) >> 2, img.dtype)
+        return _saturate(total.astype(np.float32)
+                         * np.float32(1.0 / (fy * fx)), img.dtype)
+    terms = [blocks[:, sy, :, sx] for sy in range(fy) for sx in range(fx)]
+    total = np.zeros_like(terms[0])
+    k = 0
+    while k + 4 <= len(terms):
+        total = total + (((terms[k] + terms[k + 1]) + terms[k + 2])
+                         + terms[k + 3])
+        k += 4
+    for t in terms[k:]:
+        total = total + t
+    out = total * img.dtype.type(1.0 / (fy * fx))
+    cn = 1 if img.ndim == 2 else img.shape[2]
+    if (fy, fx) == (2, 2) and cn in (1, 4):
+        vec = ((terms[0] + terms[1]) + (terms[2] + terms[3])) \
+            * img.dtype.type(0.25)
+        flat, vflat = out.reshape(h // 2, -1), vec.reshape(h // 2, -1)
+        n = flat.shape[1] // 4 * 4
+        flat[:, :n] = vflat[:, :n]
+    return out
+
+
 def resize(img, new_h=None, new_w=None):
-    """Passthrough at the same size; integer-factor area downscale (block
-    mean, as cv2.INTER_AREA); any other downscale of a float image as
-    cv2.INTER_AREA computes it; bilinear upscale of float images (as
-    cv2.INTER_LINEAR). Any other case raises."""
+    """``cv2.resize`` as the JAX package calls it: INTER_AREA where the
+    height shrinks, INTER_LINEAR otherwise (the height alone decides).
+    INTER_AREA with neither axis growing is cv2's area mean (a block mean
+    at integer factors); with the width growing it is cv2's generic
+    resampler with area fractions. Integer images (uint8, uint16) come out
+    equal to cv2 bit for bit, float ones too except the bilinear
+    resampler, which lies within a float32 ulp of cv2."""
     h, w = img.shape[:2]
     if new_h is not None and new_w is None:
         new_w = int(w / h * new_h)
@@ -551,28 +673,21 @@ def resize(img, new_h=None, new_w=None):
     if (new_h, new_w) == (h, w):
         return img
     img = np.asarray(img)
-    floating = np.issubdtype(img.dtype, np.floating)
-    if new_h >= h and new_w >= w and floating:
+    integer = np.issubdtype(img.dtype, np.integer)
+    if integer and img.dtype not in (np.uint8, np.uint16):
+        raise NotImplementedError(
+            f"resize of a {img.dtype} image: uint8, uint16 and float only")
+    if new_h >= h and not integer:
         out = _bilinear_axis(img.astype(np.float32), new_w, 1)
         return _bilinear_axis(out, new_h, 0).astype(img.dtype)
-    if new_h > h or new_w > w:
-        raise NotImplementedError(
-            f"resize {h}x{w} -> {new_h}x{new_w}: a downscale along one axis "
-            "with an upscale along the other is not ported")
-    if h % new_h or w % new_w:
-        if not floating:
-            raise NotImplementedError(
-                f"resize {h}x{w} -> {new_h}x{new_w} of a {img.dtype} image: "
-                "only integer-factor downscales of integer images are "
-                "ported")
-        # horizontal, then vertical, as cv2's ResizeArea_Invoker sums
-        return _area_axis(_area_axis(img, new_w, 1), new_h, 0)
-    fy, fx = h // new_h, w // new_w
-    blocks = img.reshape((new_h, fy, new_w, fx) + img.shape[2:])
-    out = blocks.astype(np.float64).mean(axis=(1, 3))
-    if np.issubdtype(img.dtype, np.integer):
-        return np.round(out).astype(img.dtype)
-    return out.astype(img.dtype)
+    if new_h >= h or new_w > w:
+        return _resample(img, new_h, new_w, area=new_h < h)
+    if not (h % new_h or w % new_w):
+        return _area_fast(img, h // new_h, w // new_w)
+    # horizontal, then vertical, as cv2's ResizeArea_Invoker sums
+    src = img.astype(np.float32) if integer else img
+    out = _area_axis(_area_axis(src, new_w, 1), new_h, 0)
+    return _saturate(out, img.dtype) if integer else out
 
 
 def vis_light(light, outpath=None, h=None):

@@ -8,6 +8,7 @@ bit).
   * DTU convention (world/scale projection matrices): P = world_mat @
     scale_mat decomposed into K and c2w; directions are K^-1 pixel,
     normalized in camera space, then rotated.
+  * NDC warping of forward-facing rays (``ndc_rays``).
   * The video-trajectory metadata forms that stage-1 trajectory extraction
     writes (focal + c2w, or intrinsic + c2w), read back by the stage-2
     video dataset.
@@ -17,7 +18,7 @@ import numpy as np
 
 __all__ = ["nerf_rays", "dtu_rays", "decompose_projection",
            "near_far_fixed", "near_far_sphere", "max_radius_from_poses",
-           "video_nerf_rays", "video_dtu_rays"]
+           "ndc_rays", "video_nerf_rays", "video_dtu_rays"]
 
 
 def nerf_rays(c2w, cam_angle_x, imh, imw, cx=None, cy=None, normalize=False):
@@ -158,3 +159,24 @@ def video_dtu_rays(c2w, intrinsic, imh, imw):
     rayd = np.einsum("rk,hwk->hwr", c2w[:3, :3], rayd)
     rayo = np.broadcast_to(c2w[:3, 3], rayd.shape).copy()
     return rayo.astype(np.float32), rayd.astype(np.float32)
+
+
+def ndc_rays(h, w, focal, near, rays_o, rays_d):
+    """Shift rays to normalized device coordinates (the NeRF forward-facing
+    convention; datasets/nerf.py:216-266 NDC support)."""
+    rays_o = np.asarray(rays_o, np.float64)
+    rays_d = np.asarray(rays_d, np.float64)
+    # shift origins to the near plane
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = -focal / (0.5 * w) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -focal / (0.5 * h) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+    d0 = -focal / (0.5 * w) * (
+        rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2])
+    d1 = -focal / (0.5 * h) * (
+        rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2])
+    d2 = -2.0 * near / rays_o[..., 2]
+    return (np.stack([o0, o1, o2], -1).astype(np.float32),
+            np.stack([d0, d1, d2], -1).astype(np.float32))

@@ -12,8 +12,8 @@ The reading, resizing (data/io.py::resize, cv2.INTER_AREA's weights), sRGB
 curves (ops/colorspace.py in float32) and uint8 quantisation of ``_align``
 run on the host for every device, so that the card and the CPU score the
 same uint8 images; SSIM and LPIPS compute on ``device``. The ``nero``
-adapter reads JPEG files, for which the port has no decoder: it raises
-NotImplementedError.
+adapter's JPEG files go through the port's decoder (data/jpeg.py, equal to
+cv2.imread).
 """
 
 import json
@@ -146,18 +146,6 @@ def _s2l(x):
     return _s2l_t(x).numpy()
 
 
-def _check_readable(model_name, adapter):
-    """The port reads PNG and .npy; an adapter that reads JPEG raises."""
-    names = [adapter[k] for k in ("rgb", "albedo", "albedo_add", "spec",
-                                  "spec_mul", "rough", "alpha", "relit")]
-    names += [n for n in adapter["kd_scale"] if n]
-    jpg = sorted({n for n in names if n and n.endswith(".jpg")})
-    if jpg:
-        raise NotImplementedError(
-            f"metric-eval model {model_name!r} reads JPEG files ({jpg}); "
-            "the port has no JPEG decoder")
-
-
 def _read3(path, srgb_pred=False):
     img = vio.load_img_f32(path)
     if img.ndim == 2:
@@ -259,7 +247,6 @@ def eval_scene(scene, family, pd_scene, gt_scene, relight_dir=None,
     device = resolve_device(device)
     flags = FAMILY_FLAGS[family]
     adapter = MODEL_ADAPTERS[model_name]
-    _check_readable(model_name, adapter)
     srgb_pred = adapter.get("srgb_pred", False)
     use_scale = flags["use_scale"] and adapter.get("use_scale", True)
     k_to_srgb = flags["k_to_srgb"] and adapter.get("k_to_srgb", True)

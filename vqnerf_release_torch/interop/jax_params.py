@@ -1,6 +1,6 @@
 """Convert between the JAX package's pytrees and the port's state: the
-parameters of ``nfr_unit``, ``vq_nfr``, ``ref_nfr`` and ``neus``, the VQ EMA
-state, and the amsgrad optimizer state.
+parameters of ``nfr_unit``, ``vq_nfr``, ``ref_nfr``, ``neus`` and
+``shape_refine``, the VQ EMA state, and the amsgrad optimizer state.
 
 A pytree here is what the JAX ``init_*`` functions return, held as nested
 dicts and lists of numpy arrays (``jax.tree_util.tree_map(np.asarray, p)``):
@@ -33,6 +33,7 @@ from ..models import fields
 from ..models.neus import NeuS
 from ..models.nfr_unit import NfrUnit
 from ..models.ref_nfr import RGB_ENC_ACTS, RefNfr
+from ..models.shape_refine import ShapeRefine
 from ..models.vq_nfr import VqNfr
 from ..ops.nn import Dense, SkipMLP, WNDense
 from ..ops.vq import VqEmaState
@@ -53,6 +54,8 @@ _MLPS = {
     "ref_nfr/frozen": {**_ENC, "spec_out": _HEAD},
     "ref_nfr/train": {"rgb_enc": (RGB_ENC_ACTS, ()), "diff_out": _HEAD,
                       "rough_out": _HEAD},
+    "shape_refine": {"normal_mlp": (["relu"] * 4, (2,)),
+                     "normal_out": (["relu", "relu", None], ())},
 }
 
 
@@ -133,7 +136,8 @@ def _neus_to_jax(model):
 
 
 def from_jax(tree, kind):
-    """JAX pytree -> NfrUnit / VqNfr / RefNfr / NeuS (on the CPU); kind
+    """JAX pytree -> NfrUnit / VqNfr / RefNfr / NeuS / ShapeRefine (on the
+    CPU); kind
     "ref_nfr/train" converts the ``train`` subtree alone, the tree of
     ref_nfr's optimizer state."""
     if kind == "neus":
@@ -142,6 +146,8 @@ def from_jax(tree, kind):
         return NfrUnit(**_parts_from_jax(tree, _MLPS[kind]))
     if kind == "vq_nfr":
         return VqNfr(**_parts_from_jax(tree, _MLPS[kind]))
+    if kind == "shape_refine":  # at init_shape_refine's default depth
+        return ShapeRefine(**_parts_from_jax(tree, _MLPS[kind]))
     if kind == "ref_nfr/train":  # the subtree ref_nfr's optimizer sees
         return dc.ParamModule(**_parts_from_jax(tree, _MLPS[kind]))
     if kind == "ref_nfr":
@@ -154,10 +160,11 @@ def from_jax(tree, kind):
 
 
 def to_jax(module, kind):
-    """NfrUnit / VqNfr / RefNfr / NeuS -> JAX pytree of numpy arrays."""
+    """NfrUnit / VqNfr / RefNfr / NeuS / ShapeRefine -> JAX pytree of
+    numpy arrays."""
     if kind == "neus":
         return _neus_to_jax(module)
-    if kind in ("nfr_unit", "vq_nfr", "ref_nfr/train"):
+    if kind in ("nfr_unit", "vq_nfr", "ref_nfr/train", "shape_refine"):
         return _parts_to_jax(module)
     if kind == "ref_nfr":
         return {"frozen": _parts_to_jax(module.frozen),

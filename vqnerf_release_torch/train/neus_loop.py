@@ -236,9 +236,13 @@ class NeuSRunner:
         if self._adaptive:
             self._active_cap = self._pick_cap()
 
-    def train(self, n_iters=None, log_every=0):
+    def train(self, n_iters=None, log_every=0, backup_sources=False):
         """Train to ``n_iters`` (end_iter when None); returns the metrics
-        of every ``log_every``-th step as floats."""
+        of every ``log_every``-th step as floats. ``backup_sources``
+        copies the port's sources into <exp_dir>/recording first."""
+        if backup_sources:
+            from ..utils.backup import file_backup
+            file_backup(self.base_exp_dir)
         end = n_iters if n_iters is not None else self.tcfg.end_iter
         if self._image_perm is None:
             self._image_perm = self.rng.permutation(self.dataset.n_images)
