@@ -198,7 +198,21 @@ fast-vis shadow pass.)
    defaults and ShapeRefine's forward, loss and backward at DecompConfig
    widths over CAPTURE_SHAPE_RAYS rays, each on the card and on the CPU
    (rtol 1e-5);
-14. prints the pass times, peak device memory of each path, each
+14. runs the last of the port ("import, acceptance and parallel"; every
+   kernel's launch count set to 0 just before each step and read just
+   after): stage 1's trained NeuS written as a reference .pth and imported
+   by interop/torch_import.main (params equal bit for bit), one view
+   extracted from it equal to step 7's byte for byte (kernels 3 and 4);
+   scripts/torch_acceptance.py on the cli tree against the eval phase's
+   own scores (every row PASS, kernel 1 in its test) and against a copy
+   with rgb raised by 10 dB (that row FAIL, exit 1); two `python -m
+   vqnerf_release_torch.cli gen-geo --num-hosts 2` processes on the one
+   card (gloo), each reporting its own launches, their trees' union equal
+   to step 10's gen-geo tree, and one such process alone; the mesh
+   PAR_MESH (two replicas on the card): one view extracted over it, and
+   PAR_VQ_STEPS vq_nfr steps equal to one device's at rtol 2e-4 / atol
+   1e-5 with kernel 2 once a step, each step's time beside one device's;
+15. prints the pass times, peak device memory of each path, each
    subcommand's seconds, the script's total, a {"kernels": [...]} line with
    all four kernels (each with ms, device_ms, plain_ms, bound_ms; kernel
    3's launches are those of NeuS training and extraction, given apart on
@@ -206,7 +220,8 @@ fast-vis shadow pass.)
    cli_launches_by_subcommand; edit_video_launches and
    edit_video_launches_by_step, those of step 11; eval_import_launches
    and eval_import_launches_by_step, those of step 12; capture_launches
-   and capture_launches_by_step, those of step 13), and as the last line
+   and capture_launches_by_step, those of step 13; final_launches and
+   final_launches_by_step, those of step 14), and as the last line
    {"ok": true, "device": {...}}.
 
 Cuts, all of scale and none of width: 4 train views and 1 validation view
@@ -233,6 +248,7 @@ import copy
 import csv
 import dataclasses
 import functools
+import gc
 import glob
 import io
 import json
@@ -254,7 +270,7 @@ from vqnerf_release_torch import cli
 from vqnerf_release_torch import config as vcfg
 from vqnerf_release_torch.data import io as vio
 from vqnerf_release_torch.data.device_store import DeviceViewStore
-from vqnerf_release_torch.data.sampler import build_vq_eval_set
+from vqnerf_release_torch.data.sampler import build_vq_eval_set, outer_sample
 from vqnerf_release_torch.data.shape_dataset import ShapeDataset
 from vqnerf_release_torch.kernels import build as kbuild
 from vqnerf_release_torch.kernels import render as render_kernel
@@ -271,8 +287,9 @@ from vqnerf_release_torch.eval import (cluster_eval, meanshift, metric_eval,
                                        metrics, vis_csv)
 from vqnerf_release_torch.interop import jax_ckpt
 from vqnerf_release_torch.interop import jax_params
-from vqnerf_release_torch.interop import tf_bundle, tf_import
+from vqnerf_release_torch.interop import tf_bundle, tf_import, torch_import
 from vqnerf_release_torch.ops.vq import VqEmaState, vq_lookup
+from vqnerf_release_torch.parallel.mesh import pad_rows
 from vqnerf_release_torch.pipelines import (edit, edit_client, edit_web,
                                             gen_geo)
 from vqnerf_release_torch.pipelines.test_driver import (_RAY_CHUNK, find_vq,
@@ -3796,6 +3813,432 @@ def capture_steps_formats(root, device, steps):
              grad_err, CAPTURE_RTOL), flush=True)
 
 
+# ---- import, acceptance and parallel ----------------------------------------
+
+# one card: the mesh of the parallel steps is two replicas on it
+PAR_MESH = ("cuda:0", "cuda:0")
+PAR_VQ_STEPS = 3
+PAR_TIME_REPS = 5
+# views split over devices or processes: a matrix product's blocking may
+# depend on the rows it gets, so a value may differ in its last bits
+SPLIT_RTOL, SPLIT_ATOL = 1e-5, 1e-6
+
+
+def reference_neus_checkpoint(model, iter_step):
+    """A NeuS in the reference's torch.save layout (what
+    interop/torch_import.py reads): per weight-normed layer of the SDF and
+    colour nets lin<l>.weight_v [out, in], weight_g [out, 1] and bias, the
+    variance, and iter_step (no background net: n_outside is 0)."""
+    def wn(layers):
+        sd = {}
+        for i, layer in enumerate(layers):
+            sd["lin%d.weight_v" % i] = layer.v.detach().cpu().T.contiguous()
+            sd["lin%d.weight_g" % i] = layer.g.detach().cpu().reshape(-1, 1)
+            sd["lin%d.bias" % i] = layer.b.detach().cpu().clone()
+        return sd
+    return {"sdf_network_fine": wn(model.sdf),
+            "color_network_fine": wn(model.color),
+            "variance_network_fine": {
+                "variance": model.variance.variance.detach().cpu().clone()},
+            "iter_step": iter_step}
+
+
+def _compare_geo_files(got_dir, want_dir, what, exact=False):
+    """The files under got_dir against want_dir's: equal byte for byte
+    when ``exact``, else .npy arrays within SPLIT_RTOL / SPLIT_ATOL and PNGs
+    within 1. Returns (files, files equal byte for byte, max abs difference
+    of the arrays)."""
+    files = _files(want_dir)
+    if _files(got_dir) != files or not files:
+        raise AssertionError(f"{what}: files {_files(got_dir)} != {files}")
+    n_same, err = 0, 0.0
+    for rel in files:
+        a, b = os.path.join(got_dir, rel), os.path.join(want_dir, rel)
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() == fb.read():
+                n_same += 1
+                continue
+        if exact:
+            raise AssertionError(f"{what}: {rel} differs")
+        if rel.endswith(".npy"):
+            x, y = np.load(a), np.load(b)
+            if x.shape != y.shape or not np.allclose(
+                    x, y, rtol=SPLIT_RTOL, atol=SPLIT_ATOL):
+                raise AssertionError(f"{what}: {rel} beyond rtol {SPLIT_RTOL}"
+                                     f" / atol {SPLIT_ATOL}")
+            err = max(err, float(np.abs(x - y).max()))
+        elif np.abs(vio.read_png(a).astype(np.int64)
+                    - vio.read_png(b).astype(np.int64)).max() > 1:
+            raise AssertionError(f"{what}: {rel} off by more than 1")
+    return len(files), n_same, err
+
+
+def _load_script(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _gen_geo_processes(argvs, reports):
+    """`python -m vqnerf_release_torch.cli` processes through
+    SERVER_LAUNCHER, started together; returns (seconds until the last
+    exits, each process's report). Any exit but 0 raises."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", SERVER_LAUNCHER, rep,
+                               *argv], cwd=here, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv, rep in zip(argvs, reports)]
+    try:
+        outs = [p.communicate(timeout=CLI_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for i, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"gen-geo process {i} exited "
+                                 f"{p.returncode}: {err[-3000:]}")
+    return seconds, [vio.read_json(rep) for rep in reports]
+
+
+def _process_step(name, seconds, reports, steps):
+    launches = {k: sum(r["launches"][k] for r in reports)
+                for k in reports[0]["launches"]}
+    steps[name] = {"seconds": seconds,
+                   "peak_bytes": max(r["peak_bytes"] for r in reports),
+                   "launches": launches}
+    print("import/parallel %s: %.3f s, peak %.3f GiB, kernel launches %s "
+          "(by process %s)" % (name, seconds,
+                               steps[name]["peak_bytes"] / 2**30, launches,
+                               [r["launches"] for r in reports]), flush=True)
+
+
+def _vq_batches(cfg, views, n_steps):
+    """n_steps jitter-pair batches of the cli scene's train views, one row
+    short of 2 * n_rays_per_step (so that a mesh of 2 pads), with their
+    dropout uniforms."""
+    rng = np.random.RandomState(SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    out = []
+    for s in range(n_steps):
+        b = outer_sample(views[s % len(views)], cfg.n_rays_per_step, rng,
+                         jitter_mode="random")
+        b = {k: v[:-1] for k, v in b.items()}
+        out.append((b, torch.rand((1, cfg.num_embed), generator=gen)))
+    return out
+
+
+def _vq_mesh_run(cfg, vq_dir, batches, device, mesh, thres, lxyz, lareas):
+    """PAR_VQ_STEPS chained vq_nfr steps from the cli tree's checkpoint, on
+    one device (the batches padded as the mesh pads them) or over
+    ``mesh``; returns (model, optimizer, ema state, loss dicts, step
+    function)."""
+    state = ckpt_util.load_ckpt(ckpt_util.latest_ckpt(vq_dir))
+    model = cli._load_phase_model(vq_dir, cfg, "vq_nfr", device)
+    ema = VqEmaState(*(t.to(device) for t in state["ema"]))
+    opt, step = dt.make_vq_nfr_step(model, cfg, lxyz, lareas, mesh=mesh)
+    opt.state = {k: v.to(device) for k, v in state["opt_state"].items()}
+    lds = []
+    for s, (b, roll) in enumerate(batches):
+        if mesh is None:
+            b = pad_rows(b, 1)
+        b = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+        b["_roll"] = roll.to(device)
+        ema, ld = step(ema, b, thres, None, s)
+        lds.append(ld)
+    return model, opt, ema, lds, step
+
+
+def _median_mesh_step_ms(step, ema, batch, thres, reps):
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ema, _ = step(ema, batch, thres, None, 0)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def import_parallel_phase(root, paths, device):
+    """The last of the port ("import, acceptance and parallel"), every
+    kernel's launch count set to 0 just before each step and read just
+    after:
+
+    1. stage 1's trained NeuS written as a reference .pth and imported by
+       interop/torch_import.main: params equal bit for bit, a fresh Adam
+       state, iter_step NEUS_ITERS;
+    2. run_gen_geo of one view of the CG scene (its last train view) from
+       the imported checkpoint: kernels 3 and 4 launch and the view's files
+       equal the direct extraction's byte for byte;
+    3. scripts/torch_acceptance.py on the cli tree (test, metric-eval,
+       cluster-eval) with the eval phase's metric-eval scores of the same
+       tree as --ref-scores: every row PASS, kernel 1 in its test; then
+       with one buffer's PSNR raised by 10 dB: that row FAIL, exit 1;
+    4. two `python -m vqnerf_release_torch.cli gen-geo --num-hosts 2
+       --coordinator 127.0.0.1:<port> --host-id i` processes on the card,
+       each reporting its own launch counts (kernels 3 and 4 in both), the
+       union of their trees equal to the cli phase's one-process tree; one
+       such process alone, for the time;
+    5. the mesh PAR_MESH: one view extracted over it equal to the cli
+       phase's; PAR_VQ_STEPS chained vq_nfr steps over it equal to one
+       device's at rtol 2e-4 / atol 1e-5, kernel 2 once a step, and a
+       step's time over the mesh and on one device.
+    Returns the steps."""
+    label = "import/parallel"
+    steps = {}
+    par = os.path.join(root, "parallel")
+    os.makedirs(par)
+
+    # 1. the trained NeuS as the reference's .pth, and the import command
+    stage1_out = os.path.join(root, "stage1_out")
+    geo_cfg, _, meta = vcfg.neus_configs_for_scene(GEO_SCENE)
+    exp_dir = os.path.join(stage1_out, "exp", GEO_SCENE, meta["family"])
+    state = ckpt_util.load_ckpt(ckpt_util.latest_ckpt(exp_dir))
+    trained = init_neus(SEED, geo_cfg)
+    trained.load_state_dict(state["params"])
+    ref_exp = os.path.join(par, "reference_exp")
+    os.makedirs(os.path.join(ref_exp, "checkpoints"))
+    torch.save(reference_neus_checkpoint(trained, int(state["iter_step"])),
+               os.path.join(ref_exp, "checkpoints",
+                            "ckpt_%06d.pth" % NEUS_ITERS))
+    imp_root = os.path.join(par, "imported")
+    imp_exp = os.path.join(imp_root, "exp", GEO_SCENE, meta["family"])
+    _step("torch_import", lambda: torch_import.main(
+        ["--ckpt", ref_exp, "--out", imp_exp, "--scene", GEO_SCENE,
+         "--device", str(device)]), steps, label)
+    got = ckpt_util.load_ckpt(ckpt_util.latest_ckpt(imp_exp))
+    if set(got["params"]) != set(state["params"]) or not all(
+            torch.equal(got["params"][k], v)
+            for k, v in state["params"].items()):
+        raise AssertionError("the imported NeuS differs from the trained one")
+    if int(got["iter_step"]) != NEUS_ITERS or int(
+            got["opt_state"]["count"]) != 0 or any(
+            got["opt_state"][k].any() for k in ("mu", "nu")):
+        raise AssertionError(f"the imported state: iter_step "
+                             f"{got['iter_step']}, opt count "
+                             f"{got['opt_state']['count']}")
+    if any(steps["torch_import"]["launches"].values()):
+        raise AssertionError(f"torch_import launched "
+                             f"{steps['torch_import']['launches']}")
+    print("import/parallel: the trained NeuS (%d tensors) written as a "
+          "reference .pth and imported equal bit for bit, iter_step %d, a "
+          "fresh Adam state" % (len(got["params"]), NEUS_ITERS))
+
+    # 2. extraction of one view from the imported checkpoint
+    data_root = os.path.join(root, "stage1", GEO_SCENE)
+    done = _step("gen-geo (imported)", lambda: gen_geo.run_gen_geo(
+        GEO_SCENE, data_root, imp_root, seed=SEED, near=GEO_NEAR,
+        far=GEO_FAR, num_p=GEO_TRAIN_VIEWS, p_i=GEO_TRAIN_VIEWS - 1,
+        device=device), steps, label)
+    view = "train_%03d" % (GEO_TRAIN_VIEWS - 1)
+    if [os.path.basename(d) for d in done["train"] + done["val"]] != [view]:
+        raise AssertionError(f"gen-geo of one shard extracted {done}")
+    if min(steps["gen-geo (imported)"]["launches"][k]
+           for k in ("sdf_fwd", "sdf_fwdgrad")) <= 0:
+        raise AssertionError(f"gen-geo (imported) launched "
+                             f"{steps['gen-geo (imported)']['launches']}")
+    direct = os.path.join(vcfg.surf_dir(os.path.join(stage1_out, "surf"),
+                                        GEO_SCENE), view)
+    n, _, _ = _compare_geo_files(done["train"][0], direct,
+                                 "gen-geo from the imported checkpoint",
+                                 exact=True)
+    print("import/parallel: %s extracted from the imported checkpoint, its "
+          "%d files equal the direct extraction's byte for byte" % (view, n))
+
+    # 3. the acceptance run on the cli tree
+    acc = _load_script("torch_acceptance")
+    cli_out = os.path.join(root, "cli", "output")
+    cli_data = os.path.join(root, "cli", "data", "nfr_blender", GEO_SCENE)
+    gt_cli = os.path.join(root, "eval", "gt_cli")
+    own = os.path.join(root, "eval", "metric_cli_%s.json" % device)
+    labels = os.path.join(par, "labels")
+    _write_idx(os.path.join(labels, GEO_SCENE, "val_000"),
+               os.path.join(gt_cli, GEO_SCENE, "val_000", "rgba.png"))
+    acc_argv = [GEO_SCENE, "--data-root", cli_data, "--output-root", cli_out,
+                "--gt-root", gt_cli, "--test-envmap-dir", paths["env_dir"],
+                "--label-root", labels, "--preset-override",
+                "imh=%d" % CLI_IMH, "--device", str(device)]
+    report = _step("acceptance", lambda: acc.main(
+        acc_argv + ["--ref-scores", own]), steps, label)
+    _assert_vector_render(steps["acceptance"], "acceptance test")
+    stray = {k: v for k, v in steps["acceptance"]["launches"].items()
+             if v and k != "fused_brdf_render"}
+    rows = report["comparison"]
+    if report["steps"] != ["test", "metric-eval", "cluster-eval"] or stray \
+            or not report["pass"] or {r["buffer"] for r in rows} != \
+            {"rgb", "kd", "env"} or any(r["verdict"] != "PASS"
+                                        for r in rows):
+        raise AssertionError(f"acceptance against the port's own scores: "
+                             f"{report}, launches "
+                             f"{steps['acceptance']['launches']}")
+    bad = vio.read_json(own)
+    bad[GEO_SCENE]["rgb"]["psnr"] = [
+        v + 10.0 for v in bad[GEO_SCENE]["rgb"]["psnr"]]
+    bad_path = os.path.join(par, "ref_scores_perturbed.json")
+    vio.write_json(bad, bad_path)
+
+    def failing():
+        try:
+            acc.main(acc_argv + ["--ref-scores", bad_path, "--skip-test"])
+        except SystemExit as e:
+            return e.code
+        return 0
+    code = _step("acceptance (perturbed)", failing, steps, label)
+    report = vio.read_json(os.path.join(cli_out,
+                                        "acceptance_%s.json" % GEO_SCENE))
+    verdicts = {r["buffer"]: r["verdict"] for r in report["comparison"]}
+    if code != 1 or report["pass"] or verdicts != {
+            "rgb": "FAIL", "kd": "PASS", "env": "PASS"} or any(
+            steps["acceptance (perturbed)"]["launches"].values()):
+        raise AssertionError(f"acceptance against perturbed scores: exit "
+                             f"{code}, {verdicts}")
+    print("import/parallel: acceptance on the cli tree, rows %s against the "
+          "port's own scores (every delta %s dB), cluster-eval %s; against "
+          "rgb +10 dB: exit 1, %s"
+          % ({r["buffer"]: r["verdict"] for r in rows},
+             sorted({round(r["delta_db"], 6) for r in rows}),
+             vio.read_json(os.path.join(
+                 cli_out, "acceptance_%s_cluster.json" % GEO_SCENE))["vq"],
+             verdicts))
+
+    # 4. extraction over two processes on the one card, and one process;
+    # this process's allocator gives its cached blocks back to the card
+    # first, or the processes find it full
+    one_proc_tree = vcfg.surf_dir(os.path.join(cli_out, "surf"), GEO_SCENE)
+    cli_views = ["train_%03d" % i for i in range(CLI_TRAIN_VIEWS)] + \
+        ["val_%03d" % i for i in range(CLI_VAL_VIEWS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    trees = {}
+    for name, n_proc in (("gen-geo 2 processes", 2),
+                         ("gen-geo 1 process", 1)):
+        out = os.path.join(par, "procs%d" % n_proc)
+        os.makedirs(out)
+        os.symlink(os.path.join(cli_out, "exp"), os.path.join(out, "exp"))
+        base = ["gen-geo", GEO_SCENE, "--data-root", cli_data,
+                "--output-root", out, "--device", str(device)]
+        port = _free_port()
+        argvs = [base + (["--num-hosts", str(n_proc), "--coordinator",
+                          "127.0.0.1:%d" % port, "--host-id", str(i)]
+                         if n_proc > 1 else []) for i in range(n_proc)]
+        reports = [os.path.join(par, "procs%d_%d.json" % (n_proc, i))
+                   for i in range(n_proc)]
+        _reset_counts()
+        seconds, got = _gen_geo_processes(argvs, reports)
+        _process_step(name, seconds, got, steps)
+        for i, r in enumerate(got):
+            if min(r["launches"]["sdf_fwd"],
+                   r["launches"]["sdf_fwdgrad"]) <= 0:
+                raise AssertionError(f"{name}: process {i} launched "
+                                     f"{r['launches']}")
+        trees[name] = vcfg.surf_dir(os.path.join(out, "surf"), GEO_SCENE)
+        if sorted(os.listdir(trees[name])) != cli_views:
+            raise AssertionError(f"{name} extracted "
+                                 f"{os.listdir(trees[name])}")
+        n = same = 0
+        err = 0.0
+        for v in cli_views:
+            got_v = _compare_geo_files(os.path.join(trees[name], v),
+                                       os.path.join(one_proc_tree, v),
+                                       f"{name}, {v}")
+            n, same, err = n + got_v[0], same + got_v[1], max(err, got_v[2])
+        print("import/parallel %s: the %d views' %d files against the cli "
+              "phase's one-process gen-geo, %d equal byte for byte, arrays "
+              "within %.3e" % (name, len(cli_views), n, same, err),
+              flush=True)
+
+    # 5. the mesh: one view extracted over it, then vq_nfr steps
+    mesh = [torch.device(d) for d in PAR_MESH]
+    mesh_views = {}
+    for name, m in (("gen-geo mesh", mesh), ("gen-geo one device", None)):
+        out = os.path.join(par, name.replace(" ", "_"))
+        os.makedirs(out)
+        os.symlink(os.path.join(cli_out, "exp"), os.path.join(out, "exp"))
+        done = _step(name, lambda: gen_geo.run_gen_geo(
+            GEO_SCENE, cli_data, out, seed=SEED, num_p=CLI_TRAIN_VIEWS,
+            p_i=CLI_TRAIN_VIEWS - 1, device=device, mesh=m), steps, label)
+        mesh_views[name] = done["train"]
+        if min(steps[name]["launches"][k]
+               for k in ("sdf_fwd", "sdf_fwdgrad")) <= 0:
+            raise AssertionError(f"{name} launched "
+                                 f"{steps[name]['launches']}")
+    view = "train_%03d" % (CLI_TRAIN_VIEWS - 1)
+    for name, dirs in mesh_views.items():
+        if [os.path.basename(d) for d in dirs] != [view]:
+            raise AssertionError(f"{name} extracted {dirs}")
+        n, same, err = _compare_geo_files(
+            dirs[0], os.path.join(one_proc_tree, view), name)
+        print("import/parallel %s: %s's %d files against the cli phase's, "
+              "%d equal byte for byte, arrays within %.3e"
+              % (name, view, n, same, err), flush=True)
+
+    cfg, _ = vcfg.decomp_config_for_scene(GEO_SCENE, imh=CLI_IMH)
+    vq_dir = vcfg.train_outdir(cli_out, GEO_SCENE, "vq_nfr")
+    views = cli._views(cli_data, one_proc_tree, cfg, "train")
+    batches = _vq_batches(cfg, views, PAR_VQ_STEPS)
+    lxyz, lareas = dc.light_constants(cfg, device)
+    thres = torch.as_tensor(cfg.train_thres(), device=device)
+    runs = {}
+    for name, m in (("vq_nfr steps one device", None),
+                    ("vq_nfr steps mesh", mesh)):
+        runs[name] = _step(name, lambda: _vq_mesh_run(
+            cfg, vq_dir, batches, device, m, thres, lxyz, lareas), steps,
+            label)
+        n = steps[name]["launches"]["vq_fused_train"]
+        if n != PAR_VQ_STEPS:
+            raise AssertionError(f"{name}: kernel 2 launched {n} times in "
+                                 f"{PAR_VQ_STEPS} steps")
+    (m1, o1, e1, l1, s1), (m2, o2, e2, l2, s2) = runs.values()
+    err = 0.0
+    for (k, a), b in zip(m1.state_dict().items(), m2.state_dict().values()):
+        err = max(err, _compare(b.double(), a.double(),
+                                "mesh vq_nfr params " + k, rtol=2e-4,
+                                atol=1e-5))
+    for k in ("m", "v", "vhat"):
+        err = max(err, _compare(o2.state[k].double(), o1.state[k].double(),
+                                "mesh vq_nfr opt " + k, rtol=2e-4,
+                                atol=1e-5))
+    for a, b, k in zip(e1, e2, e1._fields):
+        err = max(err, _compare(b.double(), a.double(), "mesh vq_nfr " + k,
+                                rtol=2e-4, atol=1e-5))
+    skipped = sum(float(ld["nonfinite_grads"]) for ld in l1 + l2)
+    if skipped or int(o2.state["count"]) != int(o1.state["count"]):
+        raise AssertionError(f"mesh vq_nfr: {skipped} skipped steps")
+    b, roll = batches[0]
+    tb = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+    tb["_roll"] = roll.to(device)
+    ms_mesh = _median_mesh_step_ms(s2, e2, tb, thres, PAR_TIME_REPS)
+    tb1 = {k: torch.as_tensor(v, device=device)
+           for k, v in pad_rows(b, 1).items()}
+    tb1["_roll"] = roll.to(device)
+    ms_one = _median_mesh_step_ms(s1, e1, tb1, thres, PAR_TIME_REPS)
+    print("import/parallel: %d vq_nfr steps over the mesh %s equal one "
+          "device's within rtol 2e-4 / atol 1e-5 (max abs err %.3e; "
+          "params, optimizer, EMA), kernel 2 once a step; a step of %d rows "
+          "(padded to %d): %.3f ms over the mesh, %.3f ms on one device "
+          "(medians of %d, synchronised)"
+          % (PAR_VQ_STEPS, list(PAR_MESH), err, 2 * cfg.n_rays_per_step - 1,
+             2 * cfg.n_rays_per_step, ms_mesh, ms_one, PAR_TIME_REPS),
+          flush=True)
+    steps["vq_nfr steps mesh"]["step_ms"] = ms_mesh
+    steps["vq_nfr steps one device"]["step_ms"] = ms_one
+    return steps
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3969,6 +4412,15 @@ def main():
                               for k, v in capture_steps.items()})),
               flush=True)
 
+        # ---- the last of the port: import, acceptance and parallel -------
+        t0 = time.perf_counter()
+        final_steps = import_parallel_phase(root, paths, device)
+        print("import, acceptance and parallel phase: %.1f s; steps %s" % (
+            time.perf_counter() - t0,
+            json.dumps({k: {"seconds": round(v["seconds"], 3),
+                            "peak_gib": round(v["peak_bytes"] / 2**30, 3)}
+                        for k, v in final_steps.items()})), flush=True)
+
     for entry in (render_entry, vq_entry, fwd_entry, fwdgrad_entry):
         by_sub = {sub: n[entry["name"]] for sub, n in cli_launches.items()}
         entry["cli_launches"] = sum(by_sub.values())
@@ -3985,6 +4437,10 @@ def main():
                    for step, st in capture_steps.items()}
         entry["capture_launches"] = sum(by_step.values())
         entry["capture_launches_by_step"] = by_step
+        by_step = {step: st["launches"][entry["name"]]
+                   for step, st in final_steps.items()}
+        entry["final_launches"] = sum(by_step.values())
+        entry["final_launches_by_step"] = by_step
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [render_entry, vq_entry, fwd_entry,
                                   fwdgrad_entry]}))

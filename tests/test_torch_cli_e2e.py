@@ -4,8 +4,8 @@ all -> test -> gen-z -> reselect-main --dry-run -> ini-train, and
 geo-video --no-vis -> gen-video in the gen_comps and edit modes, on a tiny
 written scene, with the output tree of the JAX CLI checked file by file
 (the pattern of tests/test_cli_e2e.py). Also: ``--device cuda`` without a
-card exits with an error and writes nothing, and gen-geo's multi-device
-flags exit.
+card exits with an error and writes nothing, and gen-geo's device and
+process-group flags exit where they ask for more than there is.
 """
 
 import json
@@ -242,12 +242,34 @@ def test_cuda_without_a_card_exits(tmp_path):
     assert not os.path.exists(out)
 
 
-@pytest.mark.parametrize("flags", [["--devices", "2"],
-                                   ["--num-hosts", "2"],
-                                   ["--coordinator", "h:1234"]])
-def test_gen_geo_multi_device_exits(tmp_path, flags):
+@pytest.mark.parametrize("devices,message", [
+    ("2", "--devices 2 but only 1 cpu devices visible"),
+    ("two", "--devices must be 'all' or an integer, got 'two'")])
+def test_decomp_train_devices_exits(tmp_path, devices, message):
+    """decomp-train --devices refuses what gen-geo --devices refuses,
+    before it reads or writes anything."""
+    out = tmp_path / "o"
+    with pytest.raises(SystemExit) as e:
+        main(["decomp-train", SCENE, "--data-root", str(tmp_path),
+              "--output-root", str(out), "--device", "cpu",
+              "--devices", devices])
+    assert message in str(e.value.code)
+    assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--devices", "2"], "--devices 2 but only 1 cpu devices visible"),
+    (["--num-hosts", "2"], "needs its size and this process's rank"),
+    (["--coordinator", "h:1234"], "needs its size and this process's rank")])
+def test_gen_geo_multi_device_exits(tmp_path, monkeypatch, flags, message):
+    """More devices than are visible exit with the JAX command's message;
+    a process group without its size or this process's rank exits before
+    it is joined. Nothing is written either way."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR"):
+        monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit) as e:
         main(["gen-geo", SCENE, "--data-root", str(tmp_path),
               "--output-root", str(tmp_path / "o"), "--device", "cpu",
               *flags])
-    assert "Queue 1, item 11" in str(e.value.code)
+    assert message in str(e.value.code)
+    assert not os.path.exists(tmp_path / "o")

@@ -6,7 +6,8 @@ JAX package's, on the CPU:
     ``rewrite_ini_paths``;
   * the argparse surface of every ported subcommand, read from
     ``main([sub, "--help"])`` of both CLIs: the same option strings,
-    defaults, choices and required flags, plus the port's ``--device``;
+    defaults, choices and required flags, plus the port's ``--device``
+    and decomp-train's ``--devices`` (the JAX loop takes every device);
   * ``export_materials`` on a tiny NfrUnit carried across with
     ``from_jax``: the .npy files at rtol 1e-5 / atol 1e-6, the PNGs equal;
   * ``reselect_main`` on a validation directory the test writes: the same
@@ -164,8 +165,12 @@ def test_cli_surface_equals_jax(sub, monkeypatch):
         assert device is None
     else:
         assert device[:2] == ("cuda", False)
+    extra = [("--device",)] * (device is not None)
+    if sub == "decomp-train":  # one device unless a mesh is asked for
+        assert t_actions.pop(("--devices",))[:2] == (None, False)
+        extra.append(("--devices",))
     assert t_actions == j_actions
-    for opts in list(t_actions) + [("--device",)] * (device is not None):
+    for opts in list(t_actions) + extra:
         if opts[0].startswith("-"):
             assert all(o in t_help for o in opts), opts
 

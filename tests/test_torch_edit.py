@@ -291,8 +291,17 @@ def test_png_codec_gray_alpha_and_bad_input():
         t_io.decode_png(b"GIF89a")
     with pytest.raises(ValueError, match="filter type"):
         t_io.decode_png(_png(2, 1, 8, 0, b"\x07\x00\x00"))
-    with pytest.raises(NotImplementedError, match="color type 3"):
-        t_io.decode_png(_png(2, 1, 8, 3, b"\x00\x00\x00"))
+    # a palette PNG (an upload from an image editor) decodes as cv2 does
+    plte = struct.pack(">I", 0x1F2E3D)[1:] + b"\xff\x80\x00"
+    ihdr = _png(2, 1, 8, 3, b"\x00\x01\x00")
+    at = ihdr.index(b"IDAT") - 4
+    data = (ihdr[:at] + struct.pack(">I", 6) + b"PLTE" + plte
+            + struct.pack(">I", zlib.crc32(b"PLTE" + plte) & 0xFFFFFFFF)
+            + ihdr[at:])
+    want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(t_io.decode_png(data), want[..., ::-1])
+    np.testing.assert_array_equal(t_io.decode_png(data),
+                                  [[[255, 128, 0], [31, 46, 61]]])
 
 
 def test_png_decode_time_script_runs(monkeypatch, capsys):

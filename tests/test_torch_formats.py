@@ -1,11 +1,13 @@
 """The port's file formats against OpenCV and the JAX package, on the CPU:
-the JPEG decoder (vqnerf_release_torch/data/jpeg.py) against
-cv2.imread(IMREAD_UNCHANGED), the signature dispatch of the image readers,
+the PNG decoder (vqnerf_release_torch/data/io.py::decode_png) against
+cv2.imdecode(IMREAD_UNCHANGED) on every kind of PNG, the JPEG decoder
+(vqnerf_release_torch/data/jpeg.py) against cv2.imread(IMREAD_UNCHANGED),
+the signature dispatch of the image readers,
 the committed JPEG fixtures, the OpenEXR reader and writer against the JAX
 package's, and ``data/io.py::resize`` against cv2.resize under the JAX
 package's choice of interpolation.
 
-Tolerances: the JPEG decodes, EXR arrays and files, and integer resizes
+Tolerances: the PNG and JPEG decodes, EXR arrays and files, and integer resizes
 are equal bit for bit. Two cv2 paths run through Intel IPP, which the port
 does not copy: a uint16 INTER_LINEAR result is held bit for bit to cv2
 with IPP off and within 1 of the default; a float INTER_LINEAR one within
@@ -15,6 +17,7 @@ with IPP off and within 1 of the default; a float INTER_LINEAR one within
 import glob
 import os
 import struct
+import zlib
 
 import cv2
 import numpy as np
@@ -63,6 +66,203 @@ def _assert_decodes_like_cv2(data):
     want = _cv2_decode(data)
     assert got.dtype == np.uint8 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
+
+
+# ---- PNG --------------------------------------------------------------------
+# The files are written here byte by byte (cv2 writes none of these kinds
+# on request): every scanline with its own filter, samples packed below 8
+# bits, Adam7 passes each filtered on its own.
+
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_chunk(kind, data):
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def _png_paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _png_scanlines(samples, depth, rs):
+    """samples int [h, w, ch] -> filtered scanlines, a random filter a
+    row."""
+    h, w, ch = samples.shape
+    flat = samples.reshape(h, w * ch)
+    if depth == 16:
+        rows = np.frombuffer(flat.astype(">u2").tobytes(), np.uint8)
+        rows = rows.reshape(h, -1)
+    elif depth == 8:
+        rows = flat.astype(np.uint8)
+    else:
+        per = 8 // depth
+        flat = np.pad(flat, ((0, 0), (0, -flat.shape[1] % per)))
+        grouped = flat.reshape(h, -1, per)
+        rows = sum(grouped[..., i] << (8 - depth * (i + 1))
+                   for i in range(per)).astype(np.uint8)
+    rows = rows.astype(np.int32)
+    bpp = max(1, ch * depth // 8)
+    out, prev = [], np.zeros(rows.shape[1], np.int32)
+    for cur in rows:
+        kind = int(rs.randint(5))
+        left = np.concatenate([np.zeros(bpp, np.int32), cur[:-bpp]])
+        up_left = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        pred = [0 * cur, left, prev, (left + prev) >> 1,
+                _png_paeth(left, prev, up_left)][kind]
+        out.append(bytes([kind]) + ((cur - pred) & 255).astype(
+            np.uint8).tobytes())
+        prev = cur
+    return b"".join(out)
+
+
+def _png_file(samples, depth, ctype, interlace=False, plte=None, trns=None,
+              seed=0):
+    """PNG bytes of samples int [h, w, ch] (palette indices for ctype 3)."""
+    rs = np.random.RandomState(seed)
+    h, w, _ = samples.shape
+    if interlace:
+        raw = b"".join(
+            _png_scanlines(samples[y0::dy, x0::dx], depth, rs)
+            for x0, y0, dx, dy in _ADAM7 if x0 < w and y0 < h)
+    else:
+        raw = _png_scanlines(samples, depth, rs)
+    extra = b""
+    if plte is not None:
+        extra += _png_chunk(b"PLTE", np.asarray(plte, np.uint8).tobytes())
+    if trns is not None:
+        extra += _png_chunk(b"tRNS", trns)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, int(interlace))
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr) + extra
+            + _png_chunk(b"IDAT", zlib.compress(raw, 9))
+            + _png_chunk(b"IEND", b""))
+
+
+def _assert_png_decodes_like_cv2(data):
+    want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+    if want.ndim == 3:  # cv2's BGR(A) in the file's order
+        want = want[..., [2, 1, 0, 3][:want.shape[2]]]
+    got = t_io.decode_png(data)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+# (h, w): odd sizes, and sizes where some Adam7 passes are empty
+PNG_SIZES = [(9, 13), (1, 1), (2, 3), (5, 1), (17, 8)]
+
+
+@pytest.mark.parametrize("interlace", [False, True])
+@pytest.mark.parametrize("ctype,depth", [
+    (0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1),
+    (3, 2), (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)])
+def test_png_every_kind_equals_cv2(ctype, depth, interlace):
+    """Every colour type at every depth, interlaced or not: palettes
+    expanded to RGB, gray below 8 bits scaled to 0..255, gray+alpha as
+    [gray, alpha] where cv2 gives BGRA."""
+    for k, (h, w) in enumerate(PNG_SIZES):
+        rs = np.random.RandomState(100 * ctype + depth + k)
+        ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+        samples = rs.randint(0, 1 << depth, (h, w, ch))
+        plte = None
+        if ctype == 3:
+            plte = rs.randint(0, 256, (1 << depth, 3))
+        data = _png_file(samples, depth, ctype, interlace, plte, seed=k)
+        if ctype == 4:  # cv2 replicates the gray into BGR
+            want = cv2.imdecode(np.frombuffer(data, np.uint8),
+                                cv2.IMREAD_UNCHANGED)
+            got = t_io.decode_png(data)
+            np.testing.assert_array_equal(got[..., 0], want[..., 0])
+            np.testing.assert_array_equal(got[..., 1], want[..., 3])
+            continue
+        got = _assert_png_decodes_like_cv2(data)
+        if ctype == 3:
+            np.testing.assert_array_equal(got, plte[samples[..., 0]])
+        elif depth < 8:
+            np.testing.assert_array_equal(
+                got, samples[..., 0] * (255 // ((1 << depth) - 1)))
+
+
+@pytest.mark.parametrize("interlace", [False, True])
+@pytest.mark.parametrize("depth", [1, 2, 4, 8])
+def test_png_palette_trns_equals_cv2(depth, interlace):
+    """A palette with a tRNS table decodes to RGBA: alpha from the table,
+    255 past its end; an index past a short palette is black."""
+    rs = np.random.RandomState(depth)
+    n = 1 << depth
+    samples = rs.randint(0, n, (11, 6, 1))
+    for n_plte in sorted({n, max(1, n - 3)}):
+        plte = rs.randint(0, 256, (n_plte, 3))
+        for n_trns in sorted({1, max(1, n_plte // 2), n_plte}):
+            trns = rs.randint(0, 256, n_trns).astype(np.uint8).tobytes()
+            got = _assert_png_decodes_like_cv2(_png_file(
+                samples, depth, 3, interlace, plte, trns))
+            assert got.shape == (11, 6, 4)
+        # a tRNS longer than the palette is ignored, as libpng ignores it
+        got = _assert_png_decodes_like_cv2(_png_file(
+            samples, depth, 3, interlace, plte, bytes(n_plte + 1)))
+        assert got.shape == (11, 6, 3)
+
+
+@pytest.mark.parametrize("interlace", [False, True])
+@pytest.mark.parametrize("depth", [8, 16])
+def test_png_rgb_trns_key_gives_alpha_like_cv2(depth, interlace):
+    """An RGB PNG with a tRNS key decodes to 4 channels: alpha 0 where the
+    pixel equals the key, the maximum elsewhere (8-bit keys compared in
+    their low byte, as libpng compares them)."""
+    rs = np.random.RandomState(depth)
+    top = (1 << depth) - 1
+    samples = rs.randint(0, 3, (10, 7, 3)) * (top // 2)
+    key = samples[3, 4]
+    for k in (key, key + (256 if depth == 8 else 0)):
+        trns = struct.pack(">HHH", *(int(v) for v in k))
+        got = _assert_png_decodes_like_cv2(_png_file(
+            samples, depth, 2, interlace, trns=trns))
+        alpha = np.where(np.all(samples == key, -1), 0, top)
+        np.testing.assert_array_equal(got[..., 3], alpha)
+        assert (got[..., 3] == 0).sum() >= 1
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4, 8, 16])
+def test_png_gray_trns_is_ignored_like_cv2(depth):
+    rs = np.random.RandomState(depth)
+    samples = rs.randint(0, 1 << depth, (7, 9, 1))
+    plain = _assert_png_decodes_like_cv2(_png_file(samples, depth, 0))
+    trns = struct.pack(">H", int(samples[0, 0, 0]))
+    for interlace in (False, True):
+        got = _assert_png_decodes_like_cv2(_png_file(
+            samples, depth, 0, interlace, trns=trns))
+        np.testing.assert_array_equal(got, plain)
+
+
+def test_png_bilevel_mask_written_by_cv2_reads_like_cv2(tmp_path):
+    """A 1-bit mask as ``cv2.imwrite(..., IMWRITE_PNG_BILEVEL)`` writes
+    it reads through ``read_image`` as cv2.imread(IMREAD_UNCHANGED)."""
+    mask = (np.random.RandomState(0).rand(19, 21) > 0.5).astype(np.uint8)
+    path = str(tmp_path / "mask.png")
+    cv2.imwrite(path, mask * 255, [cv2.IMWRITE_PNG_BILEVEL, 1])
+    with open(path, "rb") as f:
+        assert struct.unpack(">B", f.read()[24:25])[0] == 1  # bit depth
+    np.testing.assert_array_equal(
+        t_io.read_image(path), cv2.imread(path, cv2.IMREAD_UNCHANGED))
+
+
+def test_png_malformed_files_raise():
+    samples = np.zeros((4, 4, 1), int)
+    with pytest.raises(ValueError, match="PLTE"):
+        t_io.decode_png(_png_file(samples, 8, 3))
+    with pytest.raises(NotImplementedError, match="color type 2, bit depth 4"):
+        t_io.decode_png(_png_file(samples, 4, 2))
+    data = _png_file(samples, 8, 0, interlace=True)
+    start = data.index(b"IDAT") + 4
+    (n,) = struct.unpack(">I", data[start - 8:start - 4])
+    short = zlib.compress(zlib.decompress(data[start:start + n])[:-3])
+    with pytest.raises(ValueError):
+        t_io.decode_png(data[:start - 8] + _png_chunk(b"IDAT", short)
+                        + _png_chunk(b"IEND", b""))
 
 
 # ---- JPEG -------------------------------------------------------------------

@@ -489,3 +489,83 @@ def test_runner_divergence_guard_and_dispatch_notice(scene, tmp_path, capsys):
                 run.train(log_every=1)
             assert t_ckpt.latest_ckpt(str(tmp_path / "False"
                                           / "debug_failure")) is not None
+
+
+@pytest.mark.parametrize("flags", [["--scene", "lego_3072"], ["--no-bg"]])
+def test_import_command_writes_the_jax_scripts_checkpoint(tmp_path, flags):
+    """``python -m vqnerf_release_torch.interop.torch_import`` on a
+    reference .pth at the shipped widths writes the checkpoint that
+    scripts/import_torch_checkpoint.py writes (params bit for bit, a fresh
+    Adam state, the .pth's iter_step), and ``geo-train --end-iter``
+    resumes from it."""
+    import runpy
+    import sys
+
+    from vqnerf_release_tpu import config as j_config
+    from vqnerf_release_tpu.models import neus as j_neus
+    from vqnerf_release_tpu.utils import ckpt as j_ckpt
+    from vqnerf_release_torch.cli import main as cli_main
+    from vqnerf_release_torch.config import neus_configs_for_scene
+    from vqnerf_release_torch.models.neus import NeuSConfig, init_neus
+
+    jcfg = (j_config.neus_configs_for_scene("lego_3072")[0]
+            if "--scene" in flags else j_neus.NeuSConfig())
+    jp = j_neus.init_neus(7, jcfg)
+    pth = str(tmp_path / "ckpt_001234.pth")
+    torch.save(_reference_state_dict(jp, False), pth)
+
+    j_out, t_out = str(tmp_path / "jax"), str(tmp_path / "exp")
+    argv = sys.argv
+    try:
+        sys.argv = ["import_torch_checkpoint.py", "--ckpt", pth, "--out",
+                    j_out, *flags]
+        runpy.run_path(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "scripts",
+            "import_torch_checkpoint.py"), run_name="__main__")
+    finally:
+        sys.argv = argv
+    path = t_import.main(["--ckpt", pth, "--out", t_out, *flags,
+                          "--device", "cpu"])
+    assert os.path.basename(path) == "ckpt-1234"
+
+    want_params, _ = j_import.import_neus(pth, jcfg)
+    example = {"params": want_params,
+               "opt_state": j_tr.init_neus_opt_state(want_params),
+               "iter_step": 1234}
+    want = j_ckpt.load_ckpt(j_ckpt.latest_ckpt(j_out), example)
+    got = t_ckpt.load_ckpt(t_ckpt.latest_ckpt(t_out))
+    model = init_neus(0, neus_configs_for_scene("lego_3072")[0]
+                      if "--scene" in flags else NeuSConfig())
+    model.load_state_dict(got["params"])
+    _compare_tree(to_jax(model, "neus"), want["params"], 0, 0, "params")
+    assert int(got["iter_step"]) == int(want["iter_step"]) == 1234
+    n = sum(p.numel() for p in model.parameters())
+    assert int(got["opt_state"]["count"]) == 0
+    for k in ("mu", "nu"):
+        assert got["opt_state"][k].shape == (n,)
+        assert not got["opt_state"][k].any()
+    for leaf in jax.tree_util.tree_leaves(want["opt_state"]):
+        assert not np.asarray(leaf).any()
+
+    if "--scene" not in flags:
+        return
+    # geo-train resumes at 1234 and trains two steps
+    import chip_smoke
+    data = str(tmp_path / "data")
+    chip_smoke.write_stage1_scene(data, 12, 2, 1, 0)
+    out = str(tmp_path / "output")
+    exp = os.path.join(out, "exp", "lego_3072", "nerf")
+    t_import.main(["--ckpt", pth, "--out", exp, *flags, "--device", "cpu"])
+    cli_main(["geo-train", "lego_3072", "--data-root", data, "--output-root",
+              out, "--device", "cpu", "--end-iter", "1236", "--geo-override",
+              "batch_size=32,warm_up_end=2,save_freq=1000000000,"
+              "val_freq=1000000000,mesh_freq=0,occ_res=16,tail_frac=0",
+              "--n-samples", "8"])
+    assert [os.path.basename(p) for p in t_ckpt.list_ckpts(exp)] == \
+        ["ckpt-1234", "ckpt-1236"]
+    trained = t_ckpt.load_ckpt(t_ckpt.latest_ckpt(exp))
+    assert int(trained["iter_step"]) == 1236
+    assert int(trained["opt_state"]["count"]) == 2
+    moved = [not torch.equal(trained["params"][k], got["params"][k])
+             for k in got["params"]]
+    assert any(moved)

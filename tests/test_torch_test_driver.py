@@ -288,11 +288,13 @@ def test_port_runs_without_jax_or_cv2():
 
 
 def test_port_sources_do_not_import_the_jax_package():
-    """No file of the port, nor chip_smoke.py, has an import of jax, optax,
-    orbax, cv2, PIL, imageio, sklearn, pandas, tensorflow or the JAX
-    package."""
+    """No file of the port, nor chip_smoke.py, scripts/torch_acceptance.py
+    or scripts/torch_vq_step_time.py, has an import of jax, optax, orbax,
+    cv2, PIL, imageio, sklearn, pandas, tensorflow or the JAX package."""
     import ast
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "torch_acceptance.py"),
+             os.path.join(REPO, "scripts", "torch_vq_step_time.py")]
     for d, _, names in os.walk(os.path.join(REPO, "vqnerf_release_torch")):
         paths += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(paths) > 40
@@ -320,7 +322,11 @@ def test_port_sources_do_not_import_the_jax_package():
                  os.path.join("ops", "geom.py"),
                  os.path.join("ops", "sphere_render.py"),
                  os.path.join("models", "shape_refine.py"),
-                 os.path.join("utils", "backup.py")):
+                 os.path.join("utils", "backup.py"),
+                 os.path.join("interop", "torch_import.py"),
+                 os.path.join("parallel", "__init__.py"),
+                 os.path.join("parallel", "distributed.py"),
+                 os.path.join("parallel", "mesh.py")):
         assert any(p.endswith(os.path.join("vqnerf_release_torch", name))
                    for p in paths), name
     banned = {"jax", "jaxlib", "optax", "orbax", "cv2", "PIL", "imageio",

@@ -33,7 +33,11 @@ to the CPU. Checkpoints are
 the port's ``torch.save`` files (utils/ckpt.py); a checkpoint of the JAX
 package is brought over with ``python -m
 vqnerf_release_torch.interop.jax_ckpt``, a reference TensorFlow
-checkpoint with ``python -m vqnerf_release_torch.interop.tf_import``.
+checkpoint with ``python -m vqnerf_release_torch.interop.tf_import``, a
+reference NeuS .pth with ``python -m
+vqnerf_release_torch.interop.torch_import``. gen-geo runs over several
+processes or hosts (--num-hosts, --coordinator, --host-id; a gloo process
+group) and over several devices (--devices).
 """
 
 import argparse
@@ -47,10 +51,6 @@ import numpy as np
 from . import config as vcfg
 
 __all__ = ["main"]
-
-# where multi-device and multi-host runs stand in ROADMAP.md
-_MULTI_DEVICE_ITEM = "ROADMAP.md, Queue 1, item 11 (profiling and multi-GPU)"
-
 
 def _add_common(p):
     p.add_argument("scene")
@@ -148,54 +148,44 @@ def cmd_geo_train(args):
     runner.save_checkpoint()
 
 
-def _single_device(args):
-    """gen-geo's multi-device and multi-host flags are parsed, as the JAX
-    CLI's are, but the port extracts on one device: exit on anything
-    else."""
-    n = 1
-    if args.devices not in (None, "1"):
-        if args.devices == "all":
-            import torch
-            n = (torch.cuda.device_count() if args.device.type == "cuda"
-                 else 1)
-        else:
-            try:
-                n = int(args.devices)
-            except ValueError:
-                raise SystemExit(
-                    f"--devices must be 'all' or an integer, got "
-                    f"{args.devices!r}")
-    hosts = args.num_hosts not in (None, 1) or args.coordinator is not None \
-        or args.host_id not in (None, 0)
-    if n > 1 or hosts:
-        raise SystemExit(
-            "gen-geo: the port extracts on one device of one host (--devices "
-            f"{args.devices}, --num-hosts {args.num_hosts}, --coordinator "
-            f"{args.coordinator}, --host-id {args.host_id} ask for more); "
-            f"multi-device extraction is {_MULTI_DEVICE_ITEM}. Shard the "
-            "views over processes, one a device, with --num-p / --p-i")
-
-
 def cmd_gen_geo(args):
+    from .parallel.distributed import (compose_view_shard, init_distributed,
+                                       local_mesh, shutdown_distributed)
     from .pipelines.gen_geo import run_gen_geo
 
-    _single_device(args)
     if args.fast_vis and args.no_fast_vis:
         raise SystemExit("--fast-vis and --no-fast-vis are mutually "
                          "exclusive")
-    cfg, tcfg, _ = _geo_cfgs(args, extraction=True)
-    no_vis = args.no_vis or args.scene not in vcfg.CG_SCENES
-    fast_vis = args.fast_vis or (not no_vis and not args.no_fast_vis)
-    run_gen_geo(args.scene, args.data_root, args.output_root,
-                seed=args.seed or 0, no_vis=no_vis, fast_vis=fast_vis,
-                fast_vis_factor=args.fast_vis_factor,
-                fast_vis_occluded=args.fast_vis_occluded,
-                fast_vis_refine=args.fast_vis_refine,
-                vis_sampler=args.vis_sampler, occ_vis=args.occ_vis,
-                span_vis=args.span_vis, num_p=args.num_p, p_i=args.p_i,
-                overrides={**_fields(tcfg), **_fields(cfg)},
-                use_fused_sdf=True if args.pallas else None,
-                device=args.device)
+    # several processes or hosts: join the group first, then fold its
+    # grid into the view shard (the reference's --num_p/--p_i processes)
+    try:
+        proc_i, proc_n = init_distributed(args.coordinator, args.num_hosts,
+                                          args.host_id)
+    except ValueError as e:
+        raise SystemExit(f"gen-geo: {e}")
+    try:
+        num_p, p_i = compose_view_shard(args.num_p, args.p_i, proc_i,
+                                        proc_n)
+        try:
+            mesh = local_mesh(args.devices or ("all" if proc_n > 1 else "1"),
+                              args.device)
+        except ValueError as e:
+            raise SystemExit(f"gen-geo: {e}")
+        cfg, tcfg, _ = _geo_cfgs(args, extraction=True)
+        no_vis = args.no_vis or args.scene not in vcfg.CG_SCENES
+        fast_vis = args.fast_vis or (not no_vis and not args.no_fast_vis)
+        run_gen_geo(args.scene, args.data_root, args.output_root,
+                    seed=args.seed or 0, no_vis=no_vis, fast_vis=fast_vis,
+                    fast_vis_factor=args.fast_vis_factor,
+                    fast_vis_occluded=args.fast_vis_occluded,
+                    fast_vis_refine=args.fast_vis_refine,
+                    vis_sampler=args.vis_sampler, occ_vis=args.occ_vis,
+                    span_vis=args.span_vis, num_p=num_p, p_i=p_i,
+                    overrides={**_fields(tcfg), **_fields(cfg)},
+                    use_fused_sdf=True if args.pallas else None,
+                    device=args.device, mesh=mesh)
+    finally:
+        shutdown_distributed()
 
 
 def _load_phase_model(outdir, cfg, kind, device, vq=None, light=None):
@@ -279,9 +269,14 @@ def _debug(cfg):
 
 
 def cmd_decomp_train(args):
+    from .parallel.distributed import local_mesh
     from .train import loop
     from .utils.profiling import trace
 
+    try:
+        mesh = local_mesh(args.devices, args.device)
+    except ValueError as e:
+        raise SystemExit(f"decomp-train: {e}")
     cfg, _ = vcfg.decomp_config_for_scene(args.scene)
     cfg = _apply_preset_overrides(cfg, args.preset_override)
     if args.seed is not None:
@@ -308,12 +303,12 @@ def cmd_decomp_train(args):
         nfr = vq = None
         if "nfr_unit" in phases:
             nfr, _ = loop.train_nfr_unit(cfg, train_views, vali_views,
-                                         nfr_out, device=dev)
+                                         nfr_out, device=dev, devices=mesh)
         if "vq_nfr" in phases:
             if nfr is None:
                 nfr = _load_phase_model(nfr_out, cfg, "nfr_unit", dev)
             vq, _, _ = loop.train_vq_nfr(cfg, nfr, train_views, vali_views,
-                                         vq_out, device=dev)
+                                         vq_out, device=dev, devices=mesh)
         del nfr  # each phase's staged views went with its trainer
         if "ref_nfr" in phases:
             if vq is None:
@@ -323,7 +318,7 @@ def cmd_decomp_train(args):
                 cfg, vq, light,
                 _views(args.data_root, surf_root, cfg, "train", True)[:n],
                 _views(args.data_root, surf_root, cfg, "vali", True)[:8][:n],
-                ref_out, device=dev)
+                ref_out, device=dev, devices=mesh)
 
 
 def cmd_test(args):
@@ -660,18 +655,23 @@ def main(argv=None):
                         "the finer sweep run on rays the coarse pass "
                         "leaves uncertain; 0 disables")
     p.add_argument("--devices", default=None,
-                   help="'all' or a device count; the port extracts on one "
-                        "device and exits on more")
+                   help="'all' or a device count: split the ray axis of "
+                        "each view's batches over that many local devices "
+                        "of --device's type (compose with --num-p/--p-i "
+                        "across processes). Default: 1 in one process, "
+                        "'all' with --num-hosts")
     p.add_argument("--pallas", action="store_true",
                    help="the fused SDF kernels for the no-grad render "
                         "passes (use_fused_sdf=True; without the flag they "
                         "are on for CUDA and off on the CPU)")
     p.add_argument("--num-hosts", type=int, default=None,
-                   help="a process group of this many hosts; the port runs "
-                        "on one host and exits on more")
+                   help="join a torch.distributed (gloo) process group of "
+                        "this many processes; views shard across them, "
+                        "rays across each one's local devices (torchrun's "
+                        "RANK/WORLD_SIZE/MASTER_ADDR are read when the "
+                        "flags are absent)")
     p.add_argument("--coordinator", default=None,
-                   help="host:port of a multi-host coordinator (not "
-                        "supported by the port)")
+                   help="host:port of the process group's rank-0 process")
     p.add_argument("--host-id", type=int, default=None,
                    help="this host's process index in the group")
     p.set_defaults(fn=cmd_gen_geo)
@@ -690,6 +690,10 @@ def main(argv=None):
     p.add_argument("--debug", action="store_true",
                    help="1 epoch, single train view and single validation "
                         "view (the reference's trainvali.py --debug)")
+    p.add_argument("--devices", default=None,
+                   help="'all' or N: split every batch of every phase over "
+                        "that many local devices of --device's type "
+                        "(default: --device alone)")
     p.set_defaults(fn=cmd_decomp_train)
 
     p = sub.add_parser("test")

@@ -2,10 +2,12 @@
 vqnerf_release_tpu/data/io.py, which reads and writes through cv2).
 
   * PNG: a decoder and an encoder of bytes in numpy and zlib (and the file
-    reader and writer on them), for 8- and 16-bit gray, gray+alpha, RGB and
-    RGBA, non-interlaced. The decoder undoes all five row filters (Average
-    and Paeth rows an anti-diagonal of pixels a step); the encoder writes
-    filter 0 (None).
+    reader and writer on them). The decoder reads every kind of PNG as
+    cv2.imdecode(IMREAD_UNCHANGED) does (``decode_png``): gray, gray+alpha,
+    RGB, RGBA and palette at every depth, tRNS, Adam7 interlacing; it
+    undoes all five row filters (Average and Paeth rows an anti-diagonal of
+    pixels a step). The encoder writes 8- and 16-bit gray, gray+alpha, RGB
+    and RGBA, non-interlaced, filter 0 (None).
   * JPEG: ``data/jpeg.py``'s decoder, equal to cv2.imread bit for bit.
     The readers tell PNG from JPEG by the file's signature, as cv2 does,
     not by its extension (``decode_image``); ``imread_color`` is what
@@ -49,7 +51,7 @@ __all__ = [
 ]
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> samples per pixel
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # color type -> samples a pixel
 _PNG_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
 
 
@@ -145,17 +147,71 @@ def _unfilter(raw, h, stride, bpp):
     return out
 
 
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))  # x0, y0, dx, dy a pass
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+
+
+def _png_samples(rows, w, ch, depth):
+    """Unfiltered scanlines uint8 [h, stride] -> samples [h, w, ch], uint16
+    at depth 16, else uint8 (depths 1, 2 and 4 unpacked, not scaled)."""
+    h = rows.shape[0]
+    if depth == 16:
+        v = rows.reshape(h, w * ch, 2)
+        v = (v[..., 0].astype(np.uint16) << 8) | v[..., 1]
+    elif depth == 8:
+        v = rows
+    else:  # several samples a byte, the first in the high bits
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        v = ((rows[..., None] >> shifts) & ((1 << depth) - 1)).reshape(
+            h, -1)[:, :w * ch]
+    return v.reshape(h, w, ch)
+
+
+def _png_image(raw, w, h, ch, depth, interlace):
+    """The zlib-inflated IDAT stream -> samples [h, w, ch]. Each Adam7
+    pass is a sub-image of its own width, filtered on its own; a pass with
+    no pixel has no scanline."""
+    bpp = max(1, ch * depth // 8)  # the filters' byte distance
+    if not interlace:
+        stride = (w * ch * depth + 7) // 8
+        return _png_samples(_unfilter(raw, h, stride, bpp), w, ch, depth)
+    out = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = (pw * ch * depth + 7) // 8
+        n = ph * (stride + 1)
+        rows = _unfilter(raw[pos:pos + n], ph, stride, bpp)
+        out[y0::dy, x0::dx] = _png_samples(rows, pw, ch, depth)
+        pos += n
+    return out
+
+
 def decode_png(data, what="PNG"):
     """PNG bytes -> uint8 or uint16 array, [H, W] for gray, else [H, W, C]
-    in file order (RGB / RGBA / gray+alpha). ``what`` names the source in
-    errors."""
+    in file order (RGB / RGBA / gray+alpha), as ``cv2.imdecode(...,
+    IMREAD_UNCHANGED)`` decodes it (with its channels in BGR order and gray+
+    alpha as BGRA): gray at depths 1, 2 and 4 scaled to 0..255; a palette
+    expanded to RGB, or to RGBA when a tRNS chunk gives alphas (255 past
+    the table's end, black past the palette's); RGB with a tRNS key gets
+    alpha 0 where a pixel equals the key and the maximum elsewhere; a tRNS
+    on gray is ignored; Adam7-interlaced files give the same array as
+    non-interlaced ones. ``what`` names the source in errors."""
     if data[:8] != _PNG_SIG:
         raise ValueError(f"{what}: not a PNG file")
     idat = []
-    ihdr = None
+    ihdr = plte = trns = None
     for kind, body in _png_chunks(data):
         if kind == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(body, np.uint8)
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -163,19 +219,35 @@ def decode_png(data, what="PNG"):
     if ihdr is None:
         raise ValueError(f"{what}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = ihdr
-    if ctype not in _PNG_CHANNELS or depth not in (8, 16) or interlace:
+    if depth not in _PNG_DEPTHS.get(ctype, ()) or interlace > 1:
         raise NotImplementedError(
             f"{what}: PNG color type {ctype}, bit depth {depth}, interlace "
-            f"{interlace}; supported are gray/RGB/gray+alpha/RGBA at 8 or "
-            "16 bits, non-interlaced")
+            f"{interlace} is not a kind the PNG format defines")
+    if ctype == 3 and plte is None:
+        raise ValueError(f"{what}: palette PNG without a PLTE chunk")
     ch = _PNG_CHANNELS[ctype]
-    bpp = ch * depth // 8
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
-    if depth == 16:
-        img = img.reshape(h, w * ch, 2)
-        img = (img[..., 0].astype(np.uint16) << 8) | img[..., 1]
-    img = img.reshape(h, w, ch)
-    return img[..., 0] if ch == 1 else img
+    img = _png_image(zlib.decompress(b"".join(idat)), w, h, ch, depth,
+                     interlace)
+    top = (1 << depth) - 1
+    if ctype == 3:
+        n = len(plte) // 3
+        table = np.zeros((256, 3), np.uint8)
+        table[:n] = plte[:3 * n].reshape(n, 3)
+        # libpng ignores an empty tRNS or one longer than the palette
+        if trns is not None and 0 < len(trns) <= n:
+            alpha = np.full((256, 1), 255, np.uint8)
+            alpha[:len(trns), 0] = np.frombuffer(trns, np.uint8)
+            table = np.concatenate([table, alpha], axis=1)
+        return table[img[..., 0]]
+    if ctype == 0:
+        img = img[..., 0]
+        return img * np.uint8(255 // top) if depth < 8 else img
+    if ctype == 2 and trns is not None and len(trns) == 6:
+        key = np.array(struct.unpack(">HHH", trns)) & top
+        alpha = np.where(np.all(img == key, axis=-1), 0, top)
+        img = np.concatenate([img, alpha[..., None].astype(img.dtype)],
+                             axis=-1)
+    return img
 
 
 def read_png(path):

@@ -16,8 +16,18 @@ sit under "sdf_network_fine", "color_network_fine",
 The file is read with ``weights_only=True``, so a pickle cannot run code;
 the optimizer state is dropped. Every tensor's shape is checked against the
 configuration's.
+
+As a command (the port's scripts/import_torch_checkpoint.py), it writes the
+checkpoint that ``NeuSRunner.try_resume`` and ``gen-geo`` read:
+
+  python -m vqnerf_release_torch.interop.torch_import \
+      --ckpt exp/lego/checkpoints/ckpt_300000.pth \
+      --out output/exp/lego_3072/nerf [--scene lego_3072 | --no-bg]
 """
 
+import argparse
+import dataclasses
+import json
 import os
 import re
 
@@ -27,7 +37,7 @@ import torch
 from ..models.neus import NeuSConfig, init_neus
 from ..utils.device import resolve_device
 
-__all__ = ["import_neus"]
+__all__ = ["import_neus", "main"]
 
 
 def _load(path):
@@ -95,3 +105,47 @@ def import_neus(path, cfg: NeuSConfig, device="cuda"):
         _dense(sd, "alpha_linear", bg.alpha, "bg.alpha")
         _dense(sd, "rgb_linear", bg.rgb, "bg.rgb")
     return model.to(device), int(ckpt.get("iter_step", 0))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        "python -m vqnerf_release_torch.interop.torch_import",
+        description="Write the port's NeuS checkpoint of a reference NeuS "
+                    "(stage-1, torch .pth) checkpoint.")
+    ap.add_argument("--ckpt", required=True,
+                    help=".pth file or NeuS experiment dir")
+    ap.add_argument("--out", required=True,
+                    help="output base_exp_dir for NeuSRunner")
+    ap.add_argument("--scene", default=None,
+                    help="scene name: take the NeuS config from its "
+                         "family preset (default: NeuSConfig())")
+    ap.add_argument("--no-bg", action="store_true",
+                    help="checkpoint trained without the background NeRF")
+    ap.add_argument("--device", default="cuda",
+                    help="the torch device to import on (default cuda; "
+                         "'cpu' runs on the CPU); there is no fallback")
+    args = ap.parse_args(argv)
+
+    from ..train.neus_trainer import init_neus_opt_state
+    from ..utils import ckpt as ckpt_util
+
+    if args.scene:
+        from ..config import neus_configs_for_scene
+        cfg, _, _ = neus_configs_for_scene(args.scene)
+    else:
+        cfg = NeuSConfig()
+    if args.no_bg:
+        cfg = dataclasses.replace(cfg, n_outside=0)
+
+    model, iter_step = import_neus(args.ckpt, cfg, device=args.device)
+    state = {"params": model.state_dict(),
+             "opt_state": init_neus_opt_state(model.parameters()),
+             "iter_step": iter_step}
+    path = ckpt_util.save_ckpt(args.out, iter_step, state)
+    print(json.dumps({"source": args.ckpt, "written": path,
+                      "iter_step": iter_step, "has_bg": model.has_bg}))
+    return path
+
+
+if __name__ == "__main__":
+    main()

@@ -15,7 +15,8 @@ from ..ops.microfacet import microfacet_brdf
 from ..ops.render import render_equation
 from . import decomp_common as dc
 
-__all__ = ["NfrUnit", "init_nfr_unit", "nfr_unit_forward", "nfr_unit_loss"]
+__all__ = ["NfrUnit", "init_nfr_unit", "nfr_unit_forward", "nfr_unit_loss",
+           "nfr_unit_row_sums", "nfr_unit_loss_from_sums"]
 
 
 class NfrUnit(dc.ParamModule):
@@ -103,11 +104,24 @@ def nfr_unit_forward(model, batch, cfg: dc.DecompConfig, lxyz, lareas,
     return pred, aux
 
 
-def nfr_unit_loss(aux, cfg: dc.DecompConfig, mode="train"):
-    """Masked-mean MSE in linear space; returns (loss, loss dict)."""
+def nfr_unit_row_sums(aux, cfg: dc.DecompConfig):
+    """The loss's masked mean over ``aux``'s rows as partial sums {"rgb":
+    (sum of the masked per-row MSE, sum of the mask)}: the sums of row
+    blocks add up to those of their union."""
     mask = aux["mask"]
     gt = aux["rgb_gt"]
     linear_gt = srgb2linear(gt) if cfg.is_nerf else gt
     per_ray = torch.mean((linear_gt - aux["rgb_pred_linear"]) ** 2, dim=-1)
-    loss = torch.sum(per_ray * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return {"rgb": (torch.sum(per_ray * mask), torch.sum(mask))}
+
+
+def nfr_unit_loss_from_sums(sums):
+    """(loss, loss dict) from ``nfr_unit_row_sums``."""
+    num, den = sums["rgb"]
+    loss = num / torch.clamp(den, min=1.0)
     return loss, {"rgb": loss, "loss": loss}
+
+
+def nfr_unit_loss(aux, cfg: dc.DecompConfig, mode="train"):
+    """Masked-mean MSE in linear space; returns (loss, loss dict)."""
+    return nfr_unit_loss_from_sums(nfr_unit_row_sums(aux, cfg))

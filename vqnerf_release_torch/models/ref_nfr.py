@@ -28,7 +28,7 @@ from . import decomp_common as dc
 from .vq_nfr import _edit, _relight
 
 __all__ = ["RefNfr", "init_ref_nfr", "ref_nfr_forward", "ref_nfr_loss",
-           "ref_fast_render"]
+           "ref_nfr_row_sums", "ref_nfr_loss_from_sums", "ref_fast_render"]
 
 RGB_ENC_ACTS = [None, "relu", "sigmoid"]
 
@@ -142,14 +142,27 @@ def ref_nfr_forward(model, batch, cfg: dc.DecompConfig, lxyz, lareas,
     return pred, aux
 
 
-def ref_nfr_loss(aux, cfg: dc.DecompConfig, mode="train"):
-    """Masked-mean MSE in linear space; returns (loss, loss dict)."""
+def ref_nfr_row_sums(aux, cfg: dc.DecompConfig):
+    """The loss's masked mean over ``aux``'s rows as partial sums {"rgb":
+    (sum of the masked per-row MSE, sum of the mask)}: the sums of row
+    blocks add up to those of their union."""
     mask = aux["mask"]
     gt = aux["rgb_gt"]
     linear_gt = srgb2linear(gt) if cfg.is_nerf else gt
     per_ray = torch.mean((linear_gt - aux["rgb_pred_linear"]) ** 2, dim=-1)
-    loss = torch.sum(per_ray * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return {"rgb": (torch.sum(per_ray * mask), torch.sum(mask))}
+
+
+def ref_nfr_loss_from_sums(sums):
+    """(loss, loss dict) from ``ref_nfr_row_sums``."""
+    num, den = sums["rgb"]
+    loss = num / torch.clamp(den, min=1.0)
     return loss, {"rgb": loss, "loss": loss}
+
+
+def ref_nfr_loss(aux, cfg: dc.DecompConfig, mode="train"):
+    """Masked-mean MSE in linear space; returns (loss, loss dict)."""
+    return ref_nfr_loss_from_sums(ref_nfr_row_sums(aux, cfg))
 
 
 def ref_fast_render(model, batch, cfg: dc.DecompConfig, lxyz, lareas,

@@ -25,7 +25,9 @@ from ..ops.vq import init_vq_ema_state, vq_ema_apply, vq_lookup
 from . import decomp_common as dc
 
 __all__ = ["VqNfr", "init_vq_nfr", "vq_encode", "vq_nfr_forward",
-           "vq_nfr_loss", "vq_fast_render", "vq_fast_embed", "vq_test"]
+           "vq_nfr_rows", "vq_nfr_loss", "vq_nfr_row_sums",
+           "vq_nfr_train_loss", "vq_fast_render", "vq_fast_embed",
+           "vq_test"]
 
 
 class VqNfr(dc.ParamModule):
@@ -98,17 +100,39 @@ def vq_nfr_forward(model, ema_state, batch, cfg: dc.DecompConfig, lxyz,
     torch.Generator on the batch's device for the code dropout; roll:
     explicit [1, K] uniforms in its place.
     """
-    mask, xyz, surf2c, surf2l, normal_pred, lvis = _geom(batch, cfg, lxyz)
     train = mode == "train"
-
-    z_enc, z_norm = vq_encode(model, xyz, cfg)
+    mask = (batch["alpha"][:, 0] > 0).to(torch.float32)
+    z_enc, z_norm = vq_encode(model, batch["xyz"], cfg)
     vq_outs, new_ema = vq_ema_apply(
         dc.get_codebook(model), z_norm, ema_state,
         commitment_cost=cfg.commitment_cost, decay=cfg.vq_decay,
         is_training=train, thres=thres, rng=rng, mask=mask, roll=roll,
-        use_fused=train and dc.fused_vq_enabled(cfg, xyz.device))
-    z_vq = vq_outs["quantize"]
-    embed_ind = vq_outs["encoding_indices"] + 1  # 0 is the background
+        use_fused=train and dc.fused_vq_enabled(cfg, z_norm.device))
+    pred, aux = vq_nfr_rows(model, batch, z_enc, vq_outs["quantize"],
+                            vq_outs["encoding_indices"], cfg, lxyz, lareas,
+                            mode=mode)
+    # masked per-code usage; the fused path returns counts in place of the
+    # [N, K] one-hot
+    if "counts" in vq_outs:
+        usage = vq_outs["counts"] > 0
+    else:
+        usage = torch.amax(vq_outs["encodings"], dim=0) > 0
+    aux.update(vq_loss=vq_outs["loss"], perplexity=vq_outs["perplexity"],
+               usage=usage.to(torch.float32))
+    if train:
+        aux["codebook_update"] = vq_outs["update"]
+    return pred, aux, new_ema
+
+
+def vq_nfr_rows(model, batch, z_enc, z_vq, encoding_indices,
+                cfg: dc.DecompConfig, lxyz, lareas, mode="train"):
+    """The per-row half of ``vq_nfr_forward`` after the VQ: both decodes,
+    BRDFs and renders of ``batch``'s rows from their latents ``z_enc`` and
+    quantised ``z_vq``. Returns (pred, aux) without the VQ's own entries,
+    so that row blocks on several devices can run it on one VQ call's
+    outputs."""
+    mask, xyz, surf2c, surf2l, normal_pred, lvis = _geom(batch, cfg, lxyz)
+    embed_ind = encoding_indices + 1  # 0 is the background
 
     basecolor, ks, rough, spec, albedo = _decode_main(model, z_enc, cfg)
     brdf, brdf_spec, brdf_diff = microfacet_brdf(
@@ -127,26 +151,15 @@ def vq_nfr_forward(model, ema_state, batch, cfg: dc.DecompConfig, lxyz,
         vq_brdf, surf2l, normal_pred, lareas, light, light_vis=lvis,
         gamma=gamma)
 
-    # masked per-code usage; the fused path returns counts in place of the
-    # [N, K] one-hot
-    if "counts" in vq_outs:
-        usage = vq_outs["counts"] > 0
-    else:
-        usage = torch.amax(vq_outs["encodings"], dim=0) > 0
     aux = {
         "mask": mask,
         "rgb_gt": batch["rgb"],
         "rgb_pred_linear": rgb_pred,
         "vq_rgb_linear": vq_rgb,
-        "vq_loss": vq_outs["loss"],
         "z_vq": z_vq,
         "spec": spec,
         "rough": rough,
-        "perplexity": vq_outs["perplexity"],
-        "usage": usage.to(torch.float32),
     }
-    if train:
-        aux["codebook_update"] = vq_outs["update"]
 
     m = mask[:, None]
     pred = {
@@ -159,7 +172,7 @@ def vq_nfr_forward(model, ema_state, batch, cfg: dc.DecompConfig, lxyz,
         "alpha": batch.get("pred_alpha", batch["alpha"]),
         "embed": embed_ind.to(torch.int32) * mask.to(torch.int32),
     }
-    if not train:
+    if mode != "train":
         # the component renders stay linear, also for CG scenes
         pred["rgb_diff"] = render_equation(
             brdf_diff, surf2l, normal_pred, lareas, light, light_vis=lvis,
@@ -171,11 +184,16 @@ def vq_nfr_forward(model, ema_state, batch, cfg: dc.DecompConfig, lxyz,
         pred["vq_albedo"] = vq_albedo * m
         pred["vq_spec"] = vq_spec * m
         pred["vq_rough"] = vq_rough * m
-    return pred, aux, new_ema
+    return pred, aux
 
 
 def _masked_mean(per_ray, mask):
     return torch.sum(per_ray * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _from_sums(sums):
+    num, den = sums
+    return num / torch.clamp(den, min=1.0)
 
 
 def _mse(a, b):
@@ -185,6 +203,8 @@ def _mse(a, b):
 def vq_nfr_loss(model, aux, cfg: dc.DecompConfig, mode="train"):
     """The seven-term training loss, or the three-term validation loss;
     returns (loss, loss dict)."""
+    if mode == "train":
+        return vq_nfr_train_loss(model, vq_nfr_row_sums(aux, cfg), aux, cfg)
     mask = aux["mask"]
     rgb_gt = aux["rgb_gt"]
     rgb_pred = aux["rgb_pred_linear"]
@@ -196,24 +216,57 @@ def vq_nfr_loss(model, aux, cfg: dc.DecompConfig, mode="train"):
     else:
         linear_gt, srgb_pred = rgb_gt, rgb_pred
 
+    # sRGB-domain reconstruction, vq reconstruction and chromaticity
     loss_dict = {}
-    if mode != "train":
-        # sRGB-domain reconstruction, vq reconstruction and chromaticity
-        loss_dict["rgb"] = _masked_mean(_mse(rgb_gt, srgb_pred), mask)
-        vq_srgb = linear2srgb(vq_rgb) if cfg.is_nerf else vq_rgb
-        loss_dict["vqrgb"] = _masked_mean(_mse(rgb_gt, vq_srgb), mask)
-        loss_dict["chromaticity"] = _masked_mean(
-            _mse(rgb2chromaticity(linear_gt), rgb2chromaticity(vq_rgb)), mask)
-        loss = (loss_dict["rgb"] + loss_dict["vqrgb"]
-                + loss_dict["chromaticity"])
-        loss_dict["loss"] = loss
-        return loss, loss_dict
+    loss_dict["rgb"] = _masked_mean(_mse(rgb_gt, srgb_pred), mask)
+    vq_srgb = linear2srgb(vq_rgb) if cfg.is_nerf else vq_rgb
+    loss_dict["vqrgb"] = _masked_mean(_mse(rgb_gt, vq_srgb), mask)
+    loss_dict["chromaticity"] = _masked_mean(
+        _mse(rgb2chromaticity(linear_gt), rgb2chromaticity(vq_rgb)), mask)
+    loss = loss_dict["rgb"] + loss_dict["vqrgb"] + loss_dict["chromaticity"]
+    loss_dict["loss"] = loss
+    return loss, loss_dict
 
-    loss_dict["rgb"] = cfg.combine_weight * _masked_mean(
-        _mse(linear_gt, rgb_pred), mask)
+
+def vq_nfr_row_sums(aux, cfg: dc.DecompConfig):
+    """The training loss's masked-mean terms over ``aux``'s rows as partial
+    sums {name: (sum of the masked per-row values, sum of the mask)}: the
+    sums of row blocks add up to those of their union."""
+    mask = aux["mask"]
+    rgb_gt = aux["rgb_gt"]
+    rgb_pred = aux["rgb_pred_linear"]
+    vq_rgb = aux["vq_rgb_linear"]
+    linear_gt = srgb2linear(rgb_gt) if cfg.is_nerf else rgb_gt
+
+    def sums(per_ray):
+        return torch.sum(per_ray * mask), torch.sum(mask)
+
+    out = {"rgb": sums(_mse(linear_gt, rgb_pred)),
+           "vqrgb": sums(_mse(linear_gt, vq_rgb))}
+    if cfg.chromaticity_loss_weight > 0:
+        out["chromaticity"] = sums(_mse(rgb2chromaticity(linear_gt),
+                                        rgb2chromaticity(vq_rgb)))
+    # Lambert prior: penalise high spec where the (detached) rough is high
+    if cfg.lambert_weight > 0:
+        sg_rough = aux["rough"].detach()
+        sg_rough = torch.where(sg_rough < 0.5, torch.zeros_like(sg_rough),
+                               2.0 * sg_rough - 1.0)
+        out["lambert"] = sums(torch.amax(aux["spec"], dim=-1)
+                              * sg_rough[:, 0])
+    return out
+
+
+def vq_nfr_train_loss(model, sums, aux, cfg: dc.DecompConfig):
+    """The seven-term training loss; returns (loss, loss dict). ``sums``:
+    ``vq_nfr_row_sums`` of the batch (or of its row blocks, added up);
+    ``aux``: the whole batch's mask, rgb_gt and z_vq (the smoothness
+    pairs), and the VQ's vq_loss and codebook_update."""
+    mask = aux["mask"]
+    loss_dict = {}
+    loss_dict["rgb"] = cfg.combine_weight * _from_sums(sums["rgb"])
     loss = loss_dict["rgb"]
 
-    loss_dict["vqrgb"] = _masked_mean(_mse(linear_gt, vq_rgb), mask)
+    loss_dict["vqrgb"] = _from_sums(sums["vqrgb"])
     loss = loss + loss_dict["vqrgb"]
 
     loss_dict["vqloss"] = cfg.vq_loss_weight * aux["vq_loss"]
@@ -221,15 +274,13 @@ def vq_nfr_loss(model, aux, cfg: dc.DecompConfig, mode="train"):
 
     if cfg.chromaticity_loss_weight > 0:
         loss_dict["chromaticity"] = (
-            cfg.chromaticity_loss_weight * _masked_mean(
-                _mse(rgb2chromaticity(linear_gt), rgb2chromaticity(vq_rgb)),
-                mask))
+            cfg.chromaticity_loss_weight * _from_sums(sums["chromaticity"]))
         loss = loss + loss_dict["chromaticity"]
 
     # Chroma-gated smoothness over the jitter pairs [p, p_jit, p, p_jit,
     # ...]; the GT chromaticity in the raw domain (sRGB for CG data).
     if cfg.mat_sloss_weight > 0:
-        schr_gt = rgb2chromaticity(rgb_gt)
+        schr_gt = rgb2chromaticity(aux["rgb_gt"])
         chr1, chr2 = schr_gt[::2], schr_gt[1::2]
         chr_e = torch.sqrt(torch.sum(torch.square(chr1 - chr2), dim=-1))
         chr_e = torch.where(chr_e > cfg.chr_thres, chr_e,
@@ -263,14 +314,9 @@ def vq_nfr_loss(model, aux, cfg: dc.DecompConfig, mode="train"):
             -torch.log(torch.min(masked)))
         loss = loss + loss_dict["sim_smooth"]
 
-    # Lambert prior: penalise high spec where the (detached) rough is high
     if cfg.lambert_weight > 0:
-        sg_rough = aux["rough"].detach()
-        sg_rough = torch.where(sg_rough < 0.5, torch.zeros_like(sg_rough),
-                               2.0 * sg_rough - 1.0)
-        lambert = torch.amax(aux["spec"], dim=-1) * sg_rough[:, 0]
-        loss_dict["lambert"] = cfg.lambert_weight * _masked_mean(
-            lambert, mask)
+        loss_dict["lambert"] = cfg.lambert_weight * _from_sums(
+            sums["lambert"])
         loss = loss + loss_dict["lambert"]
 
     loss_dict["loss"] = loss

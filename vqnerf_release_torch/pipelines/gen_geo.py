@@ -13,7 +13,14 @@ vqnerf_release_tpu/pipelines/gen_geo.py).
     front_lit * (1 - weight_sum); far from the bounding-sphere
     intersection, near = min(0.1, far / 2);
   * resumable: views whose files all exist are skipped; ``num_p`` / ``p_i``
-    shard the views over processes.
+    shard the views over processes;
+  * ``mesh`` (a list of devices, as ``parallel.get_mesh`` gives): every ray
+    batch of the geometry render, the certification sweeps and the shadow
+    pass is split in contiguous row blocks over the devices, each with its
+    own copy of the params, and the outputs come back to the first device
+    in ray order (the JAX extractor shards its render batches over a
+    device mesh). Every ray is independent, so only the blocks' sizes
+    differ from the unsplit path.
 
 **On the GPU.** The shadow rays go through ``models.neus.neus_occlusion``,
 whose SDF evaluations are the two fused CUDA kernels of ``kernels/sdf.py``
@@ -32,6 +39,7 @@ independent in ``neus_occlusion``, so the values do not depend on the
 chunking. PNGs are written with the port's own encoder.
 """
 
+import copy
 import math
 import os
 import sys
@@ -49,6 +57,7 @@ from ..models import fields
 from ..models.neus import (NeuSConfig, fused_sdf_enabled, init_neus,
                            neus_occlusion, neus_render)
 from ..ops.light import gen_light_xyz
+from ..parallel.mesh import row_blocks
 from ..utils import ckpt as ckpt_util
 from ..utils.device import resolve_device
 
@@ -59,6 +68,14 @@ VIEW_FILES_CG = ["lvis.npy", "lvis.png", "alpha.png", "normal.npy",
                  "normal.png", "rgb.png", "xyz.npy", "xyz.png"]
 VIEW_FILES_REAL = ["alpha.png", "normal.npy", "normal.png", "rgb.png",
                    "xyz.npy", "xyz.png"]
+
+
+class _Replica:
+    """What one device of an extractor's mesh holds."""
+
+    def __init__(self, device, params, packed, vis_grid, bg):
+        self.device, self.params, self.packed = device, params, packed
+        self.vis_grid, self.bg = vis_grid, bg
 
 
 def intersect_sphere_far(x, d, r, eps=1e-7):
@@ -88,8 +105,12 @@ class GeoExtractor:
                  fast_vis_occluded=False, fast_vis_refine=64,
                  vis_sampler=None, occ_vis=False,
                  occ_vis_res=64, occ_vis_margin=2.0,
-                 span_vis=False, span_bins=32, span_pad=1, device="cuda"):
-        self.device = resolve_device(device)
+                 span_vis=False, span_bins=32, span_pad=1, device="cuda",
+                 mesh=None):
+        # a mesh of one device is no mesh; its first device is the device
+        self.mesh = list(mesh) if mesh is not None and len(mesh) > 1 \
+            else None
+        self.device = resolve_device(self.mesh[0] if self.mesh else device)
         self.params = params.to(self.device)
         self.cfg = cfg
         self.dataset = dataset
@@ -127,12 +148,7 @@ class GeoExtractor:
         self.occ_vis = occ_vis
         self.span_vis = span_vis
         self.span_bins, self.span_pad = span_bins, span_pad
-        self._vis_grid = None
-        if occ_vis or span_vis:
-            from ..ops.occupancy import build_occ_grid
-            self._vis_grid = build_occ_grid(
-                self.params.sdf, cfg.sdf, radius=self.radius,
-                res=occ_vis_res, margin_factor=occ_vis_margin)
+        self._occ_vis_res, self._occ_vis_margin = occ_vis_res, occ_vis_margin
         lxyz, _ = gen_light_xyz(light_h, 2 * light_h)
         self.lxyz = torch.as_tensor(lxyz.reshape(-1, 3), dtype=torch.float32,
                                     device=self.device)
@@ -145,11 +161,15 @@ class GeoExtractor:
             light_tile -= 1
         self.light_tile = light_tile
         self.use_fused_sdf = fused_sdf_enabled(use_fused_sdf, self.lxyz)
-        # packed once: every SDF evaluation of the shadow pass reuses it
-        self._packed = (sdf_kernel.pack_sdf(self.params.sdf, cfg.sdf)
-                        if self.use_fused_sdf else None)
-        self._bg = (torch.ones((1, 3), device=self.device)
-                    if use_white_bkgd else None)
+        # one replica a device of the mesh: the params, the SDF packed for
+        # the kernels once (every SDF evaluation of the shadow pass reuses
+        # it), the vis grid and the background; the first is this device's
+        self._replicas = [self._replica(self.params, self.device)]
+        for dev in (self.mesh or [])[1:]:
+            dev = resolve_device(dev)
+            self._replicas.append(self._replica(
+                copy.deepcopy(self.params).to(dev), dev))
+        self._packed = self._replicas[0].packed
         self._writer = None
         self._pending_writes = []
         self.last_fast_vis_stats = None
@@ -163,17 +183,50 @@ class GeoExtractor:
                               "occlusion": 0.0}
 
     # -- device pieces ------------------------------------------------------
+    def _replica(self, params, device):
+        packed = (sdf_kernel.pack_sdf(params.sdf, self.cfg.sdf)
+                  if self.use_fused_sdf else None)
+        vis_grid = None
+        if self.occ_vis or self.span_vis:
+            from ..ops.occupancy import build_occ_grid
+            vis_grid = build_occ_grid(
+                params.sdf, self.cfg.sdf, radius=self.radius,
+                res=self._occ_vis_res, margin_factor=self._occ_vis_margin)
+        bg = (torch.ones((1, 3), device=device) if self.use_white_bkgd
+              else None)
+        return _Replica(device, params, packed, vis_grid, bg)
+
+    def _on_mesh(self, fn, *xs):
+        """``fn(replica, *blocks)`` over contiguous row blocks of the
+        tensors ``xs``, one block a device of the mesh, with the outputs (a
+        tensor or a dict of tensors) gathered on the first device in row
+        order; without a mesh ``fn(the replica, *xs)``."""
+        n = xs[0].shape[0]
+        if len(self._replicas) == 1 or n == 0:
+            return fn(self._replicas[0], *xs)
+        outs = [fn(r, *(x[a:b].to(r.device) for x in xs))
+                for r, (a, b) in zip(self._replicas,
+                                     row_blocks(n, len(self._replicas)))
+                if b > a]
+        if isinstance(outs[0], dict):
+            return {k: torch.cat([o[k].to(self.device) for o in outs])
+                    for k in outs[0]}
+        return torch.cat([o.to(self.device) for o in outs])
+
     def _to_device(self, x):
         return torch.as_tensor(np.asarray(x), dtype=torch.float32,
                                device=self.device)
 
-    @torch.no_grad()
     def _render(self, rays_o, rays_d, near, far):
+        return self._on_mesh(self._render_on, rays_o, rays_d, near, far)
+
+    @torch.no_grad()
+    def _render_on(self, r, rays_o, rays_d, near, far):
         cfg = self.cfg
         out = neus_render(
-            self.params, cfg, rays_o, rays_d, near, far, self.radius,
-            cos_anneal_ratio=1.0, background_rgb=self._bg,
-            use_fused_sdf=self.use_fused_sdf, packed=self._packed)
+            r.params, cfg, rays_o, rays_d, near, far, self.radius,
+            cos_anneal_ratio=1.0, background_rgb=r.bg,
+            use_fused_sdf=self.use_fused_sdf, packed=r.packed)
         n_core = cfg.n_samples + cfg.n_importance
         normals = (out["gradients"]
                    * out["weights"][:, :n_core, None]
@@ -187,33 +240,39 @@ class GeoExtractor:
 
     def _sdf_only(self, pts):
         """SDF of flat points for the certification sweeps."""
+        return self._on_mesh(self._sdf_on, pts)
+
+    def _sdf_on(self, r, pts):
         if self.use_fused_sdf:
-            return sdf_kernel.sdf_fwd(self._packed, pts.contiguous())
-        return fields.sdf_only(self.params.sdf, pts, self.cfg.sdf)
+            return sdf_kernel.sdf_fwd(r.packed, pts.contiguous())
+        return fields.sdf_only(r.params.sdf, pts, self.cfg.sdf)
 
     def _near_far(self, o, d):
         far = intersect_sphere_far(o, d, self.radius)
         near = torch.minimum(torch.full_like(far, 0.1), far / 2.0)
         return near, far
 
-    def _span(self, o, d, near, far):
+    def _span(self, o, d, near, far, vis_grid):
         from ..ops.occupancy import ray_occupied_span
         return ray_occupied_span(
-            o, d, near, far, self._vis_grid, self.radius,
+            o, d, near, far, vis_grid, self.radius,
             n_bins=self.span_bins, pad_bins=self.span_pad)
 
-    @torch.no_grad()
     def _occ_chunk(self, o, d):
         """Flat [K] shadow rays -> occlusion [K, 1]."""
+        return self._on_mesh(self._occ_on, o, d)
+
+    @torch.no_grad()
+    def _occ_on(self, r, o, d):
         near, far = self._near_far(o, d)
         any_occ = None
         if self.span_vis:
-            near, far, any_occ = self._span(o, d, near, far)
+            near, far, any_occ = self._span(o, d, near, far, r.vis_grid)
         occ = neus_occlusion(
-            self.params, self.vis_cfg, o, d, near, far, self.radius,
+            r.params, self.vis_cfg, o, d, near, far, self.radius,
             cos_anneal_ratio=1.0, use_fused_sdf=self.use_fused_sdf,
-            packed=self._packed,
-            occ_grid=self._vis_grid if self.occ_vis else None)
+            packed=r.packed,
+            occ_grid=r.vis_grid if self.occ_vis else None)
         if any_occ is not None:
             occ = occ * any_occ.reshape(occ.shape)
         return occ
@@ -284,7 +343,8 @@ class GeoExtractor:
         finer spacing."""
         near, far = self._near_far(o, d)
         if self.span_vis:
-            near, far, _ = self._span(o, d, near, far)
+            near, far, _ = self._span(o, d, near, far,
+                                      self._replicas[0].vis_grid)
         below_margin, deep = self._certificates(
             o, d, self.fast_vis_refine, near_far=(near, far))
         return ~below_margin, deep
@@ -572,7 +632,8 @@ def run_gen_geo(scene, data_root, output_root="./output", seed=0,
                 fast_vis_occluded=False, fast_vis_refine=64,
                 vis_sampler=None, occ_vis=False, span_vis=False,
                 num_p=None, p_i=None, overrides=None, near=None, far=None,
-                use_fused_sdf=None, device="cuda", **extractor_kw):
+                use_fused_sdf=None, device="cuda", mesh=None,
+                **extractor_kw):
     """Extract the train and val views of ``scene`` (the single-process
     body of the JAX package's ``gen-geo`` command).
 
@@ -586,10 +647,11 @@ def run_gen_geo(scene, data_root, output_root="./output", seed=0,
     [...]}, the view directories, under "seconds" the extractors'
     ``phase_seconds`` summed, and under "fast_vis" the
     ``last_fast_vis_stats`` of every view that fast-vis extracted, train
-    views first."""
+    views first. ``mesh``: a list of devices to split every ray batch over
+    (its first device replaces ``device``)."""
     from ..data.neus_dataset import DtuSceneDataset, NerfSceneDataset
 
-    device = resolve_device(device)
+    device = resolve_device(mesh[0] if mesh else device)
     base = dict(n_samples=64, n_importance=64, up_sample_steps=4, occ_res=0)
     base.update(overrides or {})
     cfg, tcfg, meta = vcfg.neus_configs_for_scene(scene, **base)
@@ -616,7 +678,7 @@ def run_gen_geo(scene, data_root, output_root="./output", seed=0,
             fast_vis_occluded=fast_vis_occluded,
             fast_vis_refine=fast_vis_refine, use_fused_sdf=use_fused_sdf,
             vis_sampler=vis_sampler, occ_vis=occ_vis, span_vis=span_vis,
-            device=device, **extractor_kw)
+            device=device, mesh=mesh, **extractor_kw)
         done["train" if is_train else "val"] = ex.extract_views(
             is_train=is_train, num_p=num_p, p_i=p_i, no_vis=no_vis)
         for phase, sec in ex.phase_seconds.items():

@@ -28,15 +28,38 @@ The optimizer state is flat: ``m``, ``v`` and ``vhat`` are one vector each
 over all parameters in ``model.parameters()`` order, so one step is a dozen
 launches whatever the number of layers. ``interop/jax_params.py`` converts
 it to and from the JAX package's per-leaf trees.
+
+**Over a mesh** (``mesh``, a list of devices, as ``parallel.get_mesh``
+gives; by default the model's device alone, where the JAX package shards
+every batch over all its devices): the batch is padded with alpha-0 rows
+to a multiple of the device count and split in contiguous row blocks, one
+a device, each run by a copy of the model whose parameters are refreshed
+from the model at the start of every step (on one device: the batch
+itself, run by the model). The step's loss is the loss of the global padded
+batch: each device adds up the numerator and the denominator of every
+masked-mean term over its rows, the sums are reduced on the first device,
+and one backward runs through them; the gradients of the copies are summed
+there and the amsgrad update runs once, on the model. For vq_nfr the
+latents of all rows are gathered to the first device and the VQ runs there
+once, over the whole batch (the fused kernel on a card), so that the
+codebook EMA sees the global counts and dw; the terms that pair rows (the
+chroma-gated smoothness) or read the codebook are computed there too.
 """
+
+import copy
 
 import torch
 
 from ..models import decomp_common as dc
-from ..models.nfr_unit import nfr_unit_forward, nfr_unit_loss
-from ..models.ref_nfr import ref_nfr_forward, ref_nfr_loss
-from ..models.vq_nfr import vq_nfr_forward, vq_nfr_loss
-from ..ops.vq import VqEmaState
+from ..models.nfr_unit import (nfr_unit_forward, nfr_unit_loss_from_sums,
+                               nfr_unit_row_sums)
+from ..models.ref_nfr import (ref_nfr_forward, ref_nfr_loss_from_sums,
+                              ref_nfr_row_sums)
+from ..models.vq_nfr import (vq_encode, vq_nfr_row_sums, vq_nfr_rows,
+                             vq_nfr_train_loss)
+from ..ops.vq import VqEmaState, vq_ema_apply
+from ..parallel.mesh import shard_batch
+from ..utils.device import resolve_device
 
 __all__ = ["decomp_lr", "KerasAmsgrad", "make_nfr_unit_step",
            "make_vq_nfr_step", "make_ref_nfr_step"]
@@ -109,12 +132,6 @@ class KerasAmsgrad:
         return ok
 
 
-def _grads(loss, params):
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for g, p in zip(grads, params)]
-
-
 def _finish_ld(ld, ok, guard):
     ld = {k: v.detach() for k, v in ld.items()}
     if guard:
@@ -122,44 +139,134 @@ def _finish_ld(ld, ok, guard):
     return ld
 
 
-def make_nfr_unit_step(model, cfg: dc.DecompConfig, lxyz, lareas):
-    """(optimizer, step_fn); step_fn(batch, step) -> loss dict of 0-dim
-    tensors on the device, after updating ``model`` in place."""
-    params = list(model.parameters())
-    opt = KerasAmsgrad(params, cfg)
+class _Replicas:
+    """A model and its copies over a mesh: the model itself on mesh[0],
+    a deep copy on every further device, and the light constants on each.
+    ``trained(model)`` lists the parameters a step optimises. ``mesh``
+    None is the model's own device alone."""
+
+    def __init__(self, model, mesh, trained, lxyz, lareas):
+        if mesh is None:
+            mesh = [next(model.parameters()).device]
+        self.mesh = [resolve_device(d) for d in mesh]
+        self.models = [model] + [copy.deepcopy(model).to(d)
+                                 for d in self.mesh[1:]]
+        self.trained = [list(trained(m)) for m in self.models]
+        self.lights = [(lxyz.to(d), lareas.to(d)) for d in self.mesh]
+
+    @torch.no_grad()
+    def sync(self):
+        """Copy the model's parameters into every copy (also after a
+        resume has loaded the model)."""
+        src = list(self.models[0].parameters())
+        for m in self.models[1:]:
+            for p, q in zip(m.parameters(), src):
+                p.copy_(q)
+
+    def grads(self, loss):
+        """One backward through ``loss``; the gradients of every copy's
+        trained parameters summed on the model's, in its parameter
+        order."""
+        flat = [p for ps in self.trained for p in ps]
+        got = torch.autograd.grad(loss, flat, allow_unused=True)
+        n = len(self.trained[0])
+        out = []
+        for j, p in enumerate(self.trained[0]):
+            g = None
+            for r in range(len(self.trained)):
+                gr = got[r * n + j]
+                if gr is not None:
+                    gr = gr.to(p.device)
+                    g = gr if g is None else g + gr
+            out.append(torch.zeros_like(p) if g is None else g)
+        return out
+
+
+def _add_sums(total, sums, device):
+    """Add one block's {name: (numerator, denominator)} into ``total`` on
+    ``device``."""
+    sums = {k: (a.to(device), b.to(device)) for k, (a, b) in sums.items()}
+    if total is None:
+        return sums
+    return {k: (total[k][0] + a, total[k][1] + b)
+            for k, (a, b) in sums.items()}
+
+
+def _rows_step(model, opt, cfg, lxyz, lareas, mesh, trained, forward,
+               row_sums, loss_from_sums):
+    """The step of a model whose loss is masked means of its rows
+    (nfr_unit, ref_nfr)."""
+    reps = _Replicas(model, mesh, trained, lxyz, lareas)
 
     def step_fn(batch, step):
-        _, aux = nfr_unit_forward(model, batch, cfg, lxyz, lareas,
-                                  mode="train")
-        loss, ld = nfr_unit_loss(aux, cfg, mode="train")
-        ok = opt.step(_grads(loss, params), decomp_lr(step, cfg), loss)
+        reps.sync()
+        blocks, _ = shard_batch(batch, reps.mesh)
+        sums = None
+        for m, b, (lx, la) in zip(reps.models, blocks, reps.lights):
+            _, aux = forward(m, b, cfg, lx, la, mode="train")
+            sums = _add_sums(sums, row_sums(aux, cfg), reps.mesh[0])
+        loss, ld = loss_from_sums(sums)
+        ok = opt.step(reps.grads(loss), decomp_lr(step, cfg), loss)
         return _finish_ld(ld, ok, opt.guard)
 
-    return opt, step_fn
+    return step_fn
 
 
-def make_vq_nfr_step(model, cfg: dc.DecompConfig, lxyz, lareas):
-    """(optimizer, step_fn); step_fn(ema_state, batch, thres, rng, step) ->
-    (new_ema_state, loss dict), after updating ``model`` in place.
-    ``batch["_roll"]`` (optional, [1, K]) gives the dropout uniforms in
-    place of a draw from ``rng``."""
-    params = list(model.parameters())
-    opt = KerasAmsgrad(params, cfg)
+def make_nfr_unit_step(model, cfg: dc.DecompConfig, lxyz, lareas,
+                       mesh=None):
+    """(optimizer, step_fn); step_fn(batch, step) -> loss dict of 0-dim
+    tensors on the device, after updating ``model`` in place. ``mesh``:
+    the devices to split every batch over (the model on the first; by
+    default the model's device alone)."""
+    opt = KerasAmsgrad(model.parameters(), cfg)
+    return opt, _rows_step(
+        model, opt, cfg, lxyz, lareas, mesh, lambda m: m.parameters(),
+        nfr_unit_forward, nfr_unit_row_sums, nfr_unit_loss_from_sums)
+
+
+def _vq_nfr_step(model, opt, cfg, lxyz, lareas, mesh):
+    """vq_nfr's step: the encoders on every device, the VQ once on the
+    first over the gathered latents of all rows, the decodes and renders
+    on every device again."""
+    reps = _Replicas(model, mesh, lambda m: m.parameters(), lxyz, lareas)
+    dev0 = reps.mesh[0]
 
     def step_fn(ema_state, batch, thres, rng, step):
         batch = dict(batch)
         roll = batch.pop("_roll", None)
-        _, aux, new_ema = vq_nfr_forward(
-            model, ema_state, batch, cfg, lxyz, lareas, mode="train",
-            thres=thres, rng=rng, roll=roll)
-        loss, ld = vq_nfr_loss(model, aux, cfg, mode="train")
-        cb_update = aux["codebook_update"]
+        reps.sync()
+        blocks, _ = shard_batch(batch, reps.mesh)
+        encs = [vq_encode(m, b["xyz"], cfg)
+                for m, b in zip(reps.models, blocks)]
+        whole = {k: torch.cat([b[k].to(dev0) for b in blocks])
+                 for k in ("alpha", "rgb")}
+        mask = (whole["alpha"][:, 0] > 0).to(torch.float32)
+        vq_outs, new_ema = vq_ema_apply(
+            dc.get_codebook(model),
+            torch.cat([z_norm.to(dev0) for _, z_norm in encs]), ema_state,
+            commitment_cost=cfg.commitment_cost, decay=cfg.vq_decay,
+            is_training=True, thres=thres, rng=rng, mask=mask, roll=roll,
+            use_fused=dc.fused_vq_enabled(cfg, dev0))
+        sums, start = None, 0
+        for m, b, (z_enc, _), (lx, la) in zip(reps.models, blocks, encs,
+                                              reps.lights):
+            rows = slice(start, start + b["xyz"].shape[0])
+            start = rows.stop
+            dev = b["xyz"].device
+            _, aux = vq_nfr_rows(
+                m, b, z_enc, vq_outs["quantize"][rows].to(dev),
+                vq_outs["encoding_indices"][rows].to(dev), cfg, lx, la)
+            sums = _add_sums(sums, vq_nfr_row_sums(aux, cfg), dev0)
+        loss, ld = vq_nfr_train_loss(model, sums, {
+            "mask": mask, "rgb_gt": whole["rgb"],
+            "z_vq": vq_outs["quantize"], "vq_loss": vq_outs["loss"],
+            "codebook_update": vq_outs["update"]}, cfg)
         old_cb = model.codebook.detach().clone()
-        ok = opt.step(_grads(loss, params), decomp_lr(step, cfg), loss)
+        ok = opt.step(reps.grads(loss), decomp_lr(step, cfg), loss)
         with torch.no_grad():
             # the EMA assignment, and the optimizer's delta on top of it
             # (zero when the guard skipped the step)
-            new_cb = cb_update + (model.codebook - old_cb)
+            new_cb = vq_outs["update"] + (model.codebook - old_cb)
             if opt.guard:
                 # a poisoned batch also contaminates the EMA statistics
                 # and the proposal: discard them too on a skipped step
@@ -169,21 +276,28 @@ def make_vq_nfr_step(model, cfg: dc.DecompConfig, lxyz, lareas):
             model.codebook.copy_(new_cb)
         return new_ema, _finish_ld(ld, ok, opt.guard)
 
-    return opt, step_fn
+    return step_fn
 
 
-def make_ref_nfr_step(model, cfg: dc.DecompConfig, lxyz, lareas):
+def make_vq_nfr_step(model, cfg: dc.DecompConfig, lxyz, lareas, mesh=None):
+    """(optimizer, step_fn); step_fn(ema_state, batch, thres, rng, step) ->
+    (new_ema_state, loss dict), after updating ``model`` in place.
+    ``batch["_roll"]`` (optional, [1, K]) gives the dropout uniforms in
+    place of a draw from ``rng``. ``mesh``: the devices to split every
+    batch over (the model and the EMA state on the first; by default the
+    model's device alone)."""
+    opt = KerasAmsgrad(model.parameters(), cfg)
+    return opt, _vq_nfr_step(model, opt, cfg, lxyz, lareas, mesh)
+
+
+def make_ref_nfr_step(model, cfg: dc.DecompConfig, lxyz, lareas,
+                      mesh=None):
     """(optimizer, step_fn) over ``model.trainable`` only; step_fn(batch,
     step) -> loss dict of 0-dim tensors on the device, after updating the
-    trainable part in place."""
-    params = list(model.trainable.parameters())
-    opt = KerasAmsgrad(params, cfg)
-
-    def step_fn(batch, step):
-        _, aux = ref_nfr_forward(model, batch, cfg, lxyz, lareas,
-                                 mode="train")
-        loss, ld = ref_nfr_loss(aux, cfg, mode="train")
-        ok = opt.step(_grads(loss, params), decomp_lr(step, cfg), loss)
-        return _finish_ld(ld, ok, opt.guard)
-
-    return opt, step_fn
+    trainable part in place. ``mesh``: the devices to split every batch
+    over (the model on the first; by default the model's device alone)."""
+    opt = KerasAmsgrad(model.trainable.parameters(), cfg)
+    return opt, _rows_step(
+        model, opt, cfg, lxyz, lareas, mesh,
+        lambda m: m.trainable.parameters(), ref_nfr_forward,
+        ref_nfr_row_sums, ref_nfr_loss_from_sums)

@@ -23,6 +23,12 @@ are ignored with a notice.
 
 A checkpoint also holds the states of both random streams, so that a
 resumed run continues the uninterrupted run's stream of batches.
+
+Each phase trains over ``devices`` (a list, as ``parallel.get_mesh``
+takes; by default ``device`` alone, where the JAX loop takes every device):
+with more than one, every batch is split over them and the step reduces
+the global batch's loss on the first (``train/decomp_trainer.py``).
+Validation and checkpoints run on the first device.
 """
 
 import copy
@@ -47,6 +53,7 @@ from ..ops.colorspace import linear2srgb, srgb2linear
 from ..ops.kmeans import kmeans
 from ..ops.math import rgb2chromaticity
 from ..ops.vq import VqEmaState, init_vq_ema_state
+from ..parallel.mesh import get_mesh
 from ..utils import ckpt as ckpt_util
 from ..utils.device import resolve_device
 from ..utils.html import write_vali_index
@@ -75,6 +82,13 @@ def _notice_ignored(cfg):
         print("[vqnerf-torch] %s: the scanned-epoch dispatch is not part of "
               "this package; training dispatches step by step"
               % ", ".join(set_fields))
+
+
+def _train_mesh(device, devices):
+    """(first device, mesh) of a phase: ``devices`` when given, else
+    ``device`` alone."""
+    mesh = get_mesh(devices) if devices else [resolve_device(device)]
+    return mesh[0], mesh
 
 
 def _device_batch(batch, device):
@@ -267,17 +281,18 @@ def phase_model(cfg: dc.DecompConfig, kind, vq=None, light=None):
 
 def train_nfr_unit(cfg: dc.DecompConfig, train_views, vali_views, outdir,
                    epochs=None, seed=None, jitter_mode="contrast",
-                   resume=True, device="cuda"):
+                   resume=True, device="cuda", devices=None):
     """Phase 1: train the warm-up model. Returns (model, history), the
     model on ``device`` and the history the mean loss of each epoch."""
-    device = resolve_device(device)
+    device, mesh = _train_mesh(device, devices)
     _notice_ignored(cfg)
     epochs = epochs or cfg.epochs
     seed = cfg.random_seed if seed is None else seed
     rng = np.random.RandomState(seed)
     lxyz, lareas = dc.light_constants(cfg, device)
     model = init_nfr_unit(torch.Generator().manual_seed(seed), cfg).to(device)
-    opt, step_fn = dt.make_nfr_unit_step(model, cfg, lxyz, lareas)
+    opt, step_fn = dt.make_nfr_unit_step(model, cfg, lxyz, lareas,
+                                         mesh=mesh)
     start_epoch = 0
 
     if resume:
@@ -367,10 +382,10 @@ def _init_centers(cfg, nfr_model, train_views, rng, seed, device):
 
 def train_vq_nfr(cfg: dc.DecompConfig, nfr_model, train_views, vali_views,
                  outdir, epochs=None, seed=None, cluster_path=None,
-                 resume=True, device="cuda"):
+                 resume=True, device="cuda", devices=None):
     """Phase 2: train the VQ model from a trained warm-up model. Returns
     (model, ema_state, history), model and state on ``device``."""
-    device = resolve_device(device)
+    device, mesh = _train_mesh(device, devices)
     _notice_ignored(cfg)
     epochs = epochs or cfg.epochs
     seed = cfg.random_seed if seed is None else seed
@@ -392,7 +407,7 @@ def train_vq_nfr(cfg: dc.DecompConfig, nfr_model, train_views, vali_views,
                                    nfr_model, centers)
     model = model.to(device)
     ema_state = VqEmaState(*(t.to(device) for t in ema_state))
-    opt, step_fn = dt.make_vq_nfr_step(model, cfg, lxyz, lareas)
+    opt, step_fn = dt.make_vq_nfr_step(model, cfg, lxyz, lareas, mesh=mesh)
 
     # the fixed VQ evaluation set of the drop-loss sweep
     per_view = max(1, cfg.total_sample_vq // max(len(train_views), 1))
@@ -533,12 +548,12 @@ def _vq_vali(model, cfg, lxyz, lareas, vali_views, vq_eval, val_thres_list,
 
 def train_ref_nfr(cfg: dc.DecompConfig, vq_model, light, train_views,
                   vali_views, outdir, epochs=None, seed=None, resume=True,
-                  device="cuda"):
+                  device="cuda", devices=None):
     """Phase 3: train the residual model on top of a trained VqNfr (not
     modified) and its converged light [Lh, Lw, 3]. The views must be loaded
     with ``with_ref=True``. Returns (model, history), the model on
     ``device``."""
-    device = resolve_device(device)
+    device, mesh = _train_mesh(device, devices)
     _notice_ignored(cfg)
     if any(v.ref is None for v in list(train_views) + list(vali_views)):
         raise ValueError("train_ref_nfr needs views loaded with "
@@ -550,7 +565,8 @@ def train_ref_nfr(cfg: dc.DecompConfig, vq_model, light, train_views,
     model = init_ref_nfr(torch.Generator().manual_seed(seed), cfg,
                          vq_model, torch.as_tensor(light).detach().cpu()
                          ).to(device)
-    opt, step_fn = dt.make_ref_nfr_step(model, cfg, lxyz, lareas)
+    opt, step_fn = dt.make_ref_nfr_step(model, cfg, lxyz, lareas,
+                                        mesh=mesh)
     start_epoch = 0
 
     if resume:
