@@ -107,7 +107,15 @@ fast-vis shadow pass.)
    clock)), and fails unless the vector instances hold 16-byte loads. Then
    one whole vq_nfr step with the kernel and with use_fused_vq=False (host
    clock around a synchronised step, median), and with --profile a
-   torch.profiler table of a few steps;
+   torch.profiler table of a few steps. Then the scanned dispatch ("scan"
+   lines, scan_phase): nfr_unit and vq_nfr trained scanned (chunks of 2)
+   and step by step, held bit for bit, with kernel 2 once a vq_nfr step and
+   the graph replays counted; a chunk of vq_nfr steps timed as replays and
+   eager; device_sampling for SCAN_EPOCHS epochs; the u8 store against
+   float32; NeuSRunner.train from the trained checkpoint with
+   steps_per_dispatch SCAN_K and with 1, across two occupancy rebuilds and
+   into the tail, held bit for bit, with its peak memory; and the k-step
+   dispatch of each phase timed against single steps;
 10. runs the port from its command line, cli.main(argv) in-process, on a
    scene of its own (write_cli_scene: the textured sphere at CLI_IMH with 3
    train and 1 val views from CLI_EYE_DIST, the stage-2 metadata and a
@@ -296,9 +304,11 @@ from vqnerf_release_torch.pipelines.test_driver import (_RAY_CHUNK, find_vq,
                                                          load_novel_lights,
                                                          run_test)
 from vqnerf_release_torch.train import decomp_trainer as dt
+from vqnerf_release_torch.train import graphed
 from vqnerf_release_torch.train import loop as train_loop
 from vqnerf_release_torch.train.neus_loop import NeuSRunner
-from vqnerf_release_torch.train.neus_trainer import make_neus_train_step
+from vqnerf_release_torch.train.neus_trainer import (make_neus_multi_step,
+                                                     make_neus_train_step)
 from vqnerf_release_torch.utils import ckpt as ckpt_util
 
 SCENE = "sphere"
@@ -977,6 +987,396 @@ def time_steps(cfg, trained, lxyz, lareas, device, profile):
                 print("  %s: %d launches, %.2f us of device time each"
                       % (e.key[:60], e.count, _self_device_us(e) / e.count))
     return float(np.mean(ms["kernel"])), float(np.mean(ms["eager"]))
+
+
+SCAN_EPOCHS = 4  # 2 chunks of 2 (the checkpoint period of 4 epochs is 2)
+SCAN_VQ_SAMPLES = 4096  # total_sample_vq of the phase's sweeps (200,000)
+SCAN_STEPS = 8  # steps of each timed or compared run
+SCAN_K = 4  # steps_per_dispatch of the NeuS comparison
+SCAN_RUNNER_STEPS = 24  # NeuSRunner.train past the trained checkpoint
+SCAN_VIEWS_FOR_BYTES = 100  # the scene store_nbytes prices
+
+
+def _max_abs(pairs):
+    return max((float((a.float() - b.float()).abs().max()) for a, b in pairs),
+               default=0.0)
+
+
+def _held(err_pairs, what):
+    """Equal bit for bit, or within the mesh tolerance (rtol 2e-4 / atol
+    1e-5) with the max abs err printed; raises otherwise."""
+    pairs = list(err_pairs)
+    if all(torch.equal(a, b) for a, b in pairs):
+        return "equal bit for bit"
+    for a, b in pairs:
+        _compare(a.float(), b.float(), what, rtol=2e-4, atol=1e-5)
+    return "within rtol 2e-4 / atol 1e-5, max abs err %.3e" % _max_abs(pairs)
+
+
+def _profiled_idle(fn, reps):
+    """(wall ms, device-busy ms, idle share) of reps calls of fn under
+    torch.profiler; the device time is that of every CUDA kernel it saw
+    (graph replays' kernels included), None where it saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(_self_device_us(e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    if busy <= 0:
+        return 1e3 * wall, None, None
+    return 1e3 * wall, busy, 1 - busy / (1e3 * wall)
+
+
+def _scan_train(cfg, trained, root, name, steps, device):
+    """nfr_unit then vq_nfr for SCAN_EPOCHS on the train views, without
+    validation views; the launches and seconds of each go into steps."""
+    views = trained["train_views"]
+    out = os.path.join(root, "scan", name)
+    nfr, h1 = _step(name + " nfr_unit", lambda: train_loop.train_nfr_unit(
+        cfg, views, [], out + "/nfr", device=device), steps, label="scan")
+    vq, ema, h2 = _step(name + " vq_nfr", lambda: train_loop.train_vq_nfr(
+        cfg, nfr, views, [], out + "/vq", device=device,
+        cluster_path=os.path.join(trained["vq_dir"], "cluster_centers.npy")),
+        steps, label="scan")
+    states = [ckpt_util.load_ckpt(ckpt_util.latest_ckpt(out + "/" + ph))
+              for ph in ("nfr", "vq")]
+    walls = [[r["wall_s"] for r in _read_log(out + "/" + ph)]
+             for ph in ("nfr", "vq")]
+    return {"models": (nfr, vq), "ema": ema, "hist": (h1, h2),
+            "states": states, "walls": walls}
+
+
+def neus_runner_pair(neus, root, device, steps):
+    """NeuSRunner.train resumed from the trained checkpoint (step
+    NEUS_ITERS) for SCAN_RUNNER_STEPS more steps, with steps_per_dispatch
+    SCAN_K and with 1: the grid rebuilt every 8 steps and the tail moved to
+    6 steps before the end, so that the run crosses two rebuilds and the
+    carve-to-tail boundary (from 400: the carve's first 16 steps in 4
+    dispatches, 2 single steps, the tail's first 4 steps in one dispatch, 2
+    single steps). Parameters, Adam
+    state and random streams must agree bit for bit (or within the mesh
+    tolerance, printed), kernel 3 launch up_sample_steps a step and the
+    replays be those of the plan; the runner must hold the tail's graph
+    alone at the end. Prints each run's seconds, peak device memory and the
+    memory it still holds (reserved, after emptying the cache)."""
+    runner = neus["runner"]
+    end = NEUS_ITERS + SCAN_RUNNER_STEPS
+    tcfg = dataclasses.replace(
+        runner.tcfg, end_iter=end, tail_frac=6 / end, occ_update_freq=8,
+        save_freq=end, val_freq=end, mesh_freq=0)
+    src = ckpt_util.latest_ckpt(runner.base_exp_dir)
+    runs = {}
+    for k in (SCAN_K, 1):
+        exp_dir = os.path.join(root, "scan", "neus_k%d" % k)
+        dst = os.path.join(exp_dir, os.path.relpath(src, runner.base_exp_dir))
+        os.makedirs(os.path.dirname(dst))
+        shutil.copy(src, dst)
+        run = NeuSRunner(runner.cfg, dataclasses.replace(
+            tcfg, steps_per_dispatch=k), runner.dataset, exp_dir, seed=SEED,
+            device=device)
+        if run.try_resume() != NEUS_ITERS:
+            raise AssertionError(f"resumed at {run.iter_step}")
+        if run.tail_start() != end - 6:
+            raise AssertionError(f"the tail starts at {run.tail_start()}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        replays = graphed.REPLAYS
+        hist = _step("neus runner x%d" % k, lambda: run.train(log_every=1),
+                     steps, label="scan")
+        torch.cuda.empty_cache()  # what stays reserved is held by the run
+        runs[k] = {"run": run, "hist": hist,
+                   "replays": graphed.REPLAYS - replays,
+                   "peak": steps["neus runner x%d" % k]["peak_bytes"],
+                   "held": torch.cuda.memory_reserved() - reserved}
+    a, b = runs[SCAN_K]["run"], runs[1]["run"]
+    held = _held(
+        [(x, y) for x, y in zip(a.params.state_dict().values(),
+                                b.params.state_dict().values())]
+        + [(a.opt.state[k], b.opt.state[k]) for k in b.opt.state]
+        + [(a.generator.get_state(), b.generator.get_state())],
+        "NeuSRunner.train, steps_per_dispatch %d against 1" % SCAN_K)
+    if a.rng.get_state()[2] != b.rng.get_state()[2] or not np.array_equal(
+            a.rng.get_state()[1], b.rng.get_state()[1]):
+        raise AssertionError("the host ray streams differ")
+    if a.occ_builds != b.occ_builds or a.occ_builds != [
+            NEUS_ITERS, NEUS_ITERS + 8, NEUS_ITERS + 16]:
+        raise AssertionError(f"rebuilds at {a.occ_builds}, {b.occ_builds}")
+    want_launches = (runner.cfg.up_sample_steps * (SCAN_RUNNER_STEPS - 6)
+                     + runner._tail_cfg.up_sample_steps * 6)
+    want_replays = (4 * SCAN_K - 1) + (SCAN_K - 1)  # carve, tail
+    for k, r in runs.items():
+        got = steps["neus runner x%d" % k]["launches"]["sdf_fwd"]
+        if got != want_launches:
+            raise AssertionError(f"steps_per_dispatch {k}: kernel 3 "
+                                 f"launched {got}, not {want_launches}")
+        if not all(np.isfinite(h["loss"]) for h in r["hist"]):
+            raise AssertionError(f"steps_per_dispatch {k}: a loss not "
+                                 "finite")
+    if (runs[SCAN_K]["replays"], runs[1]["replays"]) != (want_replays, 0):
+        raise AssertionError(f"graph replays {runs[SCAN_K]['replays']} "
+                             f"and {runs[1]['replays']}")
+    graphs = [key for key in a._fn_cache if len(key) == 4]
+    if graphs != [(SCAN_K, None, True, False)]:
+        raise AssertionError(f"the runner holds the graphs of {graphs}")
+    print("scan: NeuSRunner.train from the trained checkpoint, steps %d to "
+          "%d (rebuilds at %s, the %s tail from %d), steps_per_dispatch %d "
+          "against 1: parameters, Adam state and random streams %s; %d "
+          "graph replays (a capture in the carve and one in the tail, the "
+          "carve's graph freed when the tail began); kernel 3 launched %d "
+          "times each way; seconds (capture and host rays included) %.3f "
+          "dispatched, %.3f single; peak device memory %d B (%.3f GiB) "
+          "dispatched, %d B (%.3f GiB) single; held by the runner after "
+          "the run (its model, optimizer, grid and, dispatched, the tail's "
+          "graph pool) %.3f and %.3f GiB"
+          % (NEUS_ITERS, end, a.occ_builds, runner.tcfg.tail_sampler,
+             end - 6, SCAN_K, held, runs[SCAN_K]["replays"], want_launches,
+             steps["neus runner x%d" % SCAN_K]["seconds"],
+             steps["neus runner x1"]["seconds"], runs[SCAN_K]["peak"],
+             runs[SCAN_K]["peak"] / 2**30, runs[1]["peak"],
+             runs[1]["peak"] / 2**30, runs[SCAN_K]["held"] / 2**30,
+             runs[1]["held"] / 2**30))
+    del a, b, runs
+    gc.collect()
+
+
+def scan_phase(cfg, trained, neus, root, device):
+    """The scanned dispatch: stage 2 trained scanned (chunks of 2) against
+    step by step, bit for bit; a chunk of vq_nfr steps timed as graph
+    replays and as eager steps; device sampling; the u8 store;
+    NeuSRunner.train with steps_per_dispatch SCAN_K against 1
+    (neus_runner_pair); the NeuS k-step dispatch against single steps in
+    both phases, timed. Returns the launch counts by step."""
+    steps = {}
+    views = trained["train_views"]
+    k_views = len(views)
+    base = dataclasses.replace(cfg, epochs=SCAN_EPOCHS, device_views="on",
+                               total_sample_vq=SCAN_VQ_SAMPLES)
+    replays0 = graphed.REPLAYS
+    runs = {"scanned": _scan_train(dataclasses.replace(
+                base, epoch_scan_chunk=2), trained, root, "scanned", steps,
+                device)}
+    replays = graphed.REPLAYS - replays0
+    runs["per-step"] = _scan_train(dataclasses.replace(
+        base, epoch_scan=False), trained, root, "per-step", steps, device)
+    a, b = runs["scanned"], runs["per-step"]
+    pairs = [(x, y) for m_a, m_b in zip(a["models"], b["models"])
+             for x, y in zip(m_a.state_dict().values(),
+                             m_b.state_dict().values())]
+    pairs += list(zip(a["ema"], b["ema"]))
+    pairs += [(sa["opt_state"][k], sb["opt_state"][k])
+              for sa, sb in zip(a["states"], b["states"])
+              for k in sa["opt_state"]]
+    held = _held(pairs, "scanned against per-step training")
+    hist_held = _held([(torch.tensor(a["hist"]), torch.tensor(b["hist"]))],
+                      "per-epoch losses")
+    n_steps = SCAN_EPOCHS * k_views
+    for name in ("scanned", "per-step"):
+        got = steps[name + " vq_nfr"]["launches"]["vq_fused_train"]
+        if got != n_steps or steps[name + " nfr_unit"]["launches"][
+                "vq_fused_train"]:
+            raise AssertionError(f"{name}: kernel 2 launched {got} times in "
+                                 f"{n_steps} vq_nfr steps")
+    if replays != 2 * (n_steps - 1):
+        raise AssertionError(f"{replays} graph replays, expected "
+                             f"{2 * (n_steps - 1)}")
+    print("scan: nfr_unit + vq_nfr, %d epochs of %d views, scanned in "
+          "chunks of 2 against step by step: parameters, EMA and optimizer "
+          "states %s; per-epoch losses %s (%s | %s); %d graph replays (one "
+          "captured step a phase, its first step eager); kernel 2 launched "
+          "%d times a run, one a vq_nfr step (replays counted)"
+          % (SCAN_EPOCHS, k_views, held, hist_held, a["hist"], b["hist"],
+             replays, n_steps))
+    for name, run in runs.items():
+        print("  %s epoch wall (s): nfr_unit %s (%.4f in all), vq_nfr %s "
+              "(%.4f in all)" % (name, run["walls"][0], sum(run["walls"][0]),
+                                 run["walls"][1], sum(run["walls"][1])))
+
+    # ---- a chunk of vq_nfr steps: graph replays against eager steps -----
+    lxyz, lareas = dc.light_constants(cfg, device)
+    store = DeviceViewStore(views, device)
+    rng = np.random.RandomState(SEED)
+    vi = [j % k_views for j in range(SCAN_STEPS)]
+    pix = np.stack([train_loop.sample_pix(views[v], cfg.n_rays_per_step, rng)
+                    for v in vi])
+    lrs = [dt.decomp_lr(j, cfg) for j in range(SCAN_STEPS)]
+    thres = torch.as_tensor(cfg.train_thres(), device=device)
+    models = [copy.deepcopy(trained["vq"]) for _ in range(2)]
+    gens = [torch.Generator(device=device).manual_seed(SEED)
+            for _ in range(2)]
+    _, eager_fn = dt.make_vq_nfr_step(models[0], cfg, lxyz, lareas)
+    _, scan_fn = dt.make_vq_nfr_step(models[1], cfg, lxyz, lareas)
+    scan = dt.make_vq_epoch_scan(scan_fn, store, SCAN_STEPS,
+                                 cfg.n_rays_per_step, trained["ema"], thres)
+    state = {"ema": VqEmaState(*(t.clone() for t in trained["ema"]))}
+
+    def eager_chunk():
+        for j in range(SCAN_STEPS):
+            state["ema"], _ = eager_fn(state["ema"], store.gather(
+                vi[j], pix[j]), thres, gens[0], j)
+
+    def scan_chunk():
+        scan.stage(vi, lrs, pix=pix, roll_gen=gens[1])
+        scan.run(SCAN_STEPS)
+
+    eager_chunk()
+    scan_chunk()  # the capture
+    step_held = _held(
+        [(x, y) for x, y in zip(models[0].state_dict().values(),
+                                models[1].state_dict().values())]
+        + list(zip(state["ema"], scan.ema)), "a chunk of vq_nfr steps")
+    ms = {"graph": [], "eager": []}
+    for name in ("graph", "eager", "eager", "graph"):
+        fn = scan_chunk if name == "graph" else eager_chunk
+        ms[name].append(_median_step_ms(fn, 3) / SCAN_STEPS)
+    idle = {name: _profiled_idle(fn, 2) for name, fn in (
+        ("graph", scan_chunk), ("eager", eager_chunk))}
+    print("scan: a chunk of %d vq_nfr steps (%d rows x %d lights, trained "
+          "weights, indices sampled beforehand; host clock, synchronised, "
+          "median of 3 chunks, in the order graph, eager, eager, graph): "
+          "%s ms a step as graph replays, %s ms a step eager; after the "
+          "first chunk each way: %s" % (
+              SCAN_STEPS, 2 * cfg.n_rays_per_step, cfg.n_lights,
+              ["%.3f" % t for t in ms["graph"]],
+              ["%.3f" % t for t in ms["eager"]], step_held))
+    for name, (wall, busy, share) in idle.items():
+        print("  %s, 2 chunks under torch.profiler: %.3f ms wall, %s" % (
+            name, wall, "not measured (no device time seen)" if busy is None
+            else "device busy %.3f ms, idle share %.3f" % (busy, share)))
+
+    # ---- device sampling ------------------------------------------------
+    ds_cfg = dataclasses.replace(base, epoch_scan_chunk=2,
+                                 device_sampling=True)
+    ds_dir = os.path.join(root, "scan", "ds")
+    _, hist = _step("device_sampling nfr_unit", lambda:
+                    train_loop.train_nfr_unit(ds_cfg, views, [], ds_dir,
+                                              device=device),
+                    steps, label="scan")
+    if not np.isfinite(hist).all():
+        raise AssertionError(f"device sampling: losses {hist}")
+    ds_walls = [r["wall_s"] for r in _read_log(ds_dir)]
+    from vqnerf_release_torch.data.device_sampler import make_device_sampler
+    n_pairs = 0
+    for mode in ("random", "contrast"):
+        sampler = make_device_sampler(store, views, cfg.n_rays_per_step,
+                                      jitter_mode=mode)
+        gen = torch.Generator(device=device)
+        for v, view in enumerate(views):
+            gen.manual_seed(train_loop._sampling_base_key(SEED) + v)
+            p = sampler(torch.tensor(v, device=device),
+                        *sampler.draw(gen)).cpu().numpy()
+            c, j = p[0::2], p[1::2]
+            dy, dx = j // view.w - c // view.w, j % view.w - c % view.w
+            alpha = view.alpha.reshape(-1)
+            if not ((np.abs(dy) <= 1) & (np.abs(dx) <= 1)
+                    & ((dy != 0) | (dx != 0))).all():
+                raise AssertionError(f"device sampling ({mode}): a pair "
+                                     "that is not 8-neighbours")
+            if not ((alpha[c] > 0.9) & (alpha[j] > 0.9)).all():
+                raise AssertionError(f"device sampling ({mode}): a pair "
+                                     "off the foreground")
+            n_pairs += len(c)
+    print("scan: device_sampling=True, nfr_unit for %d epochs in chunks of "
+          "2: losses %s, epoch wall (s) %s (%.4f in all; host-sampled above: "
+          "scanned %.4f, step by step %.4f); %d sampled pairs (both jitter "
+          "modes, every view): every pair two foreground 8-neighbours"
+          % (SCAN_EPOCHS, hist, ds_walls, sum(ds_walls),
+             sum(runs["scanned"]["walls"][0]),
+             sum(runs["per-step"]["walls"][0]), n_pairs))
+
+    # ---- the u8 store ---------------------------------------------------
+    u8 = DeviceViewStore(views, device, quant=True)
+    lv_err, others = 0.0, 0
+    for v in range(k_views):
+        want, got = store.gather(v, pix[v]), u8.gather(v, pix[v])
+        for k in want:
+            if k == "lvis":
+                lv_err = max(lv_err, float((got[k] - want[k]).abs().max()))
+            elif not torch.equal(got[k], want[k]):
+                raise AssertionError(f"u8 store: {k} differs")
+            else:
+                others += 1
+    if lv_err > 1 / 510 + 1e-7:
+        raise AssertionError(f"u8 store: lvis off by {lv_err}")
+    from vqnerf_release_torch.data.device_store import store_nbytes
+    scene = [views[0]] * SCAN_VIEWS_FOR_BYTES
+    print("scan: u8 store against float32: lvis within %.6f (1/510 = "
+          "%.6f), %d other buffers bit for bit; store_nbytes of %d views of "
+          "%dx%d with %d lights: %d B float32, %d B u8"
+          % (lv_err, 1 / 510, others, SCAN_VIEWS_FOR_BYTES, views[0].h,
+             views[0].w, cfg.n_lights, store_nbytes(scene),
+             store_nbytes(scene, quant=True)))
+    del store, u8
+
+    # ---- NeuS through its entry point: NeuSRunner.train ------------------
+    neus_runner_pair(neus, root, device, steps)
+
+    # ---- NeuS: SCAN_K steps a dispatch against single steps --------------
+    runner = neus["runner"]
+    grid = runner._build_occ()
+    batches = [runner._host_batch() for _ in range(2 * SCAN_STEPS)]
+    for phase, c in (("carve", runner.cfg), ("tail", runner._tail_cfg)):
+        models = [copy.deepcopy(runner.params) for _ in range(2)]
+        gens = [torch.Generator(device=device).manual_seed(SEED)
+                for _ in range(2)]
+        opts_fns = [make_neus_train_step(models[0], c, runner.tcfg,
+                                         runner.radius, with_occ=True),
+                    make_neus_multi_step(models[1], c, runner.tcfg,
+                                         runner.radius, SCAN_K,
+                                         with_occ=True)]
+        it0 = NEUS_ITERS - 2 * SCAN_STEPS
+
+        def singles(part):
+            for j in range(SCAN_STEPS):
+                opts_fns[0][1](batches[part * SCAN_STEPS + j],
+                               it0 + part * SCAN_STEPS + j, occ_grid=grid,
+                               generator=gens[0])
+
+        def multis(part):
+            for d in range(SCAN_STEPS // SCAN_K):
+                lo = part * SCAN_STEPS + d * SCAN_K
+                opts_fns[1][1](batches[lo:lo + SCAN_K], it0 + lo,
+                               occ_grid=grid, generator=gens[1])
+
+        singles(0)
+        name = "neus %s x%d" % (phase, SCAN_K)
+        _step(name, lambda: multis(0), steps, label="scan")
+        launches = steps[name]["launches"]["sdf_fwd"]
+        held = _held([(x, y) for x, y in zip(
+            models[0].state_dict().values(), models[1].state_dict().values())]
+            + [(opts_fns[0][0].state[k], opts_fns[1][0].state[k])
+               for k in opts_fns[0][0].state], "NeuS %s" % phase)
+        if launches != c.up_sample_steps * SCAN_STEPS:
+            raise AssertionError(f"NeuS {phase}: kernel 3 launched "
+                                 f"{launches} times in {SCAN_STEPS} steps")
+        t = {"dispatched": [], "single": []}
+        for way in ("single", "dispatched", "dispatched", "single"):
+            fn = (lambda: singles(1)) if way == "single" else (
+                lambda: multis(1))
+            t[way].append(_median_step_ms(fn, 1) / SCAN_STEPS)
+        wall, busy, share = _profiled_idle(lambda: multis(1), 1)
+        print("scan: NeuS %s phase, %d steps as %d dispatches of %d "
+              "against %d single steps (trained weights, the occupancy grid "
+              "on): parameters and Adam state %s; kernel 3 launched %d "
+              "times (%d a step, replays counted); ms a step (host clock, "
+              "synchronised, runs of %d steps in the order single, "
+              "dispatched, dispatched, single): %s dispatched, %s single; a "
+              "dispatched run under torch.profiler: %s"
+              % (phase, SCAN_STEPS, SCAN_STEPS // SCAN_K, SCAN_K, SCAN_STEPS,
+                 held, launches, c.up_sample_steps, SCAN_STEPS,
+                 ["%.3f" % x for x in t["dispatched"]],
+                 ["%.3f" % x for x in t["single"]],
+                 "not measured" if busy is None else
+                 "%.3f ms wall, device busy %.3f ms, idle share %.3f"
+                 % (wall, busy, share)))
+    return steps
 
 
 def vq_kernel_inputs(trained, cfg, n, k, drop, device):
@@ -3725,7 +4125,7 @@ def capture_steps_formats(root, device, steps):
 
     def jpegs():
         jpgs = sorted(glob.glob(os.path.join(JPEG_FIXTURES, "*.jpg")))
-        if len(jpgs) != 6:
+        if len(jpgs) != 8:
             raise AssertionError(f"{len(jpgs)} JPEG fixtures")
         for path in jpgs:
             t0 = time.perf_counter()
@@ -4349,6 +4749,10 @@ def main():
         fwd_entry, fwdgrad_entry = check_sdf_kernels(geo, neus["runner"],
                                                      device)
         time_steps(cfg, trained, lxyz, lareas, device, profile)
+        t0 = time.perf_counter()
+        scan_steps = scan_phase(cfg, trained, neus, root, device)
+        print("scanned dispatch phase: %.1f s" % (time.perf_counter() - t0),
+              flush=True)
         render_entry["launches"] = render_launches
         vq_entry["launches"] = trained["launches"]
         fwd_entry["launches"] = neus["launches"] + geo["launches"]["sdf_fwd"]
@@ -4441,6 +4845,10 @@ def main():
                    for step, st in final_steps.items()}
         entry["final_launches"] = sum(by_step.values())
         entry["final_launches_by_step"] = by_step
+        by_step = {step: st["launches"][entry["name"]]
+                   for step, st in scan_steps.items()}
+        entry["scan_launches"] = sum(by_step.values())
+        entry["scan_launches_by_step"] = by_step
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [render_entry, vq_entry, fwd_entry,
                                   fwdgrad_entry]}))

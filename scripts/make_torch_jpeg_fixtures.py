@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Write the JPEG fixtures that the port's decoder is held to where OpenCV
 is absent (the GPU machine): tests/data/torch_jpeg/<name>.jpg, made with
-cv2.imencode, and beside each <name>.png, cv2.imread(<name>.jpg,
-IMREAD_UNCHANGED) written losslessly (channels in RGB order).
+cv2.imencode (the 4-component ones with PIL, which writes Adobe CMYK; the
+YCCK one is that file with its Adobe transform flag set to 2), and beside
+each <name>.png, cv2.imread(<name>.jpg, IMREAD_UNCHANGED) written
+losslessly (channels in RGB order).
 
     python scripts/make_torch_jpeg_fixtures.py [--out DIR]
 
-Needs cv2 (run it where OpenCV is installed). The images are drawn from a
-fixed seed, so a rerun with the same OpenCV writes the same bytes;
+Needs cv2 and PIL (run it where OpenCV is installed). The images are drawn
+from a fixed seed, so a rerun with the same OpenCV writes the same bytes;
 tests/test_torch_formats.py re-decodes the committed JPEGs with cv2 and
 checks the committed PNGs.
 """
 
 import argparse
 import os
+
+import io
 
 import cv2
 import numpy as np
@@ -41,6 +45,25 @@ FIXTURES = {
         cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_RST_INTERVAL, 3]),
     "odd_37x53_420_q50": (37, 53, 3, [cv2.IMWRITE_JPEG_QUALITY, 50]),
 }
+# 4 components, written by PIL: name -> (height, width, 4, Adobe transform
+# flag); drawn from the seeds after FIXTURES', which keep theirs
+CMYK_FIXTURES = {
+    "cmyk_q90": (48, 64, 4, 0),
+    "ycck_q90": (48, 64, 4, 2),
+}
+
+
+def encode_cmyk(img, transform):
+    """An Adobe CMYK JPEG of img [H, W, 4] at quality 90 (PIL), its Adobe
+    APP14 transform flag set to ``transform`` (0 CMYK, 2 YCCK)."""
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img, "CMYK").save(buf, "JPEG", quality=90)
+    data = bytearray(buf.getvalue())
+    body = data.index(b"\xff\xee") + 4  # APP14: "Adobe", version, flags
+    assert data[body:body + 5] == b"Adobe"
+    data[body + 11] = transform
+    return bytes(data)
 
 
 def fixture_image(h, w, c, seed):
@@ -56,7 +79,7 @@ def fixture_image(h, w, c, seed):
             rs.uniform(0.05, 0.2)
         img[(x - cx) ** 2 + (y - cy) ** 2 < r * r] = rs.uniform(0, 1, c)
     ramp = (y > 0.75) & (x < 0.5)
-    img[ramp] = (0.2 + 0.6 * np.stack([x, y, x * y][:c], -1))[ramp]
+    img[ramp] = (0.2 + 0.6 * np.stack([x, y, x * y, 1 - x][:c], -1))[ramp]
     return np.clip(img * 255 + 0.5, 0, 255).astype(np.uint8)
 
 
@@ -65,15 +88,20 @@ def main():
     ap.add_argument("--out", default=OUT)
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
-    for i, (name, (h, w, c, params)) in enumerate(sorted(FIXTURES.items())):
+    todo = sorted(FIXTURES.items()) + sorted(CMYK_FIXTURES.items())
+    for i, (name, (h, w, c, params)) in enumerate(todo):
         img = fixture_image(h, w, c, seed=i)
-        ok, buf = cv2.imencode(".jpg", img[..., 0] if c == 1 else img,
-                               params)
-        if not ok:
-            raise SystemExit(f"cv2 could not encode {name}")
+        if c == 4:
+            data = encode_cmyk(img, params)
+        else:
+            ok, buf = cv2.imencode(".jpg", img[..., 0] if c == 1 else img,
+                                   params)
+            if not ok:
+                raise SystemExit(f"cv2 could not encode {name}")
+            data = buf.tobytes()
         jpg = os.path.join(args.out, name + ".jpg")
         with open(jpg, "wb") as f:
-            f.write(buf.tobytes())
+            f.write(data)
         dec = cv2.imread(jpg, cv2.IMREAD_UNCHANGED)
         if dec.ndim == 3:
             dec = dec[..., ::-1]  # stored RGB, as the port decodes
@@ -81,7 +109,7 @@ def main():
         cv2.imwrite(os.path.join(args.out, name + ".png"),
                     dec[..., ::-1] if dec.ndim == 3 else dec,
                     [cv2.IMWRITE_PNG_COMPRESSION, 9])
-        print(name, dec.shape, len(buf), "bytes")
+        print(name, dec.shape, len(data), "bytes")
 
 
 if __name__ == "__main__":

@@ -26,6 +26,7 @@ through eight layers), and to the autograd gradient at the JAX kernel
 test's own rtol 3e-3 / atol 3e-4.
 """
 
+import os
 import re
 import subprocess
 import types
@@ -1093,3 +1094,246 @@ def test_meanshift_cuda_matches_cpu(cuda_device):
                                      torch.as_tensor(got, device=cuda_device))
     lab_c = meanshift.nearest_center(pts, torch.as_tensor(want))
     assert torch.equal(lab_g.cpu(), lab_c)
+
+
+# ---- the scanned dispatch: steps replayed as CUDA graphs --------------------
+
+def _graph_views(n, h, w, lights, device_seed=0):
+    rs = np.random.RandomState(device_seed)
+    views = []
+    for _ in range(n):
+        alpha = (rs.rand(h * w, 1) > 0.2).astype(np.float32)
+        views.append(types.SimpleNamespace(
+            h=h, w=w, alpha=alpha, pred_alpha=alpha,
+            rayo=rs.randn(h * w, 3).astype(np.float32),
+            rayd=rs.randn(h * w, 3).astype(np.float32),
+            rgb=rs.rand(h * w, 3).astype(np.float32),
+            xyz=(rs.rand(h * w, 3) - 0.5).astype(np.float32),
+            normal=rs.randn(h * w, 3).astype(np.float32),
+            lvis=rs.rand(h * w, lights).astype(np.float32)))
+    return views
+
+
+@pytest.mark.cuda
+def test_vq_kernel_inside_a_cuda_graph(cuda_device):
+    """vq_fused_train captured in a StepGraph: the replays give the eager
+    call's bits, count one launch each, and survive a later eager call that
+    grows the kernel's scratch (the graph keeps the buffer it recorded)."""
+    from vqnerf_release_torch.train.graphed import StepGraph
+    kw = dict(decay=0.999, epsilon=1e-5)
+    args = _vq_inputs(2048, 256, 15, cuda_device, True)
+    want = kv.vq_fused_train(*args, **kw)
+
+    def body(i):
+        out = kv.vq_fused_train(*args, **kw)
+        return {"update": out["update"].sum(), "counts": out["counts"].sum(),
+                "first": out["indices"][0].float()}
+
+    graph = StepGraph(body, cuda_device, 4)
+    before = kv.LAUNCHES
+    rows = graph.run(4)
+    assert kv.LAUNCHES - before == 4  # 1 eager + 3 replays
+    assert graph.launches_per_replay["vq_fused_train"] == 1
+    wanted = torch.stack([want["counts"].sum(), want["indices"][0].float(),
+                          want["update"].sum()])
+    for r in range(4):
+        assert torch.equal(rows[r], wanted), r
+    pinned = kv.scratch_buffers()
+    big = _vq_inputs(65536, 256, 15, cuda_device, True)
+    kv.vq_fused_train(*big, **kw)  # grows the module's scratch
+    assert kv.scratch_buffers()[0].data_ptr() != pinned[0].data_ptr()
+    assert graph._pinned[0].data_ptr() == pinned[0].data_ptr()
+    rows = graph.run(4)
+    for r in range(4):
+        assert torch.equal(rows[r], wanted), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["nfr_unit", "vq_nfr"])
+def test_scanned_steps_replay_the_eager_steps(cuda_device, phase):
+    """A chunk of 6 stage-2 steps through EpochScan (1 eager step, a
+    capture, 5 replays) against 6 per-step calls on the gathered batches:
+    parameters, optimizer state, EMA and losses bit for bit."""
+    from vqnerf_release_torch.data.device_store import DeviceViewStore
+    from vqnerf_release_torch.train import decomp_trainer as dt
+    cfg = dc.DecompConfig(light_h=4, num_embed=6, num_drop=3, z_dim=64,
+                          mlp_width=32, thres_str="0.1;0.2;0.3",
+                          n_rays_per_step=256)
+    views = _graph_views(2, 24, 24, cfg.n_lights)
+    store = DeviceViewStore(views, cuda_device)
+    lxyz, lareas = dc.light_constants(cfg, cuda_device)
+    models, emas = [], []
+    for _ in range(2):
+        gen = torch.Generator().manual_seed(0)
+        nfr = init_nfr_unit(gen, cfg)
+        if phase == "nfr_unit":
+            models.append(nfr.to(cuda_device))
+            continue
+        centers = torch.rand((cfg.num_embed, cfg.z_dim), generator=gen)
+        m, e = init_vq_nfr(gen, cfg, nfr, centers)
+        models.append(m.to(cuda_device))
+        emas.append(VqEmaState(*(t.to(cuda_device) for t in e)))
+    rs = np.random.RandomState(1)
+    vi = [0, 1, 0, 1, 1, 0]
+    pix = rs.randint(0, 24 * 24, size=(6, 2 * cfg.n_rays_per_step))
+    lrs = [dt.decomp_lr(3 + j, cfg) for j in range(6)]
+    thres = torch.as_tensor(cfg.train_thres(), device=cuda_device)
+    gens = [torch.Generator(device=cuda_device).manual_seed(5)
+            for _ in range(2)]
+    if phase == "nfr_unit":
+        opt_a, step_a = dt.make_nfr_unit_step(models[0], cfg, lxyz, lareas)
+        opt_b, step_b = dt.make_nfr_unit_step(models[1], cfg, lxyz, lareas)
+        want = [step_a(store.gather(v, p), 3 + j)
+                for j, (v, p) in enumerate(zip(vi, pix))]
+        scan = dt.make_plain_epoch_scan(step_b, store, 6,
+                                        cfg.n_rays_per_step)
+    else:
+        opt_a, step_a = dt.make_vq_nfr_step(models[0], cfg, lxyz, lareas)
+        opt_b, step_b = dt.make_vq_nfr_step(models[1], cfg, lxyz, lareas)
+        want, ema = [], emas[0]
+        for j, (v, p) in enumerate(zip(vi, pix)):
+            ema, ld = step_a(ema, store.gather(v, p), thres, gens[0], 3 + j)
+            want.append(ld)
+        scan = dt.make_vq_epoch_scan(step_b, store, 6, cfg.n_rays_per_step,
+                                     emas[1], thres)
+    before = kv.LAUNCHES
+    scan.stage(vi, lrs, pix=pix, roll_gen=gens[1])
+    rows = scan.run(6)
+    if phase == "vq_nfr":
+        assert kv.LAUNCHES - before == 6  # kernel 2 in every replay
+        assert scan.graph.launches_per_replay["vq_fused_train"] == 1
+        for a, b in zip(ema, scan.ema):
+            assert torch.equal(a, b)
+    for j, ld in enumerate(want):
+        for k, v in ld.items():
+            assert torch.equal(rows[j, scan.keys.index(k)],
+                               v.to(torch.float32)), (j, k)
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        assert torch.equal(a, b)
+    for k, v in opt_a.state.items():
+        assert torch.equal(opt_b.state[k], v), k
+
+
+@pytest.mark.cuda
+def test_neus_multi_step_graph_runs_kernel_3(cuda_device):
+    """make_neus_multi_step on the card (kernel 3 and pack_sdf inside the
+    graph, 2 launches a step) against 2 x 4 single steps with the same
+    draws: metrics, parameters and Adam state bit for bit."""
+    from vqnerf_release_torch.interop.jax_params import from_jax, to_jax
+    from vqnerf_release_torch.models.neus import (NeuSConfig, init_neus)
+    from vqnerf_release_torch.train import neus_trainer as nt
+    cfg = NeuSConfig(sdf=fields.SDFConfig(d_hidden=64, n_layers=4,
+                                          skip_in=(2,), multires=4,
+                                          d_out=65),
+                     color=fields.ColorConfig(d_feature=64, d_hidden=32,
+                                              n_layers=2),
+                     n_samples=16, n_importance=16, up_sample_steps=2)
+    tcfg = nt.NeuSTrainConfig(warm_up_end=2, end_iter=100, anneal_end=6,
+                              batch_size=512)
+    base = init_neus(0, cfg)
+    models = [from_jax(to_jax(base, "neus"), "neus").to(cuda_device)
+              for _ in range(2)]
+    rs = np.random.RandomState(2)
+
+    def batch():
+        o = rs.randn(512, 3) * 0.1 + [0.0, 0.0, 2.0]
+        d = -o + rs.randn(512, 3) * 0.3
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        return {"rays_o": o, "rays_d": d, "rgb": rs.rand(512, 3),
+                "mask": (rs.rand(512, 1) > 0.4) * 1.0,
+                "near": np.full((512, 1), 0.5), "far": np.full((512, 1), 3.5),
+                "valid": np.ones((512, 1))}
+
+    batches = [{k: np.asarray(v, np.float32) for k, v in batch().items()}
+               for _ in range(8)]
+    gens = [torch.Generator(device=cuda_device).manual_seed(4)
+            for _ in range(2)]
+    opt_a, step = nt.make_neus_train_step(models[0], cfg, tcfg, 1.0)
+    opt_b, multi = nt.make_neus_multi_step(models[1], cfg, tcfg, 1.0, 4)
+    before = dict(ks.LAUNCHES)
+    for d in range(2):
+        chunk = batches[4 * d:4 * d + 4]
+        singles = [step({k: torch.as_tensor(v, device=cuda_device)
+                         for k, v in b.items()}, 4 * d + j,
+                        generator=gens[0]) for j, b in enumerate(chunk)]
+        got = multi(chunk, 4 * d, generator=gens[1])
+        keys = sorted(singles[0])
+        want = nt.reduce_metrics(torch.stack(
+            [torch.stack([m[k] for k in keys]) for m in singles]), keys)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (d, k)
+    assert ks.LAUNCHES["sdf_fwd"] - before["sdf_fwd"] == 2 * 16
+    assert multi.graph.launches_per_replay["sdf:sdf_fwd"] == 2
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        assert torch.equal(a, b)
+    for k, v in opt_a.state.items():
+        assert torch.equal(opt_b.state[k], v), k
+
+
+def runner_k_against_1(tmp_path, device):
+    """NeuSRunner with steps_per_dispatch=3 against 1 on ``device``, from
+    one seed with the perturbation on, over occupancy rebuilds, the carve
+    switch and the tail: the same rebuild steps, the same final parameters,
+    Adam state and random streams, bit for bit; the dispatches never
+    straddle a rebuild or the tail boundary. Returns the k=3 runner."""
+    import chip_smoke
+    from vqnerf_release_torch.data.neus_dataset import NerfSceneDataset
+    from vqnerf_release_torch.models.neus import NeuSConfig
+    from vqnerf_release_torch.train import neus_loop as t_nloop
+    from vqnerf_release_torch.train.neus_trainer import NeuSTrainConfig
+    chip_smoke.write_stage1_scene(str(tmp_path / "scene"), 12, 2, 1, 0)
+    cfg = NeuSConfig(
+        sdf=fields.SDFConfig(d_hidden=32, n_layers=4, skip_in=(2,),
+                             multires=2, d_out=33),
+        color=fields.ColorConfig(d_feature=32, d_hidden=16, n_layers=2),
+        n_samples=8, n_importance=4, up_sample_steps=1)
+    ds = NerfSceneDataset(str(tmp_path / "scene"), is_train=True, near=0.5,
+                          far=3.5)
+    base = dict(batch_size=32, end_iter=13, warm_up_end=2, save_freq=6,
+                val_freq=10**9, mesh_freq=10**9, occ_res=8,
+                occ_update_freq=5, carve_auto=True,
+                carve_alt_sampler="12+4r1", carve_auto_thresh=0.0,
+                carve_probe_res=16, tail_frac=0.25, tail_sampler="8+4r1",
+                tail_occ=True)
+    runs = {}
+    for k in (1, 3):
+        run = t_nloop.NeuSRunner(
+            cfg, NeuSTrainConfig(**base, steps_per_dispatch=k), ds,
+            str(tmp_path / str(k)), seed=3, device=device)
+        hist = run.train(log_every=1)
+        assert all(np.isfinite(h["loss"]) for h in hist)
+        runs[k] = (run, hist)
+    (one, h1), (three, h3) = runs[1], runs[3]
+    assert len(h1) == 13
+    assert three.occ_builds == one.occ_builds == [0, 5, 10]
+    assert three.iter_step == one.iter_step == 13
+    for (k, a), b in zip(one.params.state_dict().items(),
+                         three.params.state_dict().values()):
+        assert torch.equal(a, b), k
+    for k, v in one.opt.state.items():
+        assert torch.equal(three.opt.state[k], v), k
+    assert torch.equal(one.generator.get_state(),
+                       three.generator.get_state())
+    assert one.rng.get_state()[2] == three.rng.get_state()[2]
+    # a checkpoint at the end of the dispatch that crossed save_freq, as
+    # the JAX runner saves: dispatches [0, 3) 3 4 [5, 8) 8 9 [10, 13)
+    assert sorted(os.listdir(tmp_path / "1" / "checkpoints")) == [
+        "ckpt-12", "ckpt-6"]
+    assert sorted(os.listdir(tmp_path / "3" / "checkpoints")) == [
+        "ckpt-13", "ckpt-8"]
+    assert len(h3) == 7
+    return three
+
+
+@pytest.mark.cuda
+def test_runner_k_step_dispatch_replays_graphs(cuda_device, tmp_path):
+    """NeuSRunner.train with steps_per_dispatch=3 on the card (a graph
+    captured in the carve, freed when the tail begins, and one in the
+    tail) against single steps, bit for bit (``runner_k_against_1``)."""
+    from vqnerf_release_torch.train import graphed
+    replays = graphed.REPLAYS
+    three = runner_k_against_1(tmp_path, cuda_device)
+    # dispatches [0, 3) [5, 8) [10, 13): a capture and 2 replays each
+    assert graphed.REPLAYS - replays == 6
+    (key, fn), = [(k, f) for k, f in three._fn_cache.items() if len(k) == 4]
+    assert key == (3, None, True, False) and fn.graph.graph is not None

@@ -374,16 +374,58 @@ def test_jpeg_unsupported_frames_raise_naming_the_marker(marker, name):
 
 
 def test_jpeg_12_bit_and_cmyk_raise():
+    """12-bit samples and a malformed frame raise; a 4-component (CMYK)
+    file no longer raises but decodes as cv2 does (3 channels)."""
     data = _encode(_image(16, 16, 3, 10), [cv2.IMWRITE_JPEG_QUALITY, 90])
     sof = data.index(b"\xff\xc0")
     twelve = data[:sof + 4] + b"\x0c" + data[sof + 5:]
     with pytest.raises(NotImplementedError, match="SOF0 with 12-bit"):
         t_jpeg.decode_jpeg(twelve)
-    four = data[:sof + 9] + b"\x04" + data[sof + 10:]
-    with pytest.raises(NotImplementedError, match="4 components|CMYK"):
-        t_jpeg.decode_jpeg(four)
+    two = data[:sof + 9] + b"\x02" + data[sof + 10:]
+    with pytest.raises(NotImplementedError, match="2 components"):
+        t_jpeg.decode_jpeg(two)
+    _assert_decodes_like_cv2(_cmyk_jpeg(_image(16, 16, 4, 10), 90, {}, 0))
     with pytest.raises(ValueError, match="not a JPEG"):
         t_jpeg.decode_jpeg(b"\x89PNG\r\n\x1a\n")
+
+
+def _cmyk_jpeg(img, quality, kwargs, transform):
+    """An Adobe CMYK JPEG written by PIL, its APP14 transform flag set to
+    ``transform`` (0 CMYK, 2 YCCK, 1 an unknown flag libjpeg reads as YCCK),
+    or without the APP14 segment when ``transform`` is None."""
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img, "CMYK").save(buf, "JPEG", quality=quality,
+                                      **kwargs)
+    data = bytearray(buf.getvalue())
+    app14 = data.index(b"\xff\xee")
+    assert data[app14 + 4:app14 + 9] == b"Adobe"
+    if transform is None:
+        n = struct.unpack(">H", data[app14 + 2:app14 + 4])[0]
+        return bytes(data[:app14] + data[app14 + 2 + n:])
+    data[app14 + 4 + 11] = transform
+    return bytes(data)
+
+
+@pytest.mark.parametrize("transform", [0, 2, 1, None])
+@pytest.mark.parametrize("kind", ["444_q90", "420_q50", "progressive_q100",
+                                  "odd_37x53_q75"])
+def test_jpeg_cmyk_and_ycck_equal_cv2(kind, transform):
+    """4-component files as cv2 reads them, bit for bit: CMYK stored as is
+    (no APP14, or transform 0), YCCK (transform 2 or another flag) through
+    libjpeg's YCC -> RGB, then OpenCV's CMYK -> BGR; 3 channels under
+    IMREAD_UNCHANGED and IMREAD_COLOR alike."""
+    h, w = (37, 53) if kind.startswith("odd") else (24, 40)
+    quality = int(kind.split("_q")[1])
+    kwargs = {"444_q90": {"subsampling": 0}, "420_q50": {"subsampling": 2},
+              "progressive_q100": {"progressive": True},
+              "odd_37x53_q75": {}}[kind]
+    data = _cmyk_jpeg(_image(h, w, 4, 31), quality, kwargs, transform)
+    _assert_decodes_like_cv2(data)
+    color = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    np.testing.assert_array_equal(color[..., ::-1], t_jpeg.decode_jpeg(data))
 
 
 def test_readers_dispatch_on_the_signature_like_cv2(tmp_path):
@@ -443,7 +485,7 @@ def test_committed_fixtures_are_cv2_decodes():
     port's decoder gives the same pixels (the card's check, which has no
     cv2, reads the same files)."""
     jpgs = sorted(glob.glob(os.path.join(FIXTURES, "*.jpg")))
-    assert len(jpgs) == 6
+    assert len(jpgs) == 8
     total = 0
     for jpg in jpgs:
         want = t_io.read_png(jpg[:-4] + ".png")

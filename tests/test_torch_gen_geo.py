@@ -31,6 +31,17 @@ from vqnerf_release_torch.data.shape_dataset import ShapeDataset
 from vqnerf_release_torch.kernels import sdf as ks
 from vqnerf_release_torch.pipelines import gen_geo as t_geo
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    thousands of small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 LIGHT_H = 2
 NEAR, FAR = 0.5, 3.5
 KW = dict(batch_size=64, light_h=LIGHT_H, vis_point_batch=16)

@@ -25,6 +25,17 @@ from vqnerf_release_torch.models import neus as tn
 from vqnerf_release_torch.ops import occupancy as t_occ
 from vqnerf_release_torch.ops.sampling import sample_pdf as t_sample_pdf
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    thousands of small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 RTOL, ATOL = 1e-4, 2e-5
 RADIUS = 2.5
 

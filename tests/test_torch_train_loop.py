@@ -34,6 +34,17 @@ from vqnerf_release_torch.train import decomp_trainer as t_dt
 from vqnerf_release_torch.train import loop as t_loop
 from vqnerf_release_torch.utils import ckpt as t_ckpt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    thousands of small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TRAIN = dict(SMALL, epochs=2, n_rays_per_step=16, total_sample_vq=64)
 
 
@@ -127,7 +138,10 @@ def test_vq_eval_set_equals_jax(scene):
 def test_store_gather_equals_outer_sample(scene):
     views = scene["train"]
     assert views_compatible(views)
-    assert store_nbytes(views) == 2 * 256 * (3 * 5 + 2 + 8) * 4
+    # the JAX store's layout: a zero row past each view's 256 pixels
+    assert store_nbytes(views) == 2 * 257 * (3 * 5 + 2 + 8) * 4
+    from vqnerf_release_tpu.data import device_store as j_store
+    assert store_nbytes(views) == j_store.store_nbytes(views)
     assert fits_device_memory(views, "cpu")
     assert not fits_device_memory(views, "cpu", budget_bytes=1000)
     store = DeviceViewStore(views, "cpu")
@@ -142,22 +156,30 @@ def test_store_gather_equals_outer_sample(scene):
 
 
 def test_batch_source_modes_give_equal_batches(scene):
+    """'auto' and 'on' gather the host path's batches bit for bit; 'u8'
+    stages lvis as uint8 (every other buffer bit for bit, lvis within
+    1/510); the 'shard' layout is refused."""
     cfgs = {m: t_dc.DecompConfig(**TRAIN, device_views=m)
-            for m in ("auto", "on", "off")}
+            for m in ("auto", "on", "u8", "off")}
     batches = {}
     for mode, cfg in cfgs.items():
         source, store = t_loop._make_batch_source(
             scene["train"], cfg, "contrast", torch.device("cpu"))
         assert (store is None) == (mode == "off")
+        assert mode == "off" or store.quant == (mode == "u8")
         batches[mode] = list(source(np.random.RandomState(7)))
-    for mode in ("auto", "on"):
+    for mode in ("auto", "on", "u8"):
         for got, want in zip(batches[mode], batches["off"]):
             for k in want:
-                assert torch.equal(got[k], want[k]), (mode, k)
+                if mode == "u8" and k == "lvis":
+                    assert float((got[k] - want[k]).abs().max()) <= \
+                        1 / 510 + 1e-7
+                else:
+                    assert torch.equal(got[k], want[k]), (mode, k)
     with pytest.raises(ValueError, match="device_views"):
         t_loop._make_batch_source(
-            scene["train"], t_dc.DecompConfig(device_views="u8"), "random",
-            torch.device("cpu"))
+            scene["train"], t_dc.DecompConfig(device_views="shard"),
+            "random", torch.device("cpu"))
 
 
 @pytest.mark.parametrize("losses", [
@@ -224,10 +246,13 @@ def _finite_log(outdir):
 
 
 def test_training_writes_the_file_tree_of_jax_and_resumes(scene, tmp_path,
-                                                          capsys):
+                                                          capsys,
+                                                          monkeypatch):
     """train_nfr_unit then train_vq_nfr for 2 epochs: the same file names
     as the JAX loop's, finite losses; and a run stopped after epoch 1 and
-    resumed ends in the same state as the uninterrupted one."""
+    resumed ends in the same state as the uninterrupted one. epoch_scan=
+    False dispatches step by step, without a notice; the scanned dispatch
+    (the default with the views staged) writes the same tree."""
     jcfg = j_dc.DecompConfig(**TRAIN, device_views="off")
     tcfg = t_dc.DecompConfig(**TRAIN, epoch_scan=False)
     j_views = scene  # the views are plain numpy dataclasses: both take them
@@ -236,21 +261,36 @@ def test_training_writes_the_file_tree_of_jax_and_resumes(scene, tmp_path,
     j_loop.train_vq_nfr(jcfg, j_nfr, j_views["train"], j_views["vali"],
                         str(tmp_path / "j_vq"))
 
+    scans = []
+    for name in ("make_plain_epoch_scan", "make_vq_epoch_scan"):
+        real = getattr(t_dt, name)
+        monkeypatch.setattr(t_dt, name, lambda *a, _real=real, **kw: (
+            scans.append(1), _real(*a, **kw))[1])
     nfr, hist = t_loop.train_nfr_unit(
         tcfg, scene["train"], scene["vali"], str(tmp_path / "t_nfr"),
         device="cpu")
-    assert "scanned-epoch dispatch" in capsys.readouterr().out
+    assert "scanned-epoch dispatch" not in capsys.readouterr().out
+    assert not scans  # epoch_scan=False: step by step
     assert len(hist) == 2 and np.isfinite(hist).all()
     vq, ema, hist = t_loop.train_vq_nfr(
         tcfg, nfr, scene["train"], scene["vali"], str(tmp_path / "t_vq"),
         device="cpu")
     assert len(hist) == 2 and np.isfinite(hist).all()
     assert int(ema.counter) == 4
+    assert not scans
+    # the scanned dispatch, the default: the same tree
+    scfg = t_dc.DecompConfig(**TRAIN)
+    s_nfr, _ = t_loop.train_nfr_unit(scfg, scene["train"], scene["vali"],
+                                     str(tmp_path / "s_nfr"), device="cpu")
+    t_loop.train_vq_nfr(scfg, s_nfr, scene["train"], scene["vali"],
+                        str(tmp_path / "s_vq"), device="cpu")
+    assert len(scans) == 2
     for phase in ("nfr", "vq"):
         want = _tree_names(tmp_path / f"j_{phase}")
-        got = _tree_names(tmp_path / f"t_{phase}")
-        assert got == want, (sorted(got - want), sorted(want - got))
-        _finite_log(str(tmp_path / f"t_{phase}"))
+        for run in ("t", "s"):
+            got = _tree_names(tmp_path / f"{run}_{phase}")
+            assert got == want, (run, sorted(got - want), sorted(want - got))
+            _finite_log(str(tmp_path / f"{run}_{phase}"))
     from vqnerf_release_torch.pipelines.test_driver import find_vq
     vali_dir = tmp_path / "t_vq" / "vis_vali" / "epoch000000002"
     k = find_vq(str(vali_dir))

@@ -261,11 +261,13 @@ def _views(data_root, surf_root, cfg, mode, with_ref=False):
 
 
 def _debug(cfg):
-    """--debug: 1 epoch, one train view and one validation view. The port
-    takes eager steps always, so that is all it changes."""
+    """--debug: 1 epoch, one train view and one validation view, every step
+    dispatched on its own from host-gathered batches (the JAX CLI's
+    settings: no staged views, no scanned dispatch, no device sampling)."""
     print("[vqnerf-torch] --debug: 1 epoch, single train view and single "
-          "validation view (steps are always eager here)", file=sys.stderr)
-    return dataclasses.replace(cfg, epochs=1)
+          "validation view, eager steps from host batches", file=sys.stderr)
+    return dataclasses.replace(cfg, epochs=1, device_views="off",
+                               epoch_scan=False, device_sampling=False)
 
 
 def cmd_decomp_train(args):

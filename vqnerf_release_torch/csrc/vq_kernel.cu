@@ -79,6 +79,7 @@ constexpr int kGroup = 16;             // codes reduced across lanes together
 constexpr int kRowPad = 4;             // floats between transposed rows
 constexpr int kBatch = 16;             // loads a thread keeps in flight
 constexpr int kMaxSmem = 232448;       // 227 KB, what a block can be given
+constexpr int kMaxDevices = 64;
 constexpr float kBig = 1e30f;
 constexpr float kNever = 3e38f;        // a code past K: behind any dropped one
 
@@ -473,9 +474,15 @@ extern "C" int vq_fused_train_launch(
   int previous = 0;
   cudaError_t err = cudaGetDevice(&previous);
   if (err == cudaSuccess && previous != device) err = cudaSetDevice(device);
-  if (err == cudaSuccess)
+  // once a device, and before any capture: a CUDA graph records the launch
+  // alone, so the attribute must already hold when the graph replays it
+  static bool attribute_set[kMaxDevices] = {};
+  if (err == cudaSuccess && device >= kMaxDevices) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess && !attribute_set[device]) {
     err = cudaFuncSetAttribute(
         vq_fused, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    attribute_set[device] = err == cudaSuccess;
+  }
   if (err == cudaSuccess) {
     float decay_f = static_cast<float>(decay);
     float one_m_decay = static_cast<float>(1.0 - decay);

@@ -3,8 +3,8 @@ what ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` gives through the
 libjpeg-turbo 3.1 that OpenCV bundles.
 
   * Frames: SOF0 / SOF1 sequential Huffman and SOF2 progressive (spectral
-    selection, successive approximation, EOB runs), 8-bit samples, 1 or 3
-    components, any sampling factors, DRI / RSTn restart intervals,
+    selection, successive approximation, EOB runs), 8-bit samples, 1, 3
+    or 4 components, any sampling factors, DRI / RSTn restart intervals,
     Huffman and quantisation tables redefined between scans.
   * The entropy decode is sequential Python over a de-stuffed bit buffer:
     a 65,536-entry table per Huffman table gives, for the next 16 bits,
@@ -20,11 +20,16 @@ libjpeg-turbo 3.1 that OpenCV bundles.
   * YCbCr -> RGB by jdcolor.c's 16-bit fixed-point tables; the colour
     space is read as jdapimin.c reads it (JFIF, then the Adobe transform
     flag, then the component ids).
+  * 4 components: CMYK (no Adobe segment, or transform 0) as stored, YCCK
+    (transform 2, or any other) through jdcolor.c's ycck_cmyk_convert;
+    then OpenCV's CMYK -> BGR (``c = k - ((255 - c) k >> 8)`` for each of
+    c, m, y), as cv2 gives 3 channels under IMREAD_UNCHANGED and
+    IMREAD_COLOR alike.
   * EXIF orientation is ignored, as cv2 does under IMREAD_UNCHANGED.
 
 Arithmetic coding (SOF9-11, SOF13-15), lossless and hierarchical frames
-(SOF3, SOF5-7), 12-bit samples and 4-component (CMYK / YCCK) files raise
-NotImplementedError naming the marker.
+(SOF3, SOF5-7) and 12-bit samples raise NotImplementedError naming the
+marker.
 """
 
 import numpy as np
@@ -388,7 +393,13 @@ def _upsample(plane, hx, vx):
 
 
 def _ycc_to_rgb(y, cb, cr):
-    """jdcolor.c ycc_rgb_convert with its fixed-point tables."""
+    """jdcolor.c ycc_rgb_convert with its fixed-point tables (uint8
+    [..., 3])."""
+    return np.clip(_ycc_to_rgb_int(y, cb, cr), 0, 255).astype(np.uint8)
+
+
+def _ycc_to_rgb_int(y, cb, cr):
+    """ycc_rgb_convert before its range limit: int [..., 3]."""
     one_half = 1 << 15
     x = np.arange(256, dtype=np.int64) - 128
 
@@ -402,7 +413,13 @@ def _ycc_to_rgb(y, cb, cr):
     r = y + cr_r[cr]
     g = y + ((cb_g[cb] + cr_g[cr]) >> 16)
     b = y + cb_b[cb]
-    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+    return np.stack([r, g, b], axis=-1)
+
+
+def _cmyk_to_rgb(c, m, y, k):
+    """OpenCV's icvCvt_CMYK2BGR_8u_C4C3R, channels in RGB order."""
+    return np.stack([k - (((255 - v) * k) >> 8) for v in (c, m, y)],
+                    axis=-1).astype(np.uint8)
 
 
 class _Frame:
@@ -422,10 +439,10 @@ class _Frame:
             raise NotImplementedError(
                 f"{what}: {name} with {precision}-bit samples is not "
                 "supported (8-bit only)")
-        if n not in (1, 3):
+        if n not in (1, 3, 4):
             raise NotImplementedError(
                 f"{what}: {name} with {n} components is not supported "
-                "(1 = gray, 3 = YCbCr / RGB; 4 would be CMYK / YCCK)")
+                "(1 = gray, 3 = YCbCr / RGB, 4 = CMYK / YCCK)")
         if self.h == 0:
             raise NotImplementedError(f"{what}: {name} with height 0 (DNL)")
         self.ids, self.hs, self.vs, self.tq = [], [], [], []
@@ -497,9 +514,9 @@ class _Frame:
 
 
 def decode_jpeg(data, what="JPEG"):
-    """JPEG bytes -> uint8 [H, W] (gray) or [H, W, 3] (RGB), the pixels
-    of ``cv2.imread(..., IMREAD_UNCHANGED)`` with the channels in RGB
-    order. ``what`` names the source in errors."""
+    """JPEG bytes -> uint8 [H, W] (gray) or [H, W, 3] (RGB; also for a
+    CMYK / YCCK file), the pixels of ``cv2.imread(..., IMREAD_UNCHANGED)``
+    with the channels in RGB order. ``what`` names the source in errors."""
     data = bytes(data)
     if not is_jpeg(data):
         raise ValueError(f"{what}: not a JPEG file")
@@ -578,6 +595,12 @@ def decode_jpeg(data, what="JPEG"):
         full.append(up[:h, :w])
     if len(full) == 1:
         return full[0].astype(np.uint8)
+    if len(full) == 4:  # jdapimin.c: CMYK unless the Adobe flag says else
+        if adobe and transform != 0:
+            rgb = np.clip(_ycc_to_rgb_int(*full[:3]), 0, 255)
+            full = [255 - rgb[..., 0], 255 - rgb[..., 1], 255 - rgb[..., 2],
+                    full[3]]
+        return _cmyk_to_rgb(*full)
     if jfif:
         rgb_space = False
     elif adobe:

@@ -18,7 +18,12 @@ step's EMA state, and quantized enters the autograd graph. The kernel's
 scratch (the blocks' partial sums) is the opposite: one buffer per device,
 kept by this module and grown when a call needs more; its contents mean
 nothing between calls. Calls on one stream are ordered and may share it;
-calls on two streams of one device must not run at once.
+calls on two streams of one device must not run at once. A CUDA graph that
+recorded a call keeps that call's scratch alive (``scratch_buffers``,
+``train/graphed.py``): growing it later replaces the module's buffer but
+frees nothing a graph writes. ``output_layout`` is cached, but holds
+offsets only; every call's outputs are fresh (inside a graph, from the
+graph's pool).
 
 ``vq_fused_train`` takes the plain version ``vq_fused_train_reference`` only
 for CPU tensors. For CUDA tensors it launches the kernel or raises.
@@ -36,7 +41,7 @@ import torch
 from . import build as kbuild
 
 __all__ = ["LAUNCHES", "SOURCE", "BIG", "build", "load", "smem_bytes",
-           "grid_blocks", "scratch_floats", "output_layout",
+           "grid_blocks", "scratch_floats", "scratch_buffers", "output_layout",
            "allocate_outputs", "vq_fused_train", "vq_fused_train_reference"]
 
 LAUNCHES = 0
@@ -126,6 +131,12 @@ def _scratch_for(device, floats):
         buf = torch.empty((floats,), dtype=torch.float32, device=device)
         _scratch[device.index] = buf
     return buf
+
+
+def scratch_buffers():
+    """The scratch buffers of every device, as a tuple (a CUDA graph that
+    recorded a call holds them)."""
+    return tuple(_scratch.values())
 
 
 def _library():

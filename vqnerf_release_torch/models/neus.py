@@ -89,12 +89,32 @@ def fused_sdf_enabled(use_fused_sdf, tensor):
     return bool(use_fused_sdf)
 
 
+class _CumprodPositive(torch.autograd.Function):
+    """torch.cumprod along the last axis of a tensor with no zero, whose
+    backward is the one PyTorch takes for such a tensor,
+    reversed_cumsum(output * grad) / input, without the test for zeros
+    that reads a flag back to the host (a CUDA graph cannot capture that
+    read)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        w = out * grad
+        return torch.flip(torch.cumsum(torch.flip(w, [-1]), -1), [-1]) / x
+
+
 def _trans(alpha):
     """Transmittance before each section: exclusive cumprod of 1 - alpha +
-    1e-7."""
+    1e-7 (positive, as alpha <= 1)."""
     ones = alpha.new_ones((alpha.shape[0], 1))
-    return torch.cumprod(
-        torch.cat([ones, 1.0 - alpha + 1e-7], dim=-1), dim=-1)[:, :-1]
+    return _CumprodPositive.apply(
+        torch.cat([ones, 1.0 - alpha + 1e-7], dim=-1))[:, :-1]
 
 
 def _up_sample(rays_o, rays_d, z_vals, sdf, r_limit, n_importance, inv_s):
@@ -172,12 +192,18 @@ def _hierarchical_z(sdf_fn, cfg, rays_o, rays_d, z_vals, radius):
 def _section_alpha(sdf, gradients, dirs_flat, d_flat, inv_s,
                    cos_anneal_ratio):
     """(alpha [N, 1] before clipping's reshape, prev_cdf) of flat section
-    midpoints."""
+    midpoints. ``cos_anneal_ratio``: a float, or the pair (1 - ratio,
+    ratio) of 0-dim float32 tensors that a captured training step reads
+    (each the float32 of the double the float path rounds)."""
+    if isinstance(cos_anneal_ratio, tuple):
+        one_minus, ratio = cos_anneal_ratio
+    else:
+        one_minus, ratio = 1.0 - cos_anneal_ratio, cos_anneal_ratio
     true_cos = torch.sum(dirs_flat * gradients, dim=-1, keepdim=True)
     # cos annealing; always non-positive
     iter_cos = -(
-        torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - cos_anneal_ratio)
-        + torch.relu(-true_cos) * cos_anneal_ratio)
+        torch.relu(-true_cos * 0.5 + 0.5) * one_minus
+        + torch.relu(-true_cos) * ratio)
     prev_cdf = torch.sigmoid((sdf - iter_cos * d_flat * 0.5) * inv_s)
     next_cdf = torch.sigmoid((sdf + iter_cos * d_flat * 0.5) * inv_s)
     return (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), prev_cdf

@@ -48,6 +48,7 @@ chroma-gated smoothness) or read the codebook are computed there too.
 
 import copy
 
+import numpy as np
 import torch
 
 from ..models import decomp_common as dc
@@ -60,9 +61,11 @@ from ..models.vq_nfr import (vq_encode, vq_nfr_row_sums, vq_nfr_rows,
 from ..ops.vq import VqEmaState, vq_ema_apply
 from ..parallel.mesh import shard_batch
 from ..utils.device import resolve_device
+from .graphed import StepGraph
 
 __all__ = ["decomp_lr", "KerasAmsgrad", "make_nfr_unit_step",
-           "make_vq_nfr_step", "make_ref_nfr_step"]
+           "make_vq_nfr_step", "make_ref_nfr_step", "EpochScan",
+           "VqEpochScan", "make_plain_epoch_scan", "make_vq_epoch_scan"]
 
 
 def decomp_lr(step, cfg: dc.DecompConfig):
@@ -97,8 +100,11 @@ class KerasAmsgrad:
 
     @torch.no_grad()
     def step(self, grads, lr, loss=None):
-        """Apply one update from ``grads`` (a list like params). Returns ok,
-        a 0-dim bool tensor: False when the guard skipped the step."""
+        """Apply one update from ``grads`` (a list like params) at learning
+        rate ``lr`` (a float, or a 0-dim float32 tensor holding the float's
+        float32 value: the same product either way). The state is updated in
+        place. Returns ok, a 0-dim bool tensor: False when the guard skipped
+        the step."""
         st = self.state
         g = torch.cat([x.reshape(-1) for x in grads])
         ok = torch.isfinite(g).all()
@@ -119,12 +125,11 @@ class KerasAmsgrad:
         delta = -lr * (corr * m / (torch.sqrt(vhat) + self.eps))
         if self.guard:
             delta = torch.where(ok, delta, torch.zeros_like(delta))
-            st["count"] = torch.where(ok, count, st["count"])
-            st["m"] = torch.where(ok, m, st["m"])
-            st["v"] = torch.where(ok, v, st["v"])
-            st["vhat"] = torch.where(ok, vhat, st["vhat"])
-        else:
-            st.update(count=count, m=m, v=v, vhat=vhat)
+            count, m, v, vhat = (torch.where(ok, new, st[k]) for new, k in (
+                (count, "count"), (m, "m"), (v, "v"), (vhat, "vhat")))
+        # in place: a CUDA graph of the step reads and writes these buffers
+        for k, new in (("count", count), ("m", m), ("v", v), ("vhat", vhat)):
+            st[k].copy_(new)
         torch._foreach_add_(
             self.params,
             [d.view_as(p) for d, p in zip(delta.split(self.sizes),
@@ -198,7 +203,7 @@ def _rows_step(model, opt, cfg, lxyz, lareas, mesh, trained, forward,
     (nfr_unit, ref_nfr)."""
     reps = _Replicas(model, mesh, trained, lxyz, lareas)
 
-    def step_fn(batch, step):
+    def step_fn(batch, step, lr=None):
         reps.sync()
         blocks, _ = shard_batch(batch, reps.mesh)
         sums = None
@@ -206,7 +211,8 @@ def _rows_step(model, opt, cfg, lxyz, lareas, mesh, trained, forward,
             _, aux = forward(m, b, cfg, lx, la, mode="train")
             sums = _add_sums(sums, row_sums(aux, cfg), reps.mesh[0])
         loss, ld = loss_from_sums(sums)
-        ok = opt.step(reps.grads(loss), decomp_lr(step, cfg), loss)
+        ok = opt.step(reps.grads(loss),
+                      decomp_lr(step, cfg) if lr is None else lr, loss)
         return _finish_ld(ld, ok, opt.guard)
 
     return step_fn
@@ -214,10 +220,12 @@ def _rows_step(model, opt, cfg, lxyz, lareas, mesh, trained, forward,
 
 def make_nfr_unit_step(model, cfg: dc.DecompConfig, lxyz, lareas,
                        mesh=None):
-    """(optimizer, step_fn); step_fn(batch, step) -> loss dict of 0-dim
-    tensors on the device, after updating ``model`` in place. ``mesh``:
-    the devices to split every batch over (the model on the first; by
-    default the model's device alone)."""
+    """(optimizer, step_fn); step_fn(batch, step, lr=None) -> loss dict of
+    0-dim tensors on the device, after updating ``model`` in place; ``lr``,
+    when given, replaces ``decomp_lr(step, cfg)`` (a 0-dim float32 tensor
+    staged by the scanned dispatch). ``mesh``: the devices to split every
+    batch over (the model on the first; by default the model's device
+    alone)."""
     opt = KerasAmsgrad(model.parameters(), cfg)
     return opt, _rows_step(
         model, opt, cfg, lxyz, lareas, mesh, lambda m: m.parameters(),
@@ -231,7 +239,7 @@ def _vq_nfr_step(model, opt, cfg, lxyz, lareas, mesh):
     reps = _Replicas(model, mesh, lambda m: m.parameters(), lxyz, lareas)
     dev0 = reps.mesh[0]
 
-    def step_fn(ema_state, batch, thres, rng, step):
+    def step_fn(ema_state, batch, thres, rng, step, lr=None):
         batch = dict(batch)
         roll = batch.pop("_roll", None)
         reps.sync()
@@ -262,7 +270,8 @@ def _vq_nfr_step(model, opt, cfg, lxyz, lareas, mesh):
             "z_vq": vq_outs["quantize"], "vq_loss": vq_outs["loss"],
             "codebook_update": vq_outs["update"]}, cfg)
         old_cb = model.codebook.detach().clone()
-        ok = opt.step(reps.grads(loss), decomp_lr(step, cfg), loss)
+        ok = opt.step(reps.grads(loss),
+                      decomp_lr(step, cfg) if lr is None else lr, loss)
         with torch.no_grad():
             # the EMA assignment, and the optimizer's delta on top of it
             # (zero when the guard skipped the step)
@@ -280,8 +289,9 @@ def _vq_nfr_step(model, opt, cfg, lxyz, lareas, mesh):
 
 
 def make_vq_nfr_step(model, cfg: dc.DecompConfig, lxyz, lareas, mesh=None):
-    """(optimizer, step_fn); step_fn(ema_state, batch, thres, rng, step) ->
-    (new_ema_state, loss dict), after updating ``model`` in place.
+    """(optimizer, step_fn); step_fn(ema_state, batch, thres, rng, step,
+    lr=None) -> (new_ema_state, loss dict), after updating ``model`` in
+    place (``lr`` as ``make_nfr_unit_step``'s).
     ``batch["_roll"]`` (optional, [1, K]) gives the dropout uniforms in
     place of a draw from ``rng``. ``mesh``: the devices to split every
     batch over (the model and the EMA state on the first; by default the
@@ -293,11 +303,145 @@ def make_vq_nfr_step(model, cfg: dc.DecompConfig, lxyz, lareas, mesh=None):
 def make_ref_nfr_step(model, cfg: dc.DecompConfig, lxyz, lareas,
                       mesh=None):
     """(optimizer, step_fn) over ``model.trainable`` only; step_fn(batch,
-    step) -> loss dict of 0-dim tensors on the device, after updating the
-    trainable part in place. ``mesh``: the devices to split every batch
+    step, lr=None) -> loss dict of 0-dim tensors on the device, after
+    updating the trainable part in place (``lr`` as
+    ``make_nfr_unit_step``'s). ``mesh``: the devices to split every batch
     over (the model on the first; by default the model's device alone)."""
     opt = KerasAmsgrad(model.trainable.parameters(), cfg)
     return opt, _rows_step(
         model, opt, cfg, lxyz, lareas, mesh,
         lambda m: m.trainable.parameters(), ref_nfr_forward,
         ref_nfr_row_sums, ref_nfr_loss_from_sums)
+
+
+class EpochScan:
+    """Chunks of stage-2 steps over a device store, each chunk one dispatch
+    (the port of ``make_plain_epoch_scan`` / ``make_vq_epoch_scan`` of the
+    JAX package, whose ``lax.scan`` runs the per-step path's jitted step).
+
+    The host stages a chunk's inputs (``stage``): the view index, the ray
+    indices (or, with a device ``sampler``, the sampler's draws), the
+    learning rate computed on the host in double and stored in float32,
+    and for vq_nfr the code-dropout uniforms, drawn from the generator in
+    the per-step path's order. ``run(n)`` then takes n steps, each the SAME
+    step function as the per-step path, reading entry i of those tensors
+    (``graphed.StepGraph``: a CUDA graph replayed on the card, eager on the
+    CPU), and returns the loss terms [n, len(keys)] on the device. ``rows``
+    is the most steps a chunk takes, ``n_rays`` the pairs a step samples.
+    """
+
+    def __init__(self, store, rows, n_rays, sampler=None, n_codes=None):
+        dev = store.device
+        self.store, self.sampler, self.rows = store, sampler, rows
+        self.vi = torch.zeros((rows,), dtype=torch.int64, device=dev)
+        self.lr = torch.zeros((rows,), dtype=torch.float32, device=dev)
+        self.pix = self.jidx = self.u = self.roll = None
+        if sampler is None:
+            self.pix = torch.zeros((rows, 2 * n_rays), dtype=torch.int64,
+                                   device=dev)
+        else:
+            if sampler.jitter_mode == "random":
+                self.jidx = torch.zeros((rows, sampler.n_interior),
+                                        dtype=torch.uint8, device=dev)
+            self.u = torch.zeros((rows, sampler.n_rays), device=dev)
+            self._sampling_gen = torch.Generator(device=dev)
+        if n_codes is not None:
+            self.roll = torch.zeros((rows, 1, n_codes), device=dev)
+        self.graph = None
+
+    @property
+    def keys(self):
+        return self.graph.keys
+
+    @staticmethod
+    def _at(buf, i):
+        return buf.index_select(0, i.reshape(1))[0]
+
+    def batch(self, i):
+        """Step i's batch, gathered from the store on the device."""
+        vi = self._at(self.vi, i)
+        if self.sampler is None:
+            pix = self._at(self.pix, i)
+        else:
+            pix = self.sampler(vi, None if self.jidx is None
+                               else self._at(self.jidx, i),
+                               self._at(self.u, i))
+        batch = self.store.gather_at(vi, pix)
+        if self.roll is not None:
+            batch["_roll"] = self._at(self.roll, i)
+        return batch
+
+    def lr_at(self, i):
+        return self._at(self.lr, i)
+
+    def stage(self, vi, lrs, pix=None, sampling_seeds=None, roll_gen=None):
+        """Stage a chunk: vi [n] and lrs [n] (host arrays), and pix
+        [n, 2 n_rays] (host) or, with a sampler, one seed a step for its
+        draws; roll_gen: the generator of vq_nfr's dropout draws."""
+        n = len(vi)
+        if not 0 < n <= self.rows:
+            raise ValueError(f"a chunk of {n} steps; this scan stages 1 to "
+                             f"{self.rows}")
+        self.vi[:n].copy_(torch.from_numpy(np.asarray(vi, np.int64)))
+        self.lr[:n].copy_(torch.from_numpy(np.asarray(lrs, np.float32)))
+        if self.sampler is None:
+            self.pix[:n].copy_(torch.from_numpy(np.asarray(pix, np.int64)))
+        else:
+            for j, seed in enumerate(sampling_seeds):
+                self._sampling_gen.manual_seed(int(seed))
+                jidx, u = self.sampler.draw(self._sampling_gen)
+                if jidx is not None:
+                    self.jidx[j].copy_(jidx)
+                self.u[j].copy_(u)
+        if self.roll is not None:
+            k = self.roll.shape[-1]
+            for j in range(n):  # _draw_roll's draw, one a step
+                self.roll[j].copy_(torch.rand(
+                    (1, k), generator=roll_gen, device=self.roll.device))
+        return n
+
+    def run(self, n):
+        return self.graph.run(n)
+
+
+def make_plain_epoch_scan(step_fn, store, rows, n_rays, sampler=None):
+    """The ``EpochScan`` of an nfr_unit or ref_nfr ``step_fn``."""
+    scan = EpochScan(store, rows, n_rays, sampler=sampler)
+
+    def body(i):
+        return step_fn(scan.batch(i), None, lr=scan.lr_at(i))
+
+    scan.graph = StepGraph(body, store.device, rows)
+    return scan
+
+
+class VqEpochScan(EpochScan):
+    """The ``EpochScan`` of vq_nfr: the EMA state in buffers of its own,
+    ``ema``, that its steps update in place; ``load_ema`` copies a state
+    in."""
+
+    def __init__(self, store, rows, n_rays, ema_state, sampler=None):
+        super().__init__(store, rows, n_rays, sampler=sampler,
+                         n_codes=ema_state.hidden_cluster_size.shape[0])
+        self.ema = VqEmaState(*(t.detach().clone() for t in ema_state))
+
+    def load_ema(self, state):
+        for dst, src in zip(self.ema, state):
+            if dst is not src:
+                dst.copy_(src)
+
+
+def make_vq_epoch_scan(step_fn, store, rows, n_rays, ema_state, thres,
+                       sampler=None):
+    """The ``VqEpochScan`` of a vq_nfr ``step_fn`` at dropout threshold
+    ``thres``, its EMA buffers starting at ``ema_state``."""
+    scan = VqEpochScan(store, rows, n_rays, ema_state, sampler=sampler)
+
+    def body(i):
+        new_ema, ld = step_fn(scan.ema, scan.batch(i), thres, None, None,
+                              lr=scan.lr_at(i))
+        scan.load_ema(new_ema)
+        return ld
+
+    scan.graph = StepGraph(body, store.device, rows)
+    return scan

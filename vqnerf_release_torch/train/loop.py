@@ -17,12 +17,27 @@ All three run on ``device`` ("cuda" unless the caller says otherwise) and raise
 when it is not there. Ray sampling stays on the host in numpy under a
 seeded ``RandomState``, the stream the JAX package's tests pin; the code
 dropout draws from a seeded ``torch.Generator`` on the device. A step never
-waits for the device: losses stay there until the epoch ends. The JAX
-package's scanned-epoch dispatch has no counterpart here; its config fields
-are ignored with a notice.
+waits for the device: losses stay there until the epoch ends.
 
-A checkpoint also holds the states of both random streams, so that a
-resumed run continues the uninterrupted run's stream of batches.
+**The scanned dispatch** (the JAX package's default, ``epoch_scan=None``:
+on whenever the views are staged on the device): the epochs run in chunks
+of ``epoch_scan_chunk`` (None: min(6, the checkpoint period); a chunk never
+crosses a checkpoint or validation boundary, ``_chunk_plan``), each chunk
+one dispatch of ``decomp_trainer.EpochScan``: the host samples the chunk's
+ray indices at once (the same RandomState stream as the per-step path) and
+stages them with the steps' learning rates and dropout draws, and the steps
+run as replays of ONE captured CUDA graph of the per-step path's step (on
+the CPU: the same step, eagerly), so that scanned and per-step runs are
+equal bit for bit. The next chunk's host sampling overlaps the replays. The
+divergence guard fires at the end of a chunk, on the state of that end.
+``device_sampling`` (opt-in) samples the rays on the device instead
+(``data/device_sampler.py``): a different stream, equally distributed.
+``epoch_scan=False``, views not staged, or a device list of more than one
+device take the per-step dispatch.
+
+A checkpoint also holds the states of both random streams (for the scanned
+dispatch, the state at the chunk's end, before the next chunk was sampled),
+so that a resumed run continues the uninterrupted run's stream of batches.
 
 Each phase trains over ``devices`` (a list, as ``parallel.get_mesh``
 takes; by default ``device`` alone, where the JAX loop takes every device):
@@ -34,6 +49,7 @@ Validation and checkpoints run on the first device.
 import copy
 import json
 import os
+import sys
 import time
 from os.path import join
 
@@ -41,6 +57,7 @@ import numpy as np
 import torch
 
 from ..data import io as vio
+from ..data.device_sampler import make_device_sampler
 from ..data.device_store import (DeviceViewStore, fits_device_memory,
                                  views_compatible)
 from ..data.sampler import build_vq_eval_set, outer_sample, sample_pix
@@ -74,16 +91,6 @@ _VALI_RAY_CHUNK = 131072
 _VQ_TEST_RENDER_CHUNK = 65536
 
 
-def _notice_ignored(cfg):
-    set_fields = [name for name, default in (
-        ("epoch_scan", None), ("epoch_scan_chunk", None),
-        ("device_sampling", False)) if getattr(cfg, name) != default]
-    if set_fields:
-        print("[vqnerf-torch] %s: the scanned-epoch dispatch is not part of "
-              "this package; training dispatches step by step"
-              % ", ".join(set_fields))
-
-
 def _train_mesh(device, devices):
     """(first device, mesh) of a phase: ``devices`` when given, else
     ``device`` alone."""
@@ -99,17 +106,19 @@ def _device_batch(batch, device):
 def _make_batch_source(train_views, cfg, jitter_mode, device):
     """(epoch_batches, store). cfg.device_views: 'auto' stages the views on
     the device when they are of one shape and fit its memory budget, 'on'
-    forces that, 'off' gathers every batch on the host and copies it over.
-    The batches are equal bit for bit either way; store is None on the host
-    path."""
+    forces that, 'u8' forces it with lvis stored as uint8 (within 1/510;
+    an opt-in because the batches are then no longer equal to the host
+    path's), 'off' gathers every batch on the host and copies it over.
+    With 'auto', 'on' and 'off' the batches are equal bit for bit; store is
+    None on the host path."""
     mode = cfg.device_views or "off"
-    if mode not in ("auto", "on", "off"):
-        raise ValueError("device_views must be 'auto', 'on' or 'off', got "
-                         "%r (the 'u8' and 'shard' layouts are not part of "
-                         "this package)" % mode)
+    if mode not in ("auto", "on", "u8", "off"):
+        raise ValueError("device_views must be 'auto', 'on', 'u8' or 'off', "
+                         "got %r (the 'shard' layout over a mesh is not part "
+                         "of this package)" % mode)
     store = None
-    if train_views and mode == "on":
-        store = DeviceViewStore(train_views, device)
+    if train_views and mode in ("on", "u8"):
+        store = DeviceViewStore(train_views, device, quant=mode == "u8")
     elif train_views and mode == "auto":
         if not views_compatible(train_views):
             print("[vqnerf-torch] device_views=auto: heterogeneous views; "
@@ -117,8 +126,12 @@ def _make_batch_source(train_views, cfg, jitter_mode, device):
         elif fits_device_memory(train_views, device):
             store = DeviceViewStore(train_views, device)
         else:
+            hint = (" (device_views='u8' would fit by storing lvis as "
+                    "uint8, within 1/510)"
+                    if fits_device_memory(train_views, device, quant=True)
+                    else "")
             print("[vqnerf-torch] device_views=auto: views exceed the "
-                  "device-memory budget; using the host-gather path")
+                  "device-memory budget; using the host-gather path" + hint)
 
     def epoch_batches(rng):
         for vi, view in enumerate(train_views):
@@ -131,6 +144,138 @@ def _make_batch_source(train_views, cfg, jitter_mode, device):
                     device)
 
     return epoch_batches, store
+
+
+def _resolve_epoch_scan(cfg, store, mesh):
+    """cfg.epoch_scan: None = auto (scan iff the store is active); one
+    device only."""
+    want = cfg.epoch_scan
+    if len(mesh) > 1:
+        if want or (want is None and store is not None):
+            print("[vqnerf-torch] epoch_scan over a device list is not part "
+                  "of this package; dispatching step by step")
+        return False
+    if want is None:
+        return store is not None
+    if want and store is None:
+        print("[vqnerf-torch] epoch_scan requested but device_views is "
+              "off or the views exceed the budget; dispatching step by step")
+        return False
+    return bool(want)
+
+
+def _chunk_plan(epoch, epochs, period, chunk):
+    """Epochs of the next scanned dispatch: never past the end and never
+    across a checkpoint or validation boundary (those need the host)."""
+    boundary = period - (epoch % period)
+    return max(1, min(chunk, epochs - epoch, boundary))
+
+
+def _resolve_scan_chunk(cfg, scan_on):
+    """cfg.epoch_scan_chunk: None = auto, min(6, the checkpoint period) (the
+    JAX package's policy: with _chunk_plan clipping at period boundaries a
+    run sees at most two chunk lengths)."""
+    if not scan_on:
+        return 1
+    if cfg.epoch_scan_chunk is not None:
+        return max(1, int(cfg.epoch_scan_chunk))
+    return min(6, cfg_ckpt_period(cfg))
+
+
+def _scan_epoch_loop(start_epoch, epochs, period, chunk, sample_xs,
+                     dispatch, fetch, post_epoch):
+    """The chunked scanned dispatch of the three trainers.
+
+    ``sample_xs(n_epochs)`` samples the next dispatch's inputs on the host
+    (reading the trainer's step from its closure) and returns (xs, the host
+    random state before it sampled); ``dispatch(xs)`` stages and runs them
+    and returns the loss rows on the device, without waiting;
+    ``fetch(rows, n_epochs)`` waits and returns one payload an epoch;
+    ``post_epoch(e1, payload, wall_s, state_epoch, rng_state)`` logs,
+    guards, checkpoints and validates, with ``rng_state`` the host random
+    state at the chunk's end (None: the current one). The next chunk's
+    sampling overlaps the dispatched one; wall_s is the chunk's wall time
+    split over its epochs."""
+    pending = None
+    epoch = start_epoch
+    while epoch < epochs:
+        t_chunk = time.time()
+        n_ep = _chunk_plan(epoch, epochs, period, chunk)
+        xs, _ = pending if pending is not None else sample_xs(n_ep)
+        rows = dispatch(xs)
+        nxt = epoch + n_ep
+        pending = (sample_xs(_chunk_plan(nxt, epochs, period, chunk))
+                   if nxt < epochs else None)
+        payloads = fetch(rows, n_ep)
+        wall = (time.time() - t_chunk) / n_ep
+        for j in range(n_ep):
+            post_epoch(epoch + j + 1, payloads[j], wall, nxt,
+                       None if pending is None else pending[1])
+        epoch = nxt
+
+
+def _resolve_device_sampling(cfg, store, train_views, jitter_mode):
+    """cfg.device_sampling -> a device sampler for the scanned dispatch, or
+    None (with a notice when the opt-in cannot apply)."""
+    if not cfg.device_sampling:
+        return None
+    why = None
+    if store is None:
+        why = "the scanned device-store dispatch is not active"
+    elif len({(v.h, v.w) for v in train_views}) != 1:
+        why = "views have heterogeneous shapes"
+    if why:
+        print("[vqnerf-torch] device_sampling requested but %s; sampling on "
+              "the host" % why, file=sys.stderr)
+        return None
+    return make_device_sampler(store, train_views, cfg.n_rays_per_step,
+                               jitter_mode=jitter_mode)
+
+
+def _sampling_base_key(seed):
+    """Seed of the device sampling's stream, apart from the dropout stream
+    (seeded with ``seed``) by a fixed fold; step s draws from
+    ``_sampling_base_key(seed) + s``, so a resumed run draws what the
+    uninterrupted one draws."""
+    return (int(seed) * (1 << 32) + 0x53616D70) % (1 << 63)
+
+
+def _epoch_scan_xs_nopix(train_views, cfg, step0, n_epochs=1):
+    """(vi [E*K], steps [E*K], lrs [E*K]) of a dispatch: the view of each
+    step, its global index, and decomp_lr's value in float32."""
+    k = len(train_views)
+    vi = np.tile(np.arange(k, dtype=np.int64), n_epochs)
+    steps = step0 + np.arange(n_epochs * k, dtype=np.int64)
+    lrs = np.asarray([dt.decomp_lr(int(s), cfg) for s in steps], np.float32)
+    return vi, steps, lrs
+
+
+def _epoch_scan_xs(train_views, cfg, rng, jitter_mode, step0, n_epochs=1,
+                   sampler=None, seed=0):
+    """The host half of a dispatch of ``n_epochs`` whole epochs, as
+    ``EpochScan.stage`` takes it: vi, lrs, and the ray indices pix
+    [E*K, 2n] sampled epoch by epoch (the per-step path's RandomState
+    stream) or, with a device ``sampler``, one seed a step."""
+    vi, steps, lrs = _epoch_scan_xs_nopix(train_views, cfg, step0, n_epochs)
+    if sampler is not None:
+        return {"vi": vi, "lrs": lrs,
+                "sampling_seeds": _sampling_base_key(seed) + steps}
+    pix = np.stack([sample_pix(v, cfg.n_rays_per_step, rng,
+                               jitter_mode=jitter_mode)
+                    for _ in range(n_epochs) for v in train_views])
+    return {"vi": vi, "lrs": lrs, "pix": pix}
+
+
+def _rows_to_dicts(rows, keys):
+    """Loss rows [n, len(keys)] on the device -> n {name: float}, one copy
+    from the device."""
+    mat = rows.cpu().numpy().astype(np.float64)
+    return [{k: float(mat[j, i]) for i, k in enumerate(keys)}
+            for j in range(mat.shape[0])]
+
+
+def _split_epochs(items, n_epochs, k_steps):
+    return [items[j * k_steps:(j + 1) * k_steps] for j in range(n_epochs)]
 
 
 def _epoch_dir(outdir, epoch):
@@ -166,21 +311,29 @@ def _finite_mean(vals):
     return mean, int((~finite).sum())
 
 
-def _check_finite(outdir, phase, epoch, scalars, state):
+def _check_finite(outdir, phase, epoch, scalars, state, state_epoch=None):
     """Divergence guard: on a non-finite epoch loss, checkpoint the failing
-    state under <outdir>/debug_failure/ and raise with context."""
+    state under <outdir>/debug_failure/ and raise with context. Under the
+    scanned dispatch the state within a chunk cannot be observed;
+    ``state_epoch`` names the chunk's end, whose state is saved."""
     bad = {k: v for k, v in scalars.items()
            if not np.isfinite(np.asarray(v)).all()}
     if not bad:
         return
+    state_epoch = epoch if state_epoch is None else state_epoch
     dump = join(outdir, "debug_failure")
-    ckpt_util.save_ckpt(dump, epoch, state)
-    _log_scalars(dump, epoch, {"phase": phase, "non_finite": sorted(bad)})
+    ckpt_util.save_ckpt(dump, state_epoch, state)
+    _log_scalars(dump, epoch, {"phase": phase, "non_finite": sorted(bad),
+                               "state_epoch": state_epoch})
+    granularity = ("" if state_epoch == epoch else
+                   f" (scanned dispatch: the saved state is that of epoch "
+                   f"{state_epoch}, the chunk's end; rerun the window with "
+                   "epoch_scan_chunk=1 to see every epoch)")
     raise RuntimeError(
         f"{phase}: non-finite training loss at epoch {epoch}: {bad}; the "
-        f"failing state is checkpointed under {dump}. Resume from the last "
-        f"good checkpoint in {outdir} after lowering the LR or inspecting "
-        "the data")
+        f"failing state is checkpointed under {dump}{granularity}. Resume "
+        f"from the last good checkpoint in {outdir} after lowering the LR "
+        "or inspecting the data")
 
 
 def save_metas(outdir):
@@ -285,7 +438,6 @@ def train_nfr_unit(cfg: dc.DecompConfig, train_views, vali_views, outdir,
     """Phase 1: train the warm-up model. Returns (model, history), the
     model on ``device`` and the history the mean loss of each epoch."""
     device, mesh = _train_mesh(device, devices)
-    _notice_ignored(cfg)
     epochs = epochs or cfg.epochs
     seed = cfg.random_seed if seed is None else seed
     rng = np.random.RandomState(seed)
@@ -305,38 +457,122 @@ def train_nfr_unit(cfg: dc.DecompConfig, train_views, vali_views, outdir,
             start_epoch = int(state["epoch"])
             _restore_rng(state.get("rng"), rng)
 
-    def state_dict(epoch):
+    def state_dict(epoch, rng_state=None):
         return {"params": model.state_dict(), "opt_state": opt.state,
-                "epoch": epoch, "rng": _rng_state(rng)}
+                "epoch": epoch, "rng": rng_state or _rng_state(rng)}
 
-    step = start_epoch * max(len(train_views), 1)
-    history = []
-    period = cfg_ckpt_period(cfg)
-    if start_epoch < epochs:  # don't stage the store for a no-op resume
-        epoch_batches, _ = _make_batch_source(train_views, cfg, jitter_mode,
-                                              device)
-    for epoch in range(start_epoch, epochs):
-        t_epoch = time.time()
-        losses = []
-        for batch in epoch_batches(rng):
-            losses.append(step_fn(batch, step))  # stays on the device
-            step += 1
-        losses = [d["loss"] for d in _sync_scalar_dicts(losses)]
-        e1 = epoch + 1
-        mean_loss, n_skipped = _finite_mean(losses)
+    def post_epoch(e1, loss_dicts, wall_s, state_epoch=None,
+                   rng_state=None):
+        mean_loss, n_skipped = _finite_mean([d["loss"] for d in loss_dicts])
         history.append(mean_loss)
-        # the fetch above waits for the device, so wall_s is the whole epoch
+        # wall_s closes over the fetch of the losses, which waits for the
+        # device, so it is the whole epoch (the chunk's share when scanned)
         _log_scalars(outdir, e1, {"loss_train": mean_loss,
                                   "skipped_steps": n_skipped,
-                                  "wall_s": round(time.time() - t_epoch, 4)})
+                                  "wall_s": round(wall_s, 4)})
         _check_finite(outdir, "nfr_unit", e1, {"loss_train": mean_loss},
-                      state_dict(e1))
+                      state_dict(state_epoch or e1, rng_state),
+                      state_epoch=state_epoch)
         if e1 % period == 0 or e1 == epochs:
-            ckpt_util.save_ckpt(outdir, e1, state_dict(e1), keep=_keep(cfg))
+            ckpt_util.save_ckpt(outdir, e1, state_dict(e1, rng_state),
+                                keep=_keep(cfg))
             _nfr_vali(model, cfg, lxyz, lareas, vali_views,
                       _epoch_dir(outdir, e1), outdir, device)
+
+    history = []
+    period = cfg_ckpt_period(cfg)
+    _train_epochs(cfg, train_views, jitter_mode, device, mesh, rng, seed,
+                  start_epoch, epochs, period, _Steps(step_fn), post_epoch)
     save_metas(outdir)
     return model, history
+
+
+class _Steps:
+    """How ``_train_epochs`` takes the steps of nfr_unit or ref_nfr:
+    ``step_fn(batch, step)`` one at a time, or an ``EpochScan`` of it."""
+
+    def __init__(self, step_fn):
+        self.step_fn = step_fn
+
+    def __call__(self, batch, step):
+        return self.step_fn(batch, step)
+
+    def scan(self, store, rows, n_rays, sampler):
+        return dt.make_plain_epoch_scan(self.step_fn, store, rows, n_rays,
+                                        sampler=sampler)
+
+    def dispatch(self, scan, xs):
+        n = scan.stage(**xs)
+        return n, scan.run(n)
+
+
+class _VqSteps(_Steps):
+    """vq_nfr's steps: the EMA state (``ema``) threaded through them, the
+    dropout rolls drawn from ``gen``."""
+
+    def __init__(self, step_fn, ema, thres, gen):
+        super().__init__(step_fn)
+        self.ema, self.thres, self.gen = ema, thres, gen
+
+    def __call__(self, batch, step):
+        self.ema, ld = self.step_fn(self.ema, batch, self.thres, self.gen,
+                                    step)
+        return ld
+
+    def scan(self, store, rows, n_rays, sampler):
+        return dt.make_vq_epoch_scan(self.step_fn, store, rows, n_rays,
+                                     self.ema, self.thres, sampler=sampler)
+
+    def dispatch(self, scan, xs):
+        scan.load_ema(self.ema)
+        n = scan.stage(**xs, roll_gen=self.gen)
+        rows = scan.run(n)
+        self.ema = scan.ema  # updated in place by every later chunk
+        return n, rows
+
+
+def _train_epochs(cfg, train_views, jitter_mode, device, mesh, rng, seed,
+                  start_epoch, epochs, period, steps, post_epoch):
+    """The epochs of a stage-2 phase, scanned or step by step; ``steps``: a
+    ``_Steps``; ``post_epoch(e1, loss_dicts, wall_s, state_epoch,
+    rng_state)`` with the epoch's loss terms as floats."""
+    if start_epoch >= epochs:  # don't stage the store for a no-op resume
+        return
+    epoch_batches, store = _make_batch_source(train_views, cfg, jitter_mode,
+                                              device)
+    k_steps = max(len(train_views), 1)
+    step = start_epoch * k_steps
+    scan_on = _resolve_epoch_scan(cfg, store, mesh)
+    if not scan_on:
+        for epoch in range(start_epoch, epochs):
+            t_epoch = time.time()
+            loss_dicts = []
+            for batch in epoch_batches(rng):
+                loss_dicts.append(steps(batch, step))  # stays on the device
+                step += 1
+            post_epoch(epoch + 1, _sync_scalar_dicts(loss_dicts),
+                       time.time() - t_epoch)
+        return
+    sampler = _resolve_device_sampling(cfg, store, train_views, jitter_mode)
+    chunk = _resolve_scan_chunk(cfg, scan_on)
+    scan = steps.scan(store, chunk * k_steps, cfg.n_rays_per_step, sampler)
+
+    def sample_xs(n_ep):
+        before = _rng_state(rng)
+        return _epoch_scan_xs(train_views, cfg, rng, jitter_mode, step, n_ep,
+                              sampler=sampler, seed=seed), before
+
+    def dispatch(xs):
+        nonlocal step
+        n, rows = steps.dispatch(scan, xs)
+        step += n
+        return rows
+
+    def fetch(rows, n_ep):
+        return _split_epochs(_rows_to_dicts(rows, scan.keys), n_ep, k_steps)
+
+    _scan_epoch_loop(start_epoch, epochs, period, chunk, sample_xs, dispatch,
+                     fetch, post_epoch)
 
 
 @torch.inference_mode()
@@ -386,7 +622,6 @@ def train_vq_nfr(cfg: dc.DecompConfig, nfr_model, train_views, vali_views,
     """Phase 2: train the VQ model from a trained warm-up model. Returns
     (model, ema_state, history), model and state on ``device``."""
     device, mesh = _train_mesh(device, devices)
-    _notice_ignored(cfg)
     epochs = epochs or cfg.epochs
     seed = cfg.random_seed if seed is None else seed
     rng = np.random.RandomState(seed)
@@ -406,7 +641,6 @@ def train_vq_nfr(cfg: dc.DecompConfig, nfr_model, train_views, vali_views,
     model, ema_state = init_vq_nfr(torch.Generator().manual_seed(seed), cfg,
                                    nfr_model, centers)
     model = model.to(device)
-    ema_state = VqEmaState(*(t.to(device) for t in ema_state))
     opt, step_fn = dt.make_vq_nfr_step(model, cfg, lxyz, lareas, mesh=mesh)
 
     # the fixed VQ evaluation set of the drop-loss sweep
@@ -421,52 +655,48 @@ def train_vq_nfr(cfg: dc.DecompConfig, nfr_model, train_views, vali_views,
         if latest:
             state = ckpt_util.load_ckpt(latest)
             model.load_state_dict(state["params"])
-            ema_state = VqEmaState(*(t.to(device) for t in state["ema"]))
+            ema_state = state["ema"]
             opt.state = {k: v.to(device)
                          for k, v in state["opt_state"].items()}
             start_epoch = int(state["epoch"])
             _restore_rng(state.get("rng"), rng, gen)
+    steps = _VqSteps(step_fn, VqEmaState(*(t.to(device) for t in ema_state)),
+                     torch.as_tensor(cfg.train_thres(), device=device), gen)
 
-    def state_dict(epoch):
-        return {"params": model.state_dict(), "ema": ema_state,
-                "opt_state": opt.state, "epoch": epoch,
-                "rng": _rng_state(rng, gen)}
+    def state_dict(epoch, rng_state=None):
+        rng_now = _rng_state(rng, gen)
+        if rng_state:  # the host stream at the chunk's end; gen is exact
+            rng_now["numpy"] = rng_state["numpy"]
+        return {"params": model.state_dict(), "ema": steps.ema,
+                "opt_state": opt.state, "epoch": epoch, "rng": rng_now}
 
-    train_thres = torch.as_tensor(cfg.train_thres(), device=device)
     val_thres_list = cfg.val_thres_list()
     x_list = list(range(cfg.num_embed - cfg.num_drop, cfg.num_embed + 1))
-
-    step = start_epoch * max(len(train_views), 1)
     history = []
     period = cfg_ckpt_period(cfg)
-    if start_epoch < epochs:  # don't stage the store for a no-op resume
-        epoch_batches, _ = _make_batch_source(train_views, cfg, "random",
-                                              device)
-    for epoch in range(start_epoch, epochs):
-        t_epoch = time.time()
-        loss_dicts = []
-        for batch in epoch_batches(rng):
-            ema_state, ld = step_fn(ema_state, batch, train_thres, gen, step)
-            loss_dicts.append(ld)  # stays on the device
-            step += 1
-        loss_dicts = _sync_scalar_dicts(loss_dicts)
-        e1 = epoch + 1
+
+    def post_epoch(e1, loss_dicts, wall_s, state_epoch=None, rng_state=None):
         mean_loss, n_skipped = _finite_mean([d["loss"] for d in loss_dicts])
         history.append(mean_loss)
         _log_scalars(outdir, e1, {
             **{k: _finite_mean([d[k] for d in loss_dicts])[0]
                for k in loss_dicts[0]},
             "skipped_steps": n_skipped,
-            "wall_s": round(time.time() - t_epoch, 4)})
+            "wall_s": round(wall_s, 4)})
         _check_finite(outdir, "vq_nfr", e1, {"loss": mean_loss},
-                      state_dict(e1))
+                      state_dict(state_epoch or e1, rng_state),
+                      state_epoch=state_epoch)
         if e1 % period == 0 or e1 == epochs:
-            ckpt_util.save_ckpt(outdir, e1, state_dict(e1), keep=_keep(cfg))
+            ckpt_util.save_ckpt(outdir, e1, state_dict(e1, rng_state),
+                                keep=_keep(cfg))
             _vq_vali(model, cfg, lxyz, lareas, vali_views, vq_eval,
                      val_thres_list, x_list, loss_dicts,
                      _epoch_dir(outdir, e1), seed, device)
+
+    _train_epochs(cfg, train_views, "random", device, mesh, rng, seed,
+                  start_epoch, epochs, period, steps, post_epoch)
     save_metas(outdir)
-    return model, ema_state, history
+    return model, steps.ema, history
 
 
 @torch.inference_mode()
@@ -554,7 +784,6 @@ def train_ref_nfr(cfg: dc.DecompConfig, vq_model, light, train_views,
     with ``with_ref=True``. Returns (model, history), the model on
     ``device``."""
     device, mesh = _train_mesh(device, devices)
-    _notice_ignored(cfg)
     if any(v.ref is None for v in list(train_views) + list(vali_views)):
         raise ValueError("train_ref_nfr needs views loaded with "
                          "with_ref=True (the reference RGB buffer)")
@@ -579,35 +808,30 @@ def train_ref_nfr(cfg: dc.DecompConfig, vq_model, light, train_views,
             start_epoch = int(state["epoch"])
             _restore_rng(state.get("rng"), rng)
 
-    def state_dict(epoch):
+    def state_dict(epoch, rng_state=None):
         return {"params": model.state_dict(), "opt_state": opt.state,
-                "epoch": epoch, "rng": _rng_state(rng)}
+                "epoch": epoch, "rng": rng_state or _rng_state(rng)}
 
-    step = start_epoch * max(len(train_views), 1)
-    history = []
-    period = cfg_ckpt_period(cfg)
-    if start_epoch < epochs:  # don't stage the store for a no-op resume
-        epoch_batches, _ = _make_batch_source(train_views, cfg, "contrast",
-                                              device)
-    for epoch in range(start_epoch, epochs):
-        t_epoch = time.time()
-        losses = []
-        for batch in epoch_batches(rng):
-            losses.append(step_fn(batch, step))  # stays on the device
-            step += 1
-        losses = [d["loss"] for d in _sync_scalar_dicts(losses)]
-        e1 = epoch + 1
-        mean_loss, n_skipped = _finite_mean(losses)
+    def post_epoch(e1, loss_dicts, wall_s, state_epoch=None,
+                   rng_state=None):
+        mean_loss, n_skipped = _finite_mean([d["loss"] for d in loss_dicts])
         history.append(mean_loss)
         _log_scalars(outdir, e1, {"loss_train": mean_loss,
                                   "skipped_steps": n_skipped,
-                                  "wall_s": round(time.time() - t_epoch, 4)})
+                                  "wall_s": round(wall_s, 4)})
         _check_finite(outdir, "ref_nfr", e1, {"loss_train": mean_loss},
-                      state_dict(e1))
+                      state_dict(state_epoch or e1, rng_state),
+                      state_epoch=state_epoch)
         if e1 % period == 0 or e1 == epochs:
-            ckpt_util.save_ckpt(outdir, e1, state_dict(e1), keep=_keep(cfg))
+            ckpt_util.save_ckpt(outdir, e1, state_dict(e1, rng_state),
+                                keep=_keep(cfg))
             _ref_vali(model, cfg, lxyz, lareas, vali_views,
                       _epoch_dir(outdir, e1), outdir, device)
+
+    history = []
+    period = cfg_ckpt_period(cfg)
+    _train_epochs(cfg, train_views, "contrast", device, mesh, rng, seed,
+                  start_epoch, epochs, period, _Steps(step_fn), post_epoch)
     save_metas(outdir)
     return model, history
 

@@ -29,9 +29,17 @@ says otherwise; it raises when that is not there):
 
 The up-sample chain of every step, and of the validation render, runs
 through the fused SDF kernel on the card and through its plain version on
-the CPU (``use_fused_sdf=None``; see ``neus_trainer``). The JAX
-package's ``steps_per_dispatch`` has no counterpart: a value above 1 prints
-one notice, and the runner takes single steps.
+the CPU (``use_fused_sdf=None``; see ``neus_trainer``).
+
+``steps_per_dispatch`` k > 1 runs k steps a dispatch
+(``neus_trainer.make_neus_multi_step``: replays of one captured CUDA graph
+on the card), equal to k single steps bit for bit. A dispatch never
+straddles the end, the tail boundary or a grid rebuild: where k steps do
+not fit before one, the runner takes single steps, as the JAX runner does
+before the end and the boundary. The metrics of a dispatch are reduced
+over its steps; logging, checkpoints, validation and meshes fire when a
+dispatch crosses their period. The runner keeps one captured graph at a
+time: entering another phase or active capacity frees the last one.
 """
 
 import dataclasses
@@ -53,7 +61,8 @@ from ..ops.occupancy import (build_occ_grid, interior_fraction,
 from ..utils import ckpt as ckpt_util
 from ..utils.device import resolve_device
 from .loop import _sync_scalar_dicts
-from .neus_trainer import NeuSTrainConfig, make_neus_train_step
+from .neus_trainer import (NeuSTrainConfig, make_neus_multi_step,
+                           make_neus_train_step)
 
 __all__ = ["NeuSRunner"]
 
@@ -77,10 +86,6 @@ class NeuSRunner:
         self._active_cap = None
         self._image_perm = None
         self._perm_i = 0
-        if tcfg.steps_per_dispatch > 1:
-            print("[vqnerf-torch] steps_per_dispatch=%d: several steps per "
-                  "dispatch are not part of this package; training runs "
-                  "single steps" % tcfg.steps_per_dispatch)
 
         # the tail of the two-phase schedule trains under tail_sampler
         self._tail_cfg = None
@@ -107,16 +112,24 @@ class NeuSRunner:
         self._occ_built_at = -1
         self.occ_builds = []  # the steps at which the grid was rebuilt
 
-    def _step_fn(self, cap=None, tail=False):
+    def _step_fn(self, cap=None, tail=False, k=1):
+        """The step (k == 1) or the k-step dispatch of the current phase."""
         alt = bool(self._carve_alt) and not tail
-        key = (cap, tail, alt)
+        key = (cap, tail, alt) if k == 1 else (k, cap, tail, alt)
         if key not in self._fn_cache:
+            if k > 1:
+                # free the graph (and its memory pool) of the phase or cap
+                # the runner left; coming back to it captures again
+                for old in [o for o in self._fn_cache if len(o) == 4]:
+                    self._fn_cache.pop(old).graph.close()
             c = (self._tail_cfg if tail
                  else self._alt_cfg if alt else self.cfg)
             occ = self._with_occ and (not tail or self.tcfg.tail_occ)
-            _, self._fn_cache[key] = make_neus_train_step(
-                self.params, c, self.tcfg, self.radius, with_occ=occ,
-                active_cap=cap, opt=self.opt)
+            args = (self.params, c, self.tcfg, self.radius)
+            kw = dict(with_occ=occ, active_cap=cap, opt=self.opt)
+            _, self._fn_cache[key] = (
+                make_neus_train_step(*args, **kw) if k == 1
+                else make_neus_multi_step(*args, k, **kw))
         return self._fn_cache[key]
 
     def _build_occ(self):
@@ -249,9 +262,13 @@ class NeuSRunner:
             self._perm_i = self.iter_step % max(len(self._image_perm), 1)
         history = []
         tail_start = self.tail_start(end)
+        k_cfg = max(1, self.tcfg.steps_per_dispatch)
 
-        def crossed(freq):
-            return freq and self.iter_step % freq == 0
+        def crossed(freq, n):
+            """Did the steps (iter_step - n, iter_step] pass a multiple of
+            freq?"""
+            return freq and (self.iter_step // freq
+                             > (self.iter_step - n) // freq)
 
         while self.iter_step < end:
             in_tail = self.iter_step >= tail_start
@@ -259,12 +276,24 @@ class NeuSRunner:
             if use_occ:
                 self._maybe_rebuild_occ()
             cap = self._active_cap if not in_tail else None
-            metrics = self._step_fn(cap, tail=in_tail)(
-                self._host_batch(), self.iter_step,
-                occ_grid=self._occ_grid if use_occ else None,
-                generator=self.generator)
-            self.iter_step += 1
-            if crossed(log_every):
+            # a dispatch never straddles the end, the tail boundary or the
+            # next grid rebuild
+            stop = end if in_tail else min(end, tail_start)
+            if use_occ:
+                stop = min(stop, self._occ_built_at
+                           + self.tcfg.occ_update_freq)
+            k = k_cfg if stop - self.iter_step >= k_cfg else 1
+            occ_grid = self._occ_grid if use_occ else None
+            if k > 1:
+                metrics = self._step_fn(cap, tail=in_tail, k=k)(
+                    [self._host_batch() for _ in range(k)], self.iter_step,
+                    occ_grid=occ_grid, generator=self.generator)
+            else:
+                metrics = self._step_fn(cap, tail=in_tail)(
+                    self._host_batch(), self.iter_step, occ_grid=occ_grid,
+                    generator=self.generator)
+            self.iter_step += k
+            if crossed(log_every, k):
                 history.append(_sync_scalar_dicts([metrics])[0])
                 # a NaN loss with the skip marker: the guard dropped the
                 # batch and the parameters are intact
@@ -276,11 +305,12 @@ class NeuSRunner:
                         f"{history[-1]}; the failing state is saved under "
                         "debug_failure/; resume from the last good "
                         "checkpoint")
-            if crossed(self.tcfg.save_freq):
+            if crossed(self.tcfg.save_freq, k):
                 self.save_checkpoint()
-            if self.val_dataset is not None and crossed(self.tcfg.val_freq):
+            if self.val_dataset is not None and crossed(self.tcfg.val_freq,
+                                                        k):
                 self.validate_image(0)
-            if crossed(self.tcfg.mesh_freq):
+            if crossed(self.tcfg.mesh_freq, k):
                 self.validate_mesh()
         return history
 

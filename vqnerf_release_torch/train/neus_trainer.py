@@ -22,21 +22,30 @@ through the fused SDF kernel (``kernels/sdf.py::sdf_fwd``) on weights packed
 by ``pack_sdf`` once per step, before the render, from the parameters of
 that step: a pack made before an optimizer step holds the old weights.
 
-The JAX package's ``make_neus_multi_step`` folds several steps into one
-dispatch to hide the latency of its TPU link; it has no counterpart here.
+``make_neus_multi_step`` runs k steps as one dispatch, as the JAX
+package's does: the same step k times, each a replay of ONE captured CUDA
+graph (``graphed.StepGraph``; eager on the CPU), reading its batch, its
+perturbation draws (drawn beforehand from the generator, in the per-step
+order) and its schedule values (computed on the host in double, staged in
+float32) from entry i of tensors staged for the dispatch, so that k steps
+of it equal k single steps bit for bit. Its metrics are reduced over the k
+steps as the JAX package's are.
 """
 
 import math
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
 from ..kernels import sdf as sdf_kernel
 from ..models.neus import NeuSConfig, fused_sdf_enabled, neus_render
 from ..ops.occupancy import ray_occupied_span
+from .graphed import StepGraph
 
 __all__ = ["NeuSTrainConfig", "neus_lr_factor", "cos_anneal_ratio",
-           "NeuSAdam", "init_neus_opt_state", "make_neus_train_step"]
+           "NeuSAdam", "init_neus_opt_state", "make_neus_train_step",
+           "draw_step_rand", "make_neus_multi_step", "reduce_metrics"]
 
 
 @dataclass(frozen=True)
@@ -62,7 +71,7 @@ class NeuSTrainConfig:
     occ_update_freq: int = 250
     occ_margin: float = 3.0
     occ_floor: float = 0.05
-    # the JAX package's steps per dispatch; the port runs single steps
+    # steps a dispatch (make_neus_multi_step); 1 = single steps
     steps_per_dispatch: int = 1
     # per-ray-adaptive work (requires occ_res > 0): provably empty rays
     # render with a cheap empty_n_samples uniform tier
@@ -124,8 +133,9 @@ class NeuSAdam:
 
     @torch.no_grad()
     def step(self, grads, lr, loss=None):
-        """Apply one update; returns ok, a 0-dim bool tensor (False when
-        the guard skipped the step)."""
+        """Apply one update (``lr`` a float or its float32 as a 0-dim
+        tensor), the state in place; returns ok, a 0-dim bool tensor (False
+        when the guard skipped the step)."""
         st = self.state
         g = torch.cat([x.reshape(-1) for x in grads])
         ok = torch.isfinite(g).all()
@@ -140,11 +150,11 @@ class NeuSAdam:
         delta = -lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
         if self.guard:
             delta = torch.where(ok, delta, torch.zeros_like(delta))
-            st["count"] = torch.where(ok, count, st["count"])
-            st["mu"] = torch.where(ok, mu, st["mu"])
-            st["nu"] = torch.where(ok, nu, st["nu"])
-        else:
-            st.update(count=count, mu=mu, nu=nu)
+            count, mu, nu = (torch.where(ok, new, st[k]) for new, k in (
+                (count, "count"), (mu, "mu"), (nu, "nu")))
+        # in place: a CUDA graph of the step reads and writes these buffers
+        for k, new in (("count", count), ("mu", mu), ("nu", nu)):
+            st[k].copy_(new)
         torch._foreach_add_(
             self.params,
             [d.view_as(p) for d, p in zip(delta.split(self.sizes),
@@ -159,10 +169,13 @@ def make_neus_train_step(model, cfg: NeuSConfig, tcfg: NeuSTrainConfig,
     existing ``NeuSAdam`` of the model to share (the runner's step variants
     do), else a new one.
 
-    step_fn(batch, step, occ_grid=None, rand=None, generator=None) ->
-    metrics, a dict of 0-dim tensors on the device, after updating the
-    model in place. batch: rays_o / rays_d [R, 3], rgb [R, 3], mask [R, 1],
-    near / far [R, 1], valid [R, 1] (tensors on the model's device).
+    step_fn(batch, step, occ_grid=None, rand=None, generator=None,
+    lr=None, anneal=None) -> metrics, a dict of 0-dim tensors on the
+    device, after updating the model in place. ``lr`` and ``anneal`` (the
+    pair (1 - ratio, ratio)), 0-dim float32 tensors, replace the schedules
+    at ``step`` (None then). batch: rays_o / rays_d [R, 3], rgb [R, 3],
+    mask [R, 1], near / far [R, 1], valid [R, 1] (tensors on the model's
+    device).
     occ_grid is required with ``with_occ``. The perturbation comes from
     ``rand`` (pre-drawn uniforms as ``neus_render`` takes them; with
     ``active_cap`` a dict {"active": ..., "empty": ...} of one such dict a
@@ -225,12 +238,14 @@ def make_neus_train_step(model, cfg: NeuSConfig, tcfg: NeuSTrainConfig,
                   "overflow_frac": torch.relu(n_active - active_cap) / n}
         return out, batch, extras
 
-    def step_fn(batch, step, occ_grid=None, rand=None, generator=None):
+    def step_fn(batch, step, occ_grid=None, rand=None, generator=None,
+                lr=None, anneal=None):
         if with_occ and occ_grid is None:
             raise ValueError("this step takes the occupancy grid")
         if not with_occ:
             occ_grid = None
-        anneal = cos_anneal_ratio(step, tcfg)
+        if anneal is None:
+            anneal = cos_anneal_ratio(step, tcfg)
         fused = fused_sdf_enabled(use_fused_sdf, batch["rays_o"])
         # the current weights, packed once for every chain of this step
         packed = (sdf_kernel.pack_sdf(model.sdf, cfg.sdf)
@@ -264,7 +279,8 @@ def make_neus_train_step(model, cfg: NeuSConfig, tcfg: NeuSTrainConfig,
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
-        lr = tcfg.learning_rate * neus_lr_factor(step, tcfg)
+        if lr is None:
+            lr = tcfg.learning_rate * neus_lr_factor(step, tcfg)
         ok = opt.step(grads, lr, loss)
         metrics = {"loss": loss, "color_loss": color_loss,
                    "eikonal_loss": eikonal_loss, "mask_loss": mask_loss,
@@ -273,8 +289,161 @@ def make_neus_train_step(model, cfg: NeuSConfig, tcfg: NeuSTrainConfig,
         metrics = {k: v.detach() for k, v in metrics.items()}
         if opt.guard:
             metrics["nonfinite_grads"] = 1.0 - ok.to(torch.float32)
-        metrics["lr"] = torch.tensor(lr, dtype=torch.float32,
-                                     device=loss.device)
+        metrics["lr"] = (lr if torch.is_tensor(lr) else torch.tensor(
+            lr, dtype=torch.float32, device=loss.device))
         return metrics
 
     return opt, step_fn
+
+
+def _render_draws(c, rows, generator, with_grid, device):
+    """The uniforms ``neus_render`` draws for ``rows`` rays under config c,
+    in its order (see ``models.neus.neus_render``)."""
+    if c.perturb <= 0:
+        return {}
+
+    def draw(shape):
+        return torch.rand(shape, generator=generator,
+                          device=generator.device).to(device)
+
+    out = {}
+    if with_grid:
+        out["occ_u"] = draw((rows, c.n_samples))
+    else:
+        out["t_rand"] = draw((rows, 1))
+    if c.n_outside > 0:
+        out["outside"] = draw((rows, c.n_outside))
+    return out
+
+
+def draw_step_rand(generator, cfg: NeuSConfig, tcfg: NeuSTrainConfig,
+                   batch_size, with_occ=False, active_cap=None, device=None):
+    """The perturbation draws one step of ``make_neus_train_step(cfg, tcfg,
+    with_occ=, active_cap=)`` makes from ``generator``, in its order, as
+    its ``rand`` argument takes them: a step given them equals a step given
+    the generator, and leaves the generator where that step leaves it."""
+    device = device or generator.device
+    if active_cap is None:
+        return _render_draws(cfg, batch_size, generator, with_occ, device)
+    cheap = replace(cfg, n_samples=tcfg.empty_n_samples, n_importance=0,
+                    up_sample_steps=0)
+    return {"active": _render_draws(cfg, active_cap, generator, True,
+                                    device),
+            "empty": _render_draws(cheap, batch_size - active_cap,
+                                   generator, True, device)}
+
+
+def reduce_metrics(rows, keys):
+    """The metrics of k steps [k, len(keys)] (device) reduced as the JAX
+    package's multi-step reduces them: nonfinite_grads summed, lr the last
+    step's, every other metric the mean over its finite steps (the last
+    step's value when none is finite)."""
+    out = {}
+    for j, name in enumerate(keys):
+        x = rows[:, j]
+        if name == "nonfinite_grads":
+            out[name] = torch.sum(x)
+        elif name == "lr":
+            out[name] = x[-1]
+        else:
+            finite = torch.isfinite(x)
+            n = torch.sum(finite.to(torch.float32))
+            mean = (torch.sum(torch.where(finite, x, torch.zeros_like(x)))
+                    / torch.clamp(n, min=1.0))
+            out[name] = torch.where(n > 0, mean, x[-1])
+    return out
+
+
+def _flatten(tree, path=()):
+    """A nested dict of tensors -> {key path: tensor}."""
+    if not isinstance(tree, dict):
+        return {path: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, path + (k,)))
+    return out
+
+
+def _unflatten(flat):
+    out = {}
+    for path, v in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def make_neus_multi_step(model, cfg: NeuSConfig, tcfg: NeuSTrainConfig,
+                         radius, k, with_occ=False, active_cap=None, opt=None,
+                         use_fused_sdf=None):
+    """(optimizer, multi_fn): k chained steps of ``make_neus_train_step``
+    (same arguments) in one dispatch.
+
+    multi_fn(batches, base_step, occ_grid=None, generator=None) -> metrics
+    reduced over the k steps (``reduce_metrics``; 0-dim tensors on the
+    device), after updating the model in place. ``batches``: k batch dicts
+    as the single step takes them (numpy arrays or tensors), the steps
+    base_step .. base_step + k - 1. The perturbation of each step is drawn
+    from ``generator`` before the dispatch, as k single steps would draw
+    it (none without a generator)."""
+    opt, step_fn = make_neus_train_step(
+        model, cfg, tcfg, radius, with_occ=with_occ, active_cap=active_cap,
+        opt=opt, use_fused_sdf=use_fused_sdf)
+    device = next(model.parameters()).device
+    # ("batch", key), ("rand",) + key path, ("sched",): [k, ...] buffers;
+    # "occ": the grid; "drawn": whether the steps take draws
+    stage = {}
+
+    def body(i):
+        at = {name: buf.index_select(0, i.reshape(1))[0]
+              for name, buf in stage.items() if isinstance(name, tuple)}
+        rand = {name[1:]: v for name, v in at.items() if name[0] == "rand"}
+        sched = at[("sched",)]  # lr, 1 - anneal, anneal
+        return step_fn(
+            {name[1]: v for name, v in at.items() if name[0] == "batch"},
+            None, occ_grid=stage.get("occ"),
+            rand=_unflatten(rand) if rand else None, lr=sched[0],
+            anneal=(sched[1], sched[2]))
+
+    graph = StepGraph(body, device, k)
+
+    def put(name, values):
+        stacked = torch.stack([torch.as_tensor(v, dtype=torch.float32)
+                               .to(device) for v in values])
+        if name in stage:
+            stage[name].copy_(stacked)  # the graph reads this buffer
+        else:
+            stage[name] = stacked
+
+    def multi_fn(batches, base_step, occ_grid=None, generator=None):
+        if len(batches) != k:
+            raise ValueError(f"{len(batches)} batches for {k} steps")
+        if with_occ and occ_grid is None:
+            raise ValueError("this step takes the occupancy grid")
+        drawn = generator is not None
+        if stage.setdefault("drawn", drawn) != drawn:
+            raise ValueError("a dispatch with a generator and one without")
+        for key in batches[0]:
+            put(("batch", key), [b[key] for b in batches])
+        if drawn:
+            n = next(iter(batches[0].values())).shape[0]
+            draws = [_flatten(draw_step_rand(
+                generator, cfg, tcfg, n, with_occ=with_occ,
+                active_cap=active_cap, device=device)) for _ in range(k)]
+            for path in draws[0]:
+                put(("rand",) + path, [d[path] for d in draws])
+        steps = [base_step + j for j in range(k)]
+        put(("sched",), np.asarray(
+            [[tcfg.learning_rate * neus_lr_factor(s, tcfg),
+              1.0 - cos_anneal_ratio(s, tcfg), cos_anneal_ratio(s, tcfg)]
+             for s in steps], np.float32))
+        if with_occ:
+            if "occ" in stage:
+                stage["occ"].copy_(occ_grid)
+            else:
+                stage["occ"] = occ_grid.detach().clone()
+        return reduce_metrics(graph.run(k), graph.keys)
+
+    multi_fn.graph = graph
+    return opt, multi_fn
