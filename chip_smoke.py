@@ -115,7 +115,17 @@ fast-vis shadow pass.)
    float32; NeuSRunner.train from the trained checkpoint with
    steps_per_dispatch SCAN_K and with 1, across two occupancy rebuilds and
    into the tail, held bit for bit, with its peak memory; and the k-step
-   dispatch of each phase timed against single steps;
+   dispatch of each phase timed against single steps. Then the scanned
+   dispatch over a device list ("mesh" lines, mesh_scan_phase, over
+   MESH_SCAN: two entries on the one card, each on a stream of its own):
+   nfr_unit, vq_nfr and ref_nfr for MESH_EPOCHS epochs scanned in chunks
+   of 2 against step by step over the mesh, and vq_nfr over the
+   row-sharded store (device_views='shard') against 'on', each bit for bit
+   with kernel 2 once a vq_nfr step and the replays counted; kernel 2
+   inside a replay of the mesh step against its plain version; a chunk of
+   vq_nfr steps timed as mesh replays, eager over the mesh and as replays
+   on one device, the idle share of mesh replays, the peak memory and the
+   store's bytes per mesh entry;
 10. runs the port from its command line, cli.main(argv) in-process, on a
    scene of its own (write_cli_scene: the textured sphere at CLI_IMH with 3
    train and 1 val views from CLI_EYE_DIST, the stage-2 metadata and a
@@ -1013,10 +1023,25 @@ def _held(err_pairs, what):
     return "within rtol 2e-4 / atol 1e-5, max abs err %.3e" % _max_abs(pairs)
 
 
+def _busy_us(events):
+    """Microseconds in which the device ran anything: the union of the
+    device events' intervals (kernels on concurrent streams overlap, and a
+    sum of their times counts the overlap twice)."""
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
 def _profiled_idle(fn, reps):
-    """(wall ms, device-busy ms, idle share) of reps calls of fn under
-    torch.profiler; the device time is that of every CUDA kernel it saw
-    (graph replays' kernels included), None where it saw none."""
+    """(wall ms, device-busy ms, idle share, summed kernel ms) of reps calls
+    of fn under torch.profiler; device-busy is the union of the intervals
+    of every CUDA event it saw (graph replays' kernels included), the sum
+    their summed times (above the union where streams overlap); None where
+    it saw none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
@@ -1027,11 +1052,13 @@ def _profiled_idle(fn, reps):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(_self_device_us(e) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    summed = sum(_self_device_us(e) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    busy = _busy_us([e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]) / 1e3
     if busy <= 0:
-        return 1e3 * wall, None, None
-    return 1e3 * wall, busy, 1 - busy / (1e3 * wall)
+        return 1e3 * wall, None, None, None
+    return 1e3 * wall, busy, 1 - busy / (1e3 * wall), summed
 
 
 def _scan_train(cfg, trained, root, name, steps, device):
@@ -1246,7 +1273,7 @@ def scan_phase(cfg, trained, neus, root, device):
               SCAN_STEPS, 2 * cfg.n_rays_per_step, cfg.n_lights,
               ["%.3f" % t for t in ms["graph"]],
               ["%.3f" % t for t in ms["eager"]], step_held))
-    for name, (wall, busy, share) in idle.items():
+    for name, (wall, busy, share, _) in idle.items():
         print("  %s, 2 chunks under torch.profiler: %.3f ms wall, %s" % (
             name, wall, "not measured (no device time seen)" if busy is None
             else "device busy %.3f ms, idle share %.3f" % (busy, share)))
@@ -1361,7 +1388,7 @@ def scan_phase(cfg, trained, neus, root, device):
             fn = (lambda: singles(1)) if way == "single" else (
                 lambda: multis(1))
             t[way].append(_median_step_ms(fn, 1) / SCAN_STEPS)
-        wall, busy, share = _profiled_idle(lambda: multis(1), 1)
+        wall, busy, share, _ = _profiled_idle(lambda: multis(1), 1)
         print("scan: NeuS %s phase, %d steps as %d dispatches of %d "
               "against %d single steps (trained weights, the occupancy grid "
               "on): parameters and Adam state %s; kernel 3 launched %d "
@@ -1376,6 +1403,286 @@ def scan_phase(cfg, trained, neus, root, device):
                  "not measured" if busy is None else
                  "%.3f ms wall, device busy %.3f ms, idle share %.3f"
                  % (wall, busy, share)))
+    return steps
+
+
+MESH_SCAN = ("cuda:0", "cuda:0")  # two mesh entries, each on its stream
+MESH_EPOCHS = 2
+
+
+def _same_bits(pairs, what):
+    """Raises unless every pair is equal bit for bit."""
+    for i, (a, b) in enumerate(pairs):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{what}: pair {i} differs, max abs err "
+                f"{_max_abs([(a, b)])}")
+    return "equal bit for bit (%d tensors)" % len(pairs)
+
+
+def _mesh_train(cfg, views, trained, root, name, steps, device, nfr=None):
+    """nfr_unit (unless ``nfr`` is given), vq_nfr and, with ``nfr`` None,
+    ref_nfr, for MESH_EPOCHS over MESH_SCAN without validation views, each
+    a step of its own in ``steps``. Returns {phase: (model, final state,
+    per-epoch losses)} and the EMA state."""
+    out = os.path.join(root, "mesh", name)
+    mesh = list(MESH_SCAN)
+    got = {}
+    if nfr is None:
+        nfr, hist = _step(name + " nfr_unit", lambda: train_loop.train_nfr_unit(
+            cfg, views, [], out + "/nfr", device=device, devices=mesh),
+            steps, label="mesh")
+        got["nfr"] = (nfr, hist)
+    vq, ema, hist = _step(name + " vq_nfr", lambda: train_loop.train_vq_nfr(
+        cfg, nfr, views, [], out + "/vq", device=device, devices=mesh,
+        cluster_path=os.path.join(trained["vq_dir"], "cluster_centers.npy")),
+        steps, label="mesh")
+    got["vq"] = (vq, hist)
+    if "nfr" in got:
+        light = np.load(os.path.join(out, "vq", "vis_vali", "np_light.npy"))
+        got["ref"] = _step(name + " ref_nfr", lambda: train_loop.train_ref_nfr(
+            cfg, vq, light, views, [], out + "/ref", device=device,
+            devices=mesh), steps, label="mesh")
+    for ph, (model, hist) in got.items():
+        state = ckpt_util.load_ckpt(ckpt_util.latest_ckpt(
+            os.path.join(out, ph)))
+        got[ph] = (model, state, hist)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, ema
+
+
+def _phase_pairs(a, b, ph):
+    (ma, sa, _), (mb, sb, _) = a[ph], b[ph]
+    pairs = [(x, y) for x, y in zip(ma.state_dict().values(),
+                                    mb.state_dict().values())]
+    return pairs + [(sa["opt_state"][k], sb["opt_state"][k])
+                    for k in sa["opt_state"]]
+
+
+def _stashing_vq(stash):
+    """ops.vq's kernel 2, stashing its arguments and outputs as clones
+    recorded in the capturing graph (so that every replay refreshes them);
+    eager calls stash nothing."""
+    real = vq_kernel.vq_fused_train
+
+    def wrapped(*args, **kw):
+        out = real(*args, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            stash["args"] = [a.detach().clone() for a in args]
+            stash["out"] = {k: v.clone() for k, v in out.items()}
+            stash["kw"] = kw
+        return out
+    return wrapped
+
+
+def mesh_scan_phase(cfg, trained, paths, root, device):
+    """The scanned dispatch over the device list MESH_SCAN (two entries on
+    the one card, each on a stream of its own): nfr_unit, vq_nfr and
+    ref_nfr for MESH_EPOCHS epochs scanned in chunks of 2 against the same
+    runs step by step over the mesh, and vq_nfr over the row-sharded store
+    ('shard') against 'on', each bit for bit and each a step of its own
+    (launch counts set to 0 before, read after); kernel 2 inside a replay
+    of the mesh step against its plain version; a chunk of vq_nfr steps
+    timed as mesh replays, eager over the mesh and as replays on one
+    device, with the idle share of mesh replays under torch.profiler; the
+    store's bytes per mesh entry. Returns the steps."""
+    steps = {}
+    ds = ShapeDataset(paths["data_root"], paths["surf_root"],
+                      data_type="nerf", imh=cfg.imh, mode="train",
+                      with_ref=True)
+    views = [ds.load_view(f) for f in ds.files]
+    k_views = len(views)
+    base = dataclasses.replace(cfg, epochs=MESH_EPOCHS, device_views="on",
+                               total_sample_vq=SCAN_VQ_SAMPLES)
+    replays0 = graphed.REPLAYS
+    runs, emas = {}, {}
+    runs["scanned"], emas["scanned"] = _mesh_train(
+        dataclasses.replace(base, epoch_scan_chunk=2), views, trained, root,
+        "scanned", steps, device)
+    replays = graphed.REPLAYS - replays0
+    runs["per-step"], emas["per-step"] = _mesh_train(
+        dataclasses.replace(base, epoch_scan=False), views, trained, root,
+        "per-step", steps, device)
+    a, b = runs["scanned"], runs["per-step"]
+    verdicts = {ph: _same_bits(_phase_pairs(a, b, ph)
+                               + (list(zip(emas["scanned"], emas["per-step"]))
+                                  if ph == "vq" else []),
+                               "mesh %s scanned against step by step" % ph)
+                for ph in a}
+    for ph in a:
+        if a[ph][2] != b[ph][2]:
+            raise AssertionError(f"mesh {ph}: per-epoch losses {a[ph][2]} "
+                                 f"scanned, {b[ph][2]} step by step")
+    n_steps = MESH_EPOCHS * k_views
+    for name in ("scanned", "per-step"):
+        for ph, want in (("nfr_unit", 0), ("vq_nfr", n_steps),
+                         ("ref_nfr", 0)):
+            got = steps["%s %s" % (name, ph)]["launches"]["vq_fused_train"]
+            if got != want:
+                raise AssertionError(f"mesh {name} {ph}: kernel 2 launched "
+                                     f"{got} times, not {want}")
+    if replays != 3 * (n_steps - 1):
+        raise AssertionError(f"{replays} graph replays over the mesh, "
+                             f"expected {3 * (n_steps - 1)}")
+    print("mesh: nfr_unit, vq_nfr and ref_nfr over %s, %d epochs of %d "
+          "views (%d rows a step), scanned in chunks of 2 against step by "
+          "step over the mesh: %s; per-epoch losses equal (%s); %d graph "
+          "replays (one captured mesh step a phase, its first step eager); "
+          "kernel 2 launched %d times a vq_nfr run, one a step (replays "
+          "counted)" % (list(MESH_SCAN), MESH_EPOCHS, k_views,
+                        2 * cfg.n_rays_per_step,
+                        "; ".join("%s %s" % kv for kv in verdicts.items()),
+                        {ph: a[ph][2] for ph in a}, replays, n_steps))
+    print("  seconds (synchronised, the store staged, checkpoints and the "
+          "vq_nfr sweep included): %s; peak device memory %s GiB" % (
+              {k: round(v["seconds"], 3) for k, v in steps.items()},
+              {k: round(v["peak_bytes"] / 2**30, 3)
+               for k, v in steps.items()}), flush=True)
+
+    # ---- 'shard' against 'on' -------------------------------------------
+    shard, ema_sh = _mesh_train(
+        dataclasses.replace(base, epoch_scan_chunk=2, device_views="shard"),
+        views, trained, root, "shard", steps, device,
+        nfr=a["nfr"][0])
+    sh_held = _same_bits(_phase_pairs(shard, a, "vq")
+                         + list(zip(ema_sh, emas["scanned"])),
+                         "mesh vq_nfr, 'shard' against 'on'")
+    if shard["vq"][2] != a["vq"][2]:
+        raise AssertionError("mesh vq_nfr 'shard': per-epoch losses differ")
+    if steps["shard vq_nfr"]["launches"]["vq_fused_train"] != n_steps:
+        raise AssertionError("mesh vq_nfr 'shard': kernel 2 launched %d "
+                             "times" % steps["shard vq_nfr"]["launches"][
+                                 "vq_fused_train"])
+    from vqnerf_release_torch.data.device_store import store_nbytes
+    mesh = [torch.device(d) for d in MESH_SCAN]
+    sharded = DeviceViewStore(views, device, mesh=mesh, shard=True)
+    per_entry = [sum(bl[s].numel() * bl[s].element_size()
+                     for bl in sharded.shards.values())
+                 for s in range(len(mesh))]
+    whole = store_nbytes(views)
+    if per_entry != [store_nbytes(views, shards=len(mesh))] * len(mesh):
+        raise AssertionError(f"shard bytes {per_entry}")
+    scene = [views[0]] * SCAN_VIEWS_FOR_BYTES
+    print("mesh: vq_nfr over %s with device_views='shard' against 'on', "
+          "scanned: %s; per-epoch losses equal; the store's bytes per mesh "
+          "entry: 'shard' %s, 'on' %d on the first entry (the replicated "
+          "store lives there alone; the copies read their row blocks); "
+          "%d views of %dx%d with %d lights: %d B whole, %d B a card over 2, "
+          "%d B over 4" % (list(MESH_SCAN), sh_held, per_entry, whole,
+                           SCAN_VIEWS_FOR_BYTES, views[0].h, views[0].w,
+                           cfg.n_lights, store_nbytes(scene),
+                           store_nbytes(scene, shards=2),
+                           store_nbytes(scene, shards=4)), flush=True)
+    del sharded, shard, runs, emas, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- kernel 2 inside a replay of the mesh step ------------------------
+    lxyz, lareas = dc.light_constants(cfg, device)
+    store = DeviceViewStore(views, device)
+    rng = np.random.RandomState(SEED)
+    vi = [j % k_views for j in range(SCAN_STEPS)]
+    pix = np.stack([train_loop.sample_pix(views[v], cfg.n_rays_per_step, rng)
+                    for v in vi])
+    lrs = [dt.decomp_lr(j, cfg) for j in range(SCAN_STEPS)]
+    thres = torch.as_tensor(cfg.train_thres(), device=device)
+    from vqnerf_release_torch.ops import vq as ops_vq
+    stash = {}
+    ops_vq.vq_fused_train = _stashing_vq(stash)
+    try:
+        _, fn = dt.make_vq_nfr_step(copy.deepcopy(trained["vq"]), cfg, lxyz,
+                                    lareas, mesh=mesh)
+        scan = dt.make_vq_epoch_scan(fn, store, 2, cfg.n_rays_per_step,
+                                     trained["ema"], thres)
+        scan.stage(vi[:2], lrs[:2], pix=pix[:2],
+                   roll_gen=torch.Generator(device=device).manual_seed(SEED))
+        scan.run(2)  # one eager step, the capture, one replay
+    finally:
+        ops_vq.vq_fused_train = vq_kernel.vq_fused_train
+    torch.cuda.synchronize()
+    if scan.graph.replays != 1 or \
+            scan.graph.launches_per_replay["vq_fused_train"] != 1:
+        raise AssertionError("the mesh replay: %d replays, kernel 2 %d a "
+                             "replay" % (scan.graph.replays,
+                                         scan.graph.launches_per_replay[
+                                             "vq_fused_train"]))
+    err, differ, near = compare_vq_kernel(stash["out"], stash["args"],
+                                          stash["kw"], "kernel 2 in a mesh "
+                                          "replay")
+    print("mesh: kernel 2 inside a replay of the mesh vq_nfr step (%d rows "
+          "of both entries, gathered on the first) against its plain "
+          "version: (i) %d indices differ, %d rows near-ties; (ii) max abs "
+          "err %.3e (rtol %g, atol %g)" % (
+              stash["args"][1].shape[0], differ, near, err, VQ_RTOL,
+              VQ_ATOL), flush=True)
+    del scan, fn, stash
+
+    # ---- a chunk of vq_nfr steps: mesh replays, mesh eager, one device --
+    models, fns = {}, {}
+    for name, m in (("mesh graph", mesh), ("mesh eager", mesh),
+                    ("one graph", None)):
+        models[name] = copy.deepcopy(trained["vq"])
+        _, fns[name] = dt.make_vq_nfr_step(models[name], cfg, lxyz, lareas,
+                                           mesh=m)
+    scans = {name: dt.make_vq_epoch_scan(fns[name], store, SCAN_STEPS,
+                                         cfg.n_rays_per_step, trained["ema"],
+                                         thres)
+             for name in ("mesh graph", "one graph")}
+    gens = {name: torch.Generator(device=device).manual_seed(SEED)
+            for name in fns}
+    state = {"ema": VqEmaState(*(t.clone() for t in trained["ema"]))}
+
+    def eager_chunk():
+        for j in range(SCAN_STEPS):
+            state["ema"], _ = fns["mesh eager"](
+                state["ema"], store.gather(vi[j], pix[j]), thres,
+                gens["mesh eager"], j)
+
+    def scan_chunk(name):
+        scans[name].stage(vi, lrs, pix=pix, roll_gen=gens[name])
+        scans[name].run(SCAN_STEPS)
+
+    chunks = {"mesh graph": lambda: scan_chunk("mesh graph"),
+              "mesh eager": eager_chunk,
+              "one graph": lambda: scan_chunk("one graph")}
+    torch.cuda.reset_peak_memory_stats()
+    replays0 = graphed.REPLAYS
+    for fn_ in chunks.values():
+        fn_()  # the captures, and the eager chunk's first
+    step_held = _same_bits(
+        [(x, y) for x, y in zip(models["mesh graph"].state_dict().values(),
+                                models["mesh eager"].state_dict().values())]
+        + list(zip(scans["mesh graph"].ema, state["ema"])),
+        "a chunk of mesh vq_nfr steps, replayed against eager")
+    ms = {name: [] for name in chunks}
+    for name in ("mesh graph", "mesh eager", "one graph", "one graph",
+                 "mesh eager", "mesh graph"):
+        ms[name].append(_median_step_ms(chunks[name], 3) / SCAN_STEPS)
+    wall, busy, share, summed = _profiled_idle(chunks["mesh graph"], 2)
+    peak = torch.cuda.max_memory_allocated()
+    n_replays = graphed.REPLAYS - replays0
+    print("mesh: a chunk of %d vq_nfr steps (%d rows x %d lights, trained "
+          "weights, indices sampled beforehand; host clock, synchronised, "
+          "median of 3 chunks, in the order mesh graph, mesh eager, one "
+          "graph, one graph, mesh eager, mesh graph): %s ms a step replayed "
+          "over the mesh, %s ms eager over the mesh, %s ms replayed on one "
+          "device; EMA after the first chunk, replayed against eager over "
+          "the mesh: %s; 2 chunks of mesh replays under torch.profiler: %s; "
+          "%d replays in these chunks; peak device memory %d B (%.3f GiB)"
+          % (SCAN_STEPS, 2 * cfg.n_rays_per_step, cfg.n_lights,
+             ["%.3f" % t for t in ms["mesh graph"]],
+             ["%.3f" % t for t in ms["mesh eager"]],
+             ["%.3f" % t for t in ms["one graph"]], step_held,
+             "not measured (no device time seen)" if busy is None else
+             "%.3f ms wall, device busy %.3f ms (the union of the kernels' "
+             "intervals; their times summed %.3f ms: the two entries' "
+             "streams overlap), idle share %.3f"
+             % (wall, busy, summed, share), n_replays, peak, peak / 2**30),
+          flush=True)
+    del scans, fns, models, store
+    gc.collect()
+    torch.cuda.empty_cache()
     return steps
 
 
@@ -4753,6 +5060,10 @@ def main():
         scan_steps = scan_phase(cfg, trained, neus, root, device)
         print("scanned dispatch phase: %.1f s" % (time.perf_counter() - t0),
               flush=True)
+        t0 = time.perf_counter()
+        mesh_steps = mesh_scan_phase(cfg, trained, paths, root, device)
+        print("mesh scan phase: %.1f s" % (time.perf_counter() - t0),
+              flush=True)
         render_entry["launches"] = render_launches
         vq_entry["launches"] = trained["launches"]
         fwd_entry["launches"] = neus["launches"] + geo["launches"]["sdf_fwd"]
@@ -4849,6 +5160,10 @@ def main():
                    for step, st in scan_steps.items()}
         entry["scan_launches"] = sum(by_step.values())
         entry["scan_launches_by_step"] = by_step
+        by_step = {step: st["launches"][entry["name"]]
+                   for step, st in mesh_steps.items()}
+        entry["mesh_scan_launches"] = sum(by_step.values())
+        entry["mesh_scan_launches_by_step"] = by_step
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [render_entry, vq_entry, fwd_entry,
                                   fwdgrad_entry]}))

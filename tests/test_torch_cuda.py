@@ -1154,6 +1154,51 @@ def test_scanned_steps_replay_the_eager_steps(cuda_device, phase):
     """A chunk of 6 stage-2 steps through EpochScan (1 eager step, a
     capture, 5 replays) against 6 per-step calls on the gathered batches:
     parameters, optimizer state, EMA and losses bit for bit."""
+    _scanned_against_eager(cuda_device, phase, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["nfr_unit", "vq_nfr"])
+def test_mesh_scanned_steps_replay_the_eager_mesh_steps(cuda_device, phase):
+    """The same over the mesh [cuda:0, cuda:0]: every entry's work on a
+    stream of its own, forked from the capturing stream and joined back;
+    the replays give the eager mesh steps' bits, kernel 2 once a step."""
+    _scanned_against_eager(cuda_device, phase, [cuda_device, cuda_device])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_sharded_gather_inside_a_cuda_graph(cuda_device, quant):
+    """gather_at of a store row-sharded over [cuda:0, cuda:0], captured in
+    a CUDA graph and replayed on new indices, equals the replicated
+    store's gather bit for bit."""
+    from vqnerf_release_torch.data.device_store import DeviceViewStore
+    views = _graph_views(3, 24, 24, 32)  # 1731 rows: the last block padded
+    whole = DeviceViewStore(views, cuda_device, quant=quant)
+    sharded = DeviceViewStore(views, cuda_device, quant=quant,
+                              mesh=[cuda_device] * 2, shard=True)
+    assert sharded.sharded and sharded.rows_local == 866
+    vi = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    pix = torch.zeros((512,), dtype=torch.int64, device=cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        sharded.gather_at(vi, pix)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = sharded.gather_at(vi, pix)
+    rs = np.random.RandomState(3)
+    for v in (0, 1, 2, 1):
+        vi.fill_(v)
+        pix.copy_(torch.as_tensor(rs.randint(0, 24 * 24 + 1, size=512)))
+        graph.replay()
+        want = whole.gather_at(vi, pix)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (v, k)
+
+
+def _scanned_against_eager(cuda_device, phase, mesh):
     from vqnerf_release_torch.data.device_store import DeviceViewStore
     from vqnerf_release_torch.train import decomp_trainer as dt
     cfg = dc.DecompConfig(light_h=4, num_embed=6, num_drop=3, z_dim=64,
@@ -1181,15 +1226,19 @@ def test_scanned_steps_replay_the_eager_steps(cuda_device, phase):
     gens = [torch.Generator(device=cuda_device).manual_seed(5)
             for _ in range(2)]
     if phase == "nfr_unit":
-        opt_a, step_a = dt.make_nfr_unit_step(models[0], cfg, lxyz, lareas)
-        opt_b, step_b = dt.make_nfr_unit_step(models[1], cfg, lxyz, lareas)
+        opt_a, step_a = dt.make_nfr_unit_step(models[0], cfg, lxyz, lareas,
+                                              mesh=mesh)
+        opt_b, step_b = dt.make_nfr_unit_step(models[1], cfg, lxyz, lareas,
+                                              mesh=mesh)
         want = [step_a(store.gather(v, p), 3 + j)
                 for j, (v, p) in enumerate(zip(vi, pix))]
         scan = dt.make_plain_epoch_scan(step_b, store, 6,
                                         cfg.n_rays_per_step)
     else:
-        opt_a, step_a = dt.make_vq_nfr_step(models[0], cfg, lxyz, lareas)
-        opt_b, step_b = dt.make_vq_nfr_step(models[1], cfg, lxyz, lareas)
+        opt_a, step_a = dt.make_vq_nfr_step(models[0], cfg, lxyz, lareas,
+                                            mesh=mesh)
+        opt_b, step_b = dt.make_vq_nfr_step(models[1], cfg, lxyz, lareas,
+                                            mesh=mesh)
         want, ema = [], emas[0]
         for j, (v, p) in enumerate(zip(vi, pix)):
             ema, ld = step_a(ema, store.gather(v, p), thres, gens[0], 3 + j)

@@ -82,16 +82,15 @@ def test_resolve_scan_chunk_equals_jax(epochs, scan_chunk):
 
 
 def test_resolve_epoch_scan_is_jax_default():
-    """None scans iff the store is active; a device list keeps the per-step
-    path."""
+    """None scans iff the store is active, on one device and over a device
+    list alike (the store a mesh stages is a store like another)."""
     store = object()
     for want in (None, True, False):
         cfg = t_dc.DecompConfig(epoch_scan=want)
         jcfg = j_dc.DecompConfig(epoch_scan=want)
         for st in (None, store):
-            assert t_loop._resolve_epoch_scan(cfg, st, ["cpu"]) == \
+            assert t_loop._resolve_epoch_scan(cfg, st) == \
                 j_loop._resolve_epoch_scan(jcfg, st)
-        assert not t_loop._resolve_epoch_scan(cfg, store, ["cpu", "cpu"])
 
 
 # ---- training: scanned against per-step -------------------------------------

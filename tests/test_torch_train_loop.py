@@ -156,19 +156,22 @@ def test_store_gather_equals_outer_sample(scene):
 
 
 def test_batch_source_modes_give_equal_batches(scene):
-    """'auto' and 'on' gather the host path's batches bit for bit; 'u8'
-    stages lvis as uint8 (every other buffer bit for bit, lvis within
-    1/510); the 'shard' layout is refused."""
+    """'auto', 'on' and 'shard' (row-sharded over ["cpu", "cpu"]) gather
+    the host path's batches bit for bit; 'u8' stages lvis as uint8 (every
+    other buffer bit for bit, lvis within 1/510); an unknown mode is
+    refused."""
     cfgs = {m: t_dc.DecompConfig(**TRAIN, device_views=m)
-            for m in ("auto", "on", "u8", "off")}
+            for m in ("auto", "on", "u8", "shard", "off")}
     batches = {}
     for mode, cfg in cfgs.items():
         source, store = t_loop._make_batch_source(
-            scene["train"], cfg, "contrast", torch.device("cpu"))
+            scene["train"], cfg, "contrast", torch.device("cpu"),
+            ["cpu", "cpu"])
         assert (store is None) == (mode == "off")
         assert mode == "off" or store.quant == (mode == "u8")
+        assert mode == "off" or store.sharded == (mode == "shard")
         batches[mode] = list(source(np.random.RandomState(7)))
-    for mode in ("auto", "on", "u8"):
+    for mode in ("auto", "on", "u8", "shard"):
         for got, want in zip(batches[mode], batches["off"]):
             for k in want:
                 if mode == "u8" and k == "lvis":
@@ -178,7 +181,7 @@ def test_batch_source_modes_give_equal_batches(scene):
                     assert torch.equal(got[k], want[k]), (mode, k)
     with pytest.raises(ValueError, match="device_views"):
         t_loop._make_batch_source(
-            scene["train"], t_dc.DecompConfig(device_views="shard"),
+            scene["train"], t_dc.DecompConfig(device_views="sharded"),
             "random", torch.device("cpu"))
 
 

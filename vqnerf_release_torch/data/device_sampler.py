@@ -49,6 +49,9 @@ class _DeviceSampler:
             raise ValueError(f"unknown jitter_mode {jitter_mode!r}")
         if len({(v.h, v.w) for v in views}) != 1:
             raise ValueError("device sampling needs views of one shape")
+        if store.sharded:
+            raise ValueError("device sampling needs a replicated store, not "
+                             "device_views='shard'")
         h, w = views[0].h, views[0].w
         dev = store.device
         self.store = store

@@ -7,7 +7,7 @@ import numpy as np
 import torch
 
 __all__ = ["get_mesh", "shard_batch", "pad_to_multiple", "pad_rows",
-           "row_blocks"]
+           "row_blocks", "MeshStreams"]
 
 
 def get_mesh(devices=None, device_type="cuda"):
@@ -93,3 +93,35 @@ def shard_batch(batch, mesh):
                                           device=dev)
                        for k, v in batch.items()})
     return blocks, n_orig
+
+
+class MeshStreams:
+    """A CUDA stream for every entry of a mesh of CUDA devices, also where
+    entries share a card, so that each entry's work, and every copy to or
+    from its device, is ordered by events against the stream that called:
+    ``map`` forks every entry's stream from the calling stream of mesh[0],
+    runs ``fn(i)`` on entry i's stream and joins them all back. Inside a
+    CUDA graph capture this is how the further devices' work becomes part
+    of the graph (a copy to a device whose current stream is not captured
+    breaks the capture). On the CPU, or on a mesh of one entry, ``map``
+    calls ``fn(i)`` in turn on the current stream."""
+
+    def __init__(self, mesh):
+        self.mesh = list(mesh)
+        self.streams = None
+        if len(self.mesh) > 1 and self.mesh[0].type == "cuda":
+            self.streams = [torch.cuda.Stream(d) for d in self.mesh]
+
+    def map(self, fn):
+        """[fn(i) for every mesh entry i], entry i's work on its stream."""
+        if self.streams is None:
+            return [fn(i) for i in range(len(self.mesh))]
+        caller = torch.cuda.current_stream(self.mesh[0])
+        out = []
+        for i, s in enumerate(self.streams):
+            s.wait_stream(caller)
+            with torch.cuda.stream(s):
+                out.append(fn(i))
+        for s in self.streams:
+            caller.wait_stream(s)
+        return out

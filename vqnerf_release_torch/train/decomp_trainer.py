@@ -44,6 +44,14 @@ latents of all rows are gathered to the first device and the VQ runs there
 once, over the whole batch (the fused kernel on a card), so that the
 codebook EMA sees the global counts and dw; the terms that pair rows (the
 chroma-gated smoothness) or read the codebook are computed there too.
+On a card every mesh entry's work runs on a stream of its own
+(``parallel.MeshStreams``), also where entries share the card: the refresh
+of its copy, its row block's copy to its device, its forward (and so,
+autograd running a backward on its forward's stream, its backward) and the
+copies of its sums, latents and gradients to the first device, each forked
+from the calling stream and joined back to it. So the whole mesh step is
+work that a CUDA graph capture on the first device records, and the
+scanned dispatch replays it.
 """
 
 import copy
@@ -59,7 +67,7 @@ from ..models.ref_nfr import (ref_nfr_forward, ref_nfr_loss_from_sums,
 from ..models.vq_nfr import (vq_encode, vq_nfr_row_sums, vq_nfr_rows,
                              vq_nfr_train_loss)
 from ..ops.vq import VqEmaState, vq_ema_apply
-from ..parallel.mesh import shard_batch
+from ..parallel.mesh import MeshStreams, shard_batch
 from ..utils.device import resolve_device
 from .graphed import StepGraph
 
@@ -158,15 +166,24 @@ class _Replicas:
                                  for d in self.mesh[1:]]
         self.trained = [list(trained(m)) for m in self.models]
         self.lights = [(lxyz.to(d), lareas.to(d)) for d in self.mesh]
+        self.streams = MeshStreams(self.mesh)
 
-    @torch.no_grad()
-    def sync(self):
-        """Copy the model's parameters into every copy (also after a
-        resume has loaded the model)."""
-        src = list(self.models[0].parameters())
-        for m in self.models[1:]:
-            for p, q in zip(m.parameters(), src):
-                p.copy_(q)
+    def split(self, batch):
+        """The batch padded to a multiple of the mesh size and cut in row
+        blocks, all on mesh[0] (``block`` moves one to its device)."""
+        blocks, _ = shard_batch(batch, [self.mesh[0]] * len(self.mesh))
+        return blocks
+
+    def block(self, r, blocks):
+        """Row block r on its device, with copy r refreshed from the
+        model (also after a resume has loaded it): the first work of mesh
+        entry r, on its stream."""
+        if r:
+            with torch.no_grad():
+                for p, q in zip(self.models[r].parameters(),
+                                self.models[0].parameters()):
+                    p.copy_(q)
+        return {k: v.to(self.mesh[r]) for k, v in blocks[r].items()}
 
     def grads(self, loss):
         """One backward through ``loss``; the gradients of every copy's
@@ -175,26 +192,34 @@ class _Replicas:
         flat = [p for ps in self.trained for p in ps]
         got = torch.autograd.grad(loss, flat, allow_unused=True)
         n = len(self.trained[0])
+        dev0 = self.mesh[0]
+        # copy r's gradients to the first device on entry r's stream, the
+        # stream its backward ran on
+        moved = self.streams.map(lambda r: [
+            None if g is None else g.to(dev0)
+            for g in got[r * n:(r + 1) * n]])
         out = []
         for j, p in enumerate(self.trained[0]):
             g = None
-            for r in range(len(self.trained)):
-                gr = got[r * n + j]
+            for gr in (m[j] for m in moved):
                 if gr is not None:
-                    gr = gr.to(p.device)
                     g = gr if g is None else g + gr
             out.append(torch.zeros_like(p) if g is None else g)
         return out
 
 
-def _add_sums(total, sums, device):
-    """Add one block's {name: (numerator, denominator)} into ``total`` on
-    ``device``."""
-    sums = {k: (a.to(device), b.to(device)) for k, (a, b) in sums.items()}
-    if total is None:
-        return sums
-    return {k: (total[k][0] + a, total[k][1] + b)
-            for k, (a, b) in sums.items()}
+def _moved(sums, device):
+    """One block's {name: (numerator, denominator)} on ``device``."""
+    return {k: (a.to(device), b.to(device)) for k, (a, b) in sums.items()}
+
+
+def _sum_blocks(parts):
+    """The blocks' sums added up in mesh order."""
+    total = parts[0]
+    for sums in parts[1:]:
+        total = {k: (total[k][0] + a, total[k][1] + b)
+                 for k, (a, b) in sums.items()}
+    return total
 
 
 def _rows_step(model, opt, cfg, lxyz, lareas, mesh, trained, forward,
@@ -204,17 +229,20 @@ def _rows_step(model, opt, cfg, lxyz, lareas, mesh, trained, forward,
     reps = _Replicas(model, mesh, trained, lxyz, lareas)
 
     def step_fn(batch, step, lr=None):
-        reps.sync()
-        blocks, _ = shard_batch(batch, reps.mesh)
-        sums = None
-        for m, b, (lx, la) in zip(reps.models, blocks, reps.lights):
-            _, aux = forward(m, b, cfg, lx, la, mode="train")
-            sums = _add_sums(sums, row_sums(aux, cfg), reps.mesh[0])
-        loss, ld = loss_from_sums(sums)
+        blocks = reps.split(batch)
+
+        def part(r):
+            lx, la = reps.lights[r]
+            _, aux = forward(reps.models[r], reps.block(r, blocks), cfg, lx,
+                             la, mode="train")
+            return _moved(row_sums(aux, cfg), reps.mesh[0])
+
+        loss, ld = loss_from_sums(_sum_blocks(reps.streams.map(part)))
         ok = opt.step(reps.grads(loss),
                       decomp_lr(step, cfg) if lr is None else lr, loss)
         return _finish_ld(ld, ok, opt.guard)
 
+    step_fn.mesh = reps.mesh
     return step_fn
 
 
@@ -242,29 +270,35 @@ def _vq_nfr_step(model, opt, cfg, lxyz, lareas, mesh):
     def step_fn(ema_state, batch, thres, rng, step, lr=None):
         batch = dict(batch)
         roll = batch.pop("_roll", None)
-        reps.sync()
-        blocks, _ = shard_batch(batch, reps.mesh)
-        encs = [vq_encode(m, b["xyz"], cfg)
-                for m, b in zip(reps.models, blocks)]
-        whole = {k: torch.cat([b[k].to(dev0) for b in blocks])
+        blocks = reps.split(batch)
+
+        def encode(r):
+            b = reps.block(r, blocks)
+            z_enc, z_norm = vq_encode(reps.models[r], b["xyz"], cfg)
+            return b, z_enc, z_norm.to(dev0)
+
+        encs = reps.streams.map(encode)
+        whole = {k: torch.cat([b[k] for b in blocks])
                  for k in ("alpha", "rgb")}
         mask = (whole["alpha"][:, 0] > 0).to(torch.float32)
         vq_outs, new_ema = vq_ema_apply(
-            dc.get_codebook(model),
-            torch.cat([z_norm.to(dev0) for _, z_norm in encs]), ema_state,
-            commitment_cost=cfg.commitment_cost, decay=cfg.vq_decay,
-            is_training=True, thres=thres, rng=rng, mask=mask, roll=roll,
-            use_fused=dc.fused_vq_enabled(cfg, dev0))
-        sums, start = None, 0
-        for m, b, (z_enc, _), (lx, la) in zip(reps.models, blocks, encs,
-                                              reps.lights):
-            rows = slice(start, start + b["xyz"].shape[0])
-            start = rows.stop
-            dev = b["xyz"].device
+            dc.get_codebook(model), torch.cat([e[2] for e in encs]),
+            ema_state, commitment_cost=cfg.commitment_cost,
+            decay=cfg.vq_decay, is_training=True, thres=thres, rng=rng,
+            mask=mask, roll=roll, use_fused=dc.fused_vq_enabled(cfg, dev0))
+        starts = np.cumsum([0] + [b["xyz"].shape[0] for b in blocks])
+
+        def decode(r):
+            b, z_enc, _ = encs[r]
+            rows = slice(int(starts[r]), int(starts[r + 1]))
+            dev = reps.mesh[r]
+            lx, la = reps.lights[r]
             _, aux = vq_nfr_rows(
-                m, b, z_enc, vq_outs["quantize"][rows].to(dev),
+                reps.models[r], b, z_enc, vq_outs["quantize"][rows].to(dev),
                 vq_outs["encoding_indices"][rows].to(dev), cfg, lx, la)
-            sums = _add_sums(sums, vq_nfr_row_sums(aux, cfg), dev0)
+            return _moved(vq_nfr_row_sums(aux, cfg), dev0)
+
+        sums = _sum_blocks(reps.streams.map(decode))
         loss, ld = vq_nfr_train_loss(model, sums, {
             "mask": mask, "rgb_gt": whole["rgb"],
             "z_vq": vq_outs["quantize"], "vq_loss": vq_outs["loss"],
@@ -285,6 +319,7 @@ def _vq_nfr_step(model, opt, cfg, lxyz, lareas, mesh):
             model.codebook.copy_(new_cb)
         return new_ema, _finish_ld(ld, ok, opt.guard)
 
+    step_fn.mesh = reps.mesh
     return step_fn
 
 
@@ -411,7 +446,7 @@ def make_plain_epoch_scan(step_fn, store, rows, n_rays, sampler=None):
     def body(i):
         return step_fn(scan.batch(i), None, lr=scan.lr_at(i))
 
-    scan.graph = StepGraph(body, store.device, rows)
+    scan.graph = StepGraph(body, store.device, rows, mesh=step_fn.mesh)
     return scan
 
 
@@ -443,5 +478,5 @@ def make_vq_epoch_scan(step_fn, store, rows, n_rays, ema_state, thres,
         scan.load_ema(new_ema)
         return ld
 
-    scan.graph = StepGraph(body, store.device, rows)
+    scan.graph = StepGraph(body, store.device, rows, mesh=step_fn.mesh)
     return scan

@@ -24,6 +24,14 @@ reallocated while it lives. A capture that fails raises; nothing falls back
 to the eager path. On the CPU (the caller asked for it) the same body runs
 eagerly, step by step.
 
+Over a mesh (``mesh``, the devices the step's work runs on, the first
+being ``device``) the body forks a stream for every mesh entry from the
+capturing stream and joins it back (``parallel.MeshStreams``), so that the
+graph holds every entry's work and every copy between devices. The
+allocations that the capture makes on a further card go to the graph's
+pool as those on ``device`` do; a mesh whose entries share one card (the
+only kind this was run on) has none.
+
 Nothing random may be drawn inside the body: the callers draw from their
 generators before a dispatch, in the order the per-step path draws, and
 stage the draws.
@@ -70,10 +78,14 @@ class StepGraph:
     the module docstring. ``run(n)`` takes n steps and returns ``out[:n]``
     on the device (not synchronised)."""
 
-    def __init__(self, body, device, rows):
+    def __init__(self, body, device, rows, mesh=None):
         self.body = body
         self.device = torch.device(device)
         self.rows = rows
+        # further cards the step allocates on (their index)
+        self._others = sorted({d.index for d in map(torch.device, mesh or ())
+                               if d.type == "cuda" and d != self.device})
+        self._pool = None
         self.counter = torch.zeros((), dtype=torch.int64, device=self.device)
         self.keys = None
         self.out = None
@@ -103,9 +115,18 @@ class StepGraph:
         current.wait_stream(side)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
+        if self._others:  # one pool id for the graph on every card
+            self._pool = torch.cuda.graph_pool_handle()
         try:
-            with torch.cuda.graph(graph):
-                self._step()
+            with torch.cuda.device(self.device), torch.cuda.graph(
+                    graph, pool=self._pool):
+                for i in self._others:
+                    torch._C._cuda_beginAllocateToPool(i, self._pool)
+                try:
+                    self._step()
+                finally:
+                    for i in self._others:
+                        torch._C._cuda_endAllocateToPool(i, self._pool)
         except Exception as e:
             raise RuntimeError(
                 "capturing the training step as a CUDA graph failed; the "
@@ -124,6 +145,8 @@ class StepGraph:
         captures again)."""
         if self.graph is not None:
             self.graph.reset()
+            for i in self._others:
+                torch._C._cuda_releasePool(i, self._pool)
         self.graph = None
         self._pinned = ()
 

@@ -32,8 +32,9 @@ equal bit for bit. The next chunk's host sampling overlaps the replays. The
 divergence guard fires at the end of a chunk, on the state of that end.
 ``device_sampling`` (opt-in) samples the rays on the device instead
 (``data/device_sampler.py``): a different stream, equally distributed.
-``epoch_scan=False``, views not staged, or a device list of more than one
-device take the per-step dispatch.
+``epoch_scan=False`` or views not staged take the per-step dispatch. Over a
+device list the scan is the same: the captured step is the mesh step, with
+every device's work forked from the capturing stream and joined back.
 
 A checkpoint also holds the states of both random streams (for the scanned
 dispatch, the state at the chunk's end, before the next chunk was sampled),
@@ -103,22 +104,25 @@ def _device_batch(batch, device):
             for k, v in batch.items()}
 
 
-def _make_batch_source(train_views, cfg, jitter_mode, device):
+def _make_batch_source(train_views, cfg, jitter_mode, device, mesh=None):
     """(epoch_batches, store). cfg.device_views: 'auto' stages the views on
     the device when they are of one shape and fit its memory budget, 'on'
     forces that, 'u8' forces it with lvis stored as uint8 (within 1/510;
     an opt-in because the batches are then no longer equal to the host
-    path's), 'off' gathers every batch on the host and copies it over.
-    With 'auto', 'on' and 'off' the batches are equal bit for bit; store is
-    None on the host path."""
+    path's), 'shard' row-shards the store over ``mesh`` (the first device
+    ``device``; each device holds 1/n of the rows and the gather selects
+    every row from the device that owns it, so the batches are equal bit
+    for bit; on one device the same as 'on'), 'off' gathers every batch on
+    the host and copies it over. With 'auto', 'on', 'shard' and 'off' the
+    batches are equal bit for bit; store is None on the host path."""
     mode = cfg.device_views or "off"
-    if mode not in ("auto", "on", "u8", "off"):
-        raise ValueError("device_views must be 'auto', 'on', 'u8' or 'off', "
-                         "got %r (the 'shard' layout over a mesh is not part "
-                         "of this package)" % mode)
+    if mode not in ("auto", "on", "u8", "shard", "off"):
+        raise ValueError("device_views must be 'auto', 'on', 'u8', "
+                         "'shard' or 'off', got %r" % mode)
     store = None
-    if train_views and mode in ("on", "u8"):
-        store = DeviceViewStore(train_views, device, quant=mode == "u8")
+    if train_views and mode in ("on", "u8", "shard"):
+        store = DeviceViewStore(train_views, device, quant=mode == "u8",
+                                mesh=mesh, shard=mode == "shard")
     elif train_views and mode == "auto":
         if not views_compatible(train_views):
             print("[vqnerf-torch] device_views=auto: heterogeneous views; "
@@ -146,15 +150,10 @@ def _make_batch_source(train_views, cfg, jitter_mode, device):
     return epoch_batches, store
 
 
-def _resolve_epoch_scan(cfg, store, mesh):
-    """cfg.epoch_scan: None = auto (scan iff the store is active); one
-    device only."""
+def _resolve_epoch_scan(cfg, store):
+    """cfg.epoch_scan: None = auto (scan iff the store is active), on one
+    device or a device list alike."""
     want = cfg.epoch_scan
-    if len(mesh) > 1:
-        if want or (want is None and store is not None):
-            print("[vqnerf-torch] epoch_scan over a device list is not part "
-                  "of this package; dispatching step by step")
-        return False
     if want is None:
         return store is not None
     if want and store is None:
@@ -222,6 +221,8 @@ def _resolve_device_sampling(cfg, store, train_views, jitter_mode):
     why = None
     if store is None:
         why = "the scanned device-store dispatch is not active"
+    elif store.sharded:
+        why = "device_views='shard' keeps the host index stream"
     elif len({(v.h, v.w) for v in train_views}) != 1:
         why = "views have heterogeneous shapes"
     if why:
@@ -539,10 +540,10 @@ def _train_epochs(cfg, train_views, jitter_mode, device, mesh, rng, seed,
     if start_epoch >= epochs:  # don't stage the store for a no-op resume
         return
     epoch_batches, store = _make_batch_source(train_views, cfg, jitter_mode,
-                                              device)
+                                              device, mesh)
     k_steps = max(len(train_views), 1)
     step = start_epoch * k_steps
-    scan_on = _resolve_epoch_scan(cfg, store, mesh)
+    scan_on = _resolve_epoch_scan(cfg, store)
     if not scan_on:
         for epoch in range(start_epoch, epochs):
             t_epoch = time.time()
