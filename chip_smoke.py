@@ -10,10 +10,12 @@ fast-vis shadow pass.)
 2. builds the three CUDA sources of csrc/ and the SDF source once more as
    the design before (one accumulator; for a reading in 8), four nvcc
    processes side by side (four kernels, the render kernel in four
-   instances), and prints the
+   instances), and the host sampler's library (csrc/fastloader.cpp, the
+   host compiler) beside them, and prints the
    build time, ptxas' register and spill counts, and the count of
    tensor-core instructions (HGMMA / HMMA) that cuobjdump -sass finds in
-   the SDF library, which must not be 0;
+   the SDF library, which must not be 0, and the host library's build
+   seconds, compiler and version and its OpenMP thread count;
 3. writes a synthetic sphere scene in the reference layout to a temporary
    directory: 4 train and 2 val views of 512x512 rays with 512-light lvis,
    the vis_comps GT-albedo mirror and 16 probe .hdr files (the first 8
@@ -125,7 +127,18 @@ fast-vis shadow pass.)
    inside a replay of the mesh step against its plain version; a chunk of
    vq_nfr steps timed as mesh replays, eager over the mesh and as replays
    on one device, the idle share of mesh replays, the peak memory and the
-   store's bytes per mesh entry;
+   store's bytes per mesh entry. Then the host sampler ("host sampler"
+   lines, host_sampler_phase; stage 2 samples natively by default,
+   VQNERF_NATIVE_SAMPLER unset): a 512x512 view's 1,024 pairs sampled in
+   both jitter modes in numpy, natively and over the pool, timed;
+   sample_view_pix_many against the serial native calls and the native
+   host gather against the store's gather at the same indices, bit for
+   bit; nfr_unit and vq_nfr for 2 epochs on the host-gather path
+   (device_views='off') with the numpy sampler and natively with the
+   prefetch, each with its epoch walls and its idle share under
+   torch.profiler, kernel 2 once a vq_nfr step, finite losses and
+   checkpoints equal to the returned state; nfr_unit for 4 epochs
+   natively sampled, scanned against step by step, bit for bit;
 10. runs the port from its command line, cli.main(argv) in-process, on a
    scene of its own (write_cli_scene: the textured sphere at CLI_IMH with 3
    train and 1 val views from CLI_EYE_DIST, the stage-2 metadata and a
@@ -239,7 +252,9 @@ fast-vis shadow pass.)
    edit_video_launches_by_step, those of step 11; eval_import_launches
    and eval_import_launches_by_step, those of step 12; capture_launches
    and capture_launches_by_step, those of step 13; final_launches and
-   final_launches_by_step, those of step 14), and as the last line
+   final_launches_by_step, those of step 14; host_sampler_launches and
+   host_sampler_launches_by_step, those of the host sampler lines of step
+   9), and as the last line
    {"ok": true, "device": {...}}.
 
 Cuts, all of scale and none of width: 4 train views and 1 validation view
@@ -262,6 +277,7 @@ Any failure raises and exits non-zero; without CUDA it exits 1 before doing
 anything.
 """
 
+import contextlib
 import copy
 import csv
 import dataclasses
@@ -287,6 +303,7 @@ import torch
 from vqnerf_release_torch import cli
 from vqnerf_release_torch import config as vcfg
 from vqnerf_release_torch.data import io as vio
+from vqnerf_release_torch.data import native
 from vqnerf_release_torch.data.device_store import DeviceViewStore
 from vqnerf_release_torch.data.sampler import build_vq_eval_set, outer_sample
 from vqnerf_release_torch.data.shape_dataset import ShapeDataset
@@ -622,25 +639,47 @@ def kernel_inputs(vq, cfg, batch, lxyz, lareas):
                                      rough, spec, lvis)] + [packed]
 
 
+def _build_host_sampler():
+    """(the host sampler's library, its build's seconds), loaded."""
+    t0 = time.perf_counter()
+    so, _ = kbuild.build_host(kbuild.CSRC_DIR / "fastloader.cpp",
+                              "fastloader")
+    seconds = time.perf_counter() - t0
+    native.native_available()
+    return so, seconds
+
+
 def build_kernels():
     """Build the three sources and the SDF kernels' one-accumulator
-    variant, one nvcc process each, side by side."""
+    variant, one nvcc process each, and the host sampler's library, side
+    by side."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         jobs = {"render": pool.submit(render_kernel.build),
                 "vq": pool.submit(vq_kernel.build),
                 "sdf": pool.submit(sdf_kernel.build),
                 # the SDF kernels' design before, for the accuracy reading
                 "sdf, one accumulator": pool.submit(sdf_kernel.build,
-                                                    SDF_ONE_ACC_FLAGS)}
+                                                    SDF_ONE_ACC_FLAGS),
+                "host sampler": pool.submit(_build_host_sampler)}
         built = {name: job.result() for name, job in jobs.items()}
-    print("kernel builds: %.3f s for the three sources and a variant"
+    host = built.pop("host sampler")
+    print("kernel builds: %.3f s for the three sources, a variant and the "
+          "host library"
           % (time.perf_counter() - t0))
     for name, (so, log) in built.items():
         print("  %s -> %s" % (name, so.name))
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("    ptxas:", line.strip())
+    cxx = kbuild.host_compiler()
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[0]
+    print("  host sampler (csrc/fastloader.cpp) -> %s: %.3f s by %s (%s); "
+          "OpenMP threads %s (omp_get_max_threads of its runtime), torch "
+          "intra-op threads %d"
+          % (host[0].name, host[1], cxx, version, native.openmp_threads(),
+             torch.get_num_threads()))
     n_mma = sdf_kernel.tensor_core_instructions(built["sdf"][0])
     print("  sdf: %d tensor-core instructions (HGMMA / HMMA) in cuobjdump "
           "-sass of %s" % (n_mma, built["sdf"][0].name))
@@ -1681,6 +1720,181 @@ def mesh_scan_phase(cfg, trained, paths, root, device):
              % (wall, busy, summed, share), n_replays, peak, peak / 2**30),
           flush=True)
     del scans, fns, models, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    return steps
+
+
+HOST_SCAN_EPOCHS = 4  # the native scanned run against step by step
+HOST_REPS = 5  # timed sampling calls, the median taken
+
+
+@contextlib.contextmanager
+def _sampler_env(value):
+    """VQNERF_NATIVE_SAMPLER set to ``value`` (None: unset, the default
+    native route) for the block, restored after."""
+    old = os.environ.get("VQNERF_NATIVE_SAMPLER")
+    if value is None:
+        os.environ.pop("VQNERF_NATIVE_SAMPLER", None)
+    else:
+        os.environ["VQNERF_NATIVE_SAMPLER"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("VQNERF_NATIVE_SAMPLER", None)
+        else:
+            os.environ["VQNERF_NATIVE_SAMPLER"] = old
+
+
+def _median_host_ms(fn, reps=HOST_REPS):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def _host_gather_train(name, fn, out, steps):
+    """fn() (a trainer of EPOCHS epochs on the host-gather path, writing to
+    ``out``) as the step ``name``, under torch.profiler; returns (fn's
+    result, the epoch walls of its log, the profiler's reading)."""
+    got = {}
+    _step(name, lambda: got.__setitem__(
+        "idle", _profiled_idle(lambda: got.__setitem__("out", fn()), 1)),
+        steps, label="host sampler")
+    return got["out"], [r["wall_s"] for r in _check_log(out, name)], \
+        got["idle"]
+
+
+def host_sampler_phase(cfg, trained, root, device):
+    """The host sampler (data/native.py over csrc/fastloader.cpp, the JAX
+    package's default stage-2 data path) on the train views at DecompConfig
+    widths: a view's sampling timed in both jitter modes in numpy, natively
+    and over the pool; the pool against serial native calls and the native
+    host gather against the store's gather at the same indices, bit for
+    bit; nfr_unit and vq_nfr for EPOCHS on the host-gather path
+    (device_views='off'), with the numpy sampler and natively with the
+    prefetch, each a step (launch counts set to 0 before, read after) with
+    its epoch walls and idle share; nfr_unit for HOST_SCAN_EPOCHS scanned
+    with native sampling against step by step, bit for bit. Returns the
+    steps."""
+    steps = {}
+    views = trained["train_views"]
+    n = cfg.n_rays_per_step
+    view = views[0]
+    for mode in ("contrast", "random"):
+        rs = np.random.RandomState(SEED)
+        ms = {"numpy": _median_host_ms(lambda: train_loop.sample_pix(
+            view, n, rs, jitter_mode=mode))}
+        with _sampler_env(None):
+            ms["native"] = _median_host_ms(lambda: train_loop.sample_view_pix(
+                view, n, rs, jitter_mode=mode))
+            ms["pool"] = _median_host_ms(
+                lambda: train_loop.sample_view_pix_many(
+                    views, n, rs, jitter_mode=mode)) / len(views)
+        print("host sampler, %s jitter, %dx%d view, %d pairs (host clock, "
+              "median of %d): numpy sample_pix %.3f ms, native serial %.3f "
+              "ms, sample_view_pix_many over %d views %.3f ms a view"
+              % (mode, view.h, view.w, n, HOST_REPS, ms["numpy"],
+                 ms["native"], len(views), ms["pool"]), flush=True)
+
+    # the pool and the native gather against their references, bit for bit
+    store = DeviceViewStore(views, device)
+    with _sampler_env(None):
+        for mode in ("contrast", "random"):
+            rs_a, rs_b = (np.random.RandomState(SEED + 1) for _ in range(2))
+            many = train_loop.sample_view_pix_many(views, n, rs_a,
+                                                   jitter_mode=mode)
+            serial = [train_loop.sample_view_pix(v, n, rs_b, jitter_mode=mode)
+                      for v in views]
+            if not all(np.array_equal(a, b) for a, b in zip(many, serial)) \
+                    or not np.array_equal(rs_a.get_state()[1],
+                                          rs_b.get_state()[1]):
+                raise AssertionError(f"sample_view_pix_many ({mode}) left "
+                                     "the serial native calls")
+        rs_a, rs_b = (np.random.RandomState(SEED + 2) for _ in range(2))
+        flat = train_loop.sample_view_pix(view, n, rs_b)
+        host = train_loop.outer_sample(view, n, rs_a)
+        gather_ms = {"native": _median_host_ms(
+            lambda: native.gather_batch(view, flat))}
+    on_card = store.gather(0, flat)
+    if set(host) != set(on_card) or not all(
+            np.array_equal(host[k], on_card[k].cpu().numpy()) for k in host):
+        raise AssertionError("the native outer_sample batch differs from the "
+                             "store's gather at the same indices")
+    gather_ms["numpy"] = _median_host_ms(lambda: {
+        k: getattr(view, k).reshape(view.h * view.w, -1)[flat]
+        for k in host})
+    print("host sampler: sample_view_pix_many equals the serial native calls "
+          "in both modes and leaves the same RandomState; the native "
+          "outer_sample batch (%d rows, %d buffers, %d floats a row) equals "
+          "store.gather at the same indices bit for bit; the host gather of "
+          "those rows %.3f ms native, %.3f ms numpy indexing (median of %d)"
+          % (len(flat), len(host), sum(v.shape[1] for v in host.values()),
+             gather_ms["native"], gather_ms["numpy"], HOST_REPS), flush=True)
+    del store, on_card
+    torch.cuda.empty_cache()
+
+    # stage 2 on the host-gather path: numpy sampling, then native with the
+    # prefetch thread
+    off = dataclasses.replace(cfg, epochs=EPOCHS, device_views="off",
+                              total_sample_vq=SCAN_VQ_SAMPLES)
+    n_steps = EPOCHS * len(views)
+    for name, env in (("numpy", "0"), ("native", None)):
+        out = os.path.join(root, "host", name)
+        with _sampler_env(env):
+            (nfr, h1), walls1, idle1 = _host_gather_train(
+                name + " nfr_unit", lambda: train_loop.train_nfr_unit(
+                    off, views, [], out + "/nfr_unit", device=device),
+                out + "/nfr_unit", steps)
+            (vq, ema, h2), walls2, idle2 = _host_gather_train(
+                name + " vq_nfr", lambda: train_loop.train_vq_nfr(
+                    off, nfr, views, [], out + "/vq_nfr", device=device),
+                out + "/vq_nfr", steps)
+        got = [steps[name + ph]["launches"]["vq_fused_train"]
+               for ph in (" nfr_unit", " vq_nfr")]
+        if got != [0, n_steps]:
+            raise AssertionError("%s host-gather runs: kernel 2 launched %s "
+                                 "times, want [0, %d]" % (name, got, n_steps))
+        if not np.isfinite(h1 + h2).all():
+            raise AssertionError(f"{name} host-gather runs: losses {h1} {h2}")
+        _check_ckpt(out + "/nfr_unit", nfr, n_steps)
+        _check_ckpt(out + "/vq_nfr", vq, n_steps, ema)
+        for ph, walls, (wall, busy, share, _) in (
+                ("nfr_unit", walls1, idle1), ("vq_nfr", walls2, idle2)):
+            print("host sampler, %s sampling, %s on the host-gather path "
+                  "(device_views='off'), %d epochs of %d steps: epoch wall %s "
+                  "s; the whole call under torch.profiler %.3f ms wall, %s"
+                  % (name, ph, EPOCHS, len(views), walls, wall,
+                     "device busy not measured (no device time seen)"
+                     if busy is None else "device busy %.3f ms, idle share "
+                     "%.3f" % (busy, share)), flush=True)
+        del nfr, vq, ema
+
+    # the native scanned dispatch against the native per-step one
+    models = {}
+    for name, kw in (("scanned", dict(epoch_scan_chunk=2)),
+                     ("per-step", dict(epoch_scan=False))):
+        c = dataclasses.replace(cfg, epochs=HOST_SCAN_EPOCHS,
+                                device_views="on", **kw)
+        out = os.path.join(root, "host", "scan_" + name)
+        with _sampler_env(None):
+            models[name] = _step("nfr_unit native " + name,
+                                 lambda: train_loop.train_nfr_unit(
+                                     c, views, [], out, device=device),
+                                 steps, label="host sampler")
+    (a, ha), (b, hb) = models["scanned"], models["per-step"]
+    same = ha == hb and all(torch.equal(x, y) for x, y in zip(
+        a.state_dict().values(), b.state_dict().values()))
+    print("host sampler: nfr_unit for %d epochs, natively sampled, scanned "
+          "(the pool) against step by step (the prefetch): equal bit for "
+          "bit %s; epoch losses %s" % (HOST_SCAN_EPOCHS, same, ha),
+          flush=True)
+    if not same:
+        raise AssertionError("the native scanned nfr_unit run left the "
+                             "native per-step run")
     gc.collect()
     torch.cuda.empty_cache()
     return steps
@@ -5064,6 +5278,10 @@ def main():
         mesh_steps = mesh_scan_phase(cfg, trained, paths, root, device)
         print("mesh scan phase: %.1f s" % (time.perf_counter() - t0),
               flush=True)
+        t0 = time.perf_counter()
+        host_steps = host_sampler_phase(cfg, trained, root, device)
+        print("host sampler phase: %.1f s" % (time.perf_counter() - t0),
+              flush=True)
         render_entry["launches"] = render_launches
         vq_entry["launches"] = trained["launches"]
         fwd_entry["launches"] = neus["launches"] + geo["launches"]["sdf_fwd"]
@@ -5164,6 +5382,10 @@ def main():
                    for step, st in mesh_steps.items()}
         entry["mesh_scan_launches"] = sum(by_step.values())
         entry["mesh_scan_launches_by_step"] = by_step
+        by_step = {step: st["launches"][entry["name"]]
+                   for step, st in host_steps.items()}
+        entry["host_sampler_launches"] = sum(by_step.values())
+        entry["host_sampler_launches_by_step"] = by_step
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [render_entry, vq_entry, fwd_entry,
                                   fwdgrad_entry]}))

@@ -13,9 +13,13 @@ per-step path and the JAX package:
     sharded gather (float32 and u8) over 2 and 3 devices, and each entry
     holds 1/n of the rows;
   * ``device_sampling`` over a sharded store samples on the host, with
-    JAX's notice.
+    JAX's notice;
+  * a vq_nfr step over ["cpu"] * 3 at 7 pairs, whose 14 rows pad to an odd
+    15 where the JAX package fails, pads to 18 and equals the one-device
+    step on those 18 rows.
 """
 
+import copy
 import os
 
 import jax
@@ -24,7 +28,7 @@ import pytest
 import torch
 
 from tests.test_data_layer import _make_synth_scene
-from tests.test_torch_models import SMALL
+from tests.test_torch_models import SMALL, batch_np
 from vqnerf_release_tpu.data import device_store as j_store
 from vqnerf_release_tpu.models import decomp_common as j_dc
 from vqnerf_release_tpu.parallel import get_mesh as j_get_mesh
@@ -34,12 +38,21 @@ from vqnerf_release_torch.data.device_sampler import make_device_sampler
 from vqnerf_release_torch.data.sampler import sample_pix
 from vqnerf_release_torch.data.shape_dataset import ShapeDataset
 from vqnerf_release_torch.models import decomp_common as t_dc
+from vqnerf_release_torch.models.nfr_unit import init_nfr_unit
+from vqnerf_release_torch.models.vq_nfr import init_vq_nfr
+from vqnerf_release_torch.ops.vq import init_vq_ema_state
+from vqnerf_release_torch.parallel.mesh import pad_rows
+from vqnerf_release_torch.train import decomp_trainer as t_dt
 from vqnerf_release_torch.train import loop as t_loop
 from vqnerf_release_torch.utils import ckpt as t_ckpt
 
 TRAIN = dict(SMALL, epochs=2, n_rays_per_step=16, total_sample_vq=64)
 MESH2 = ["cpu", "cpu"]
 MESH3 = ["cpu"] * 3
+# a step over a device list against one device: the mesh tests' tolerance
+# (tests/test_torch_parallel.py; the sums over the blocks add in another
+# order)
+RTOL, ATOL = 2e-4, 1e-5
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -223,3 +236,47 @@ def test_preset_override_stages_the_sharded_store(scene):
                                          torch.device("cpu"), MESH2)
     assert store.sharded and [b.shape[0] for b in store.shards["lvis"]] \
         == [257, 257]
+
+
+# ---- vq_nfr over an odd mesh ------------------------------------------------
+
+def test_vq_nfr_step_over_three_entries_at_an_odd_padded_count():
+    """7 pairs are 14 rows; over 3 entries they pad to 15, an odd count
+    whose pair terms ([::2] against [1::2]) cannot pair up (the JAX
+    package fails there). The step pads 3 more alpha-0 rows, to 18, and
+    equals the one-device step on the same 18 rows."""
+    cfg = t_dc.DecompConfig(**SMALL)
+    assert cfg.mat_sloss_weight > 0  # the pair terms run
+    gen = torch.Generator().manual_seed(0)
+    centers = np.random.RandomState(0).rand(cfg.num_embed, cfg.z_dim)
+    vq0, _ = init_vq_nfr(gen, cfg, init_nfr_unit(gen, cfg),
+                         centers.astype(np.float32))
+    lxyz, lareas = t_dc.light_constants(cfg, "cpu")
+    thres = torch.as_tensor(cfg.train_thres())
+    batch = {k: torch.from_numpy(v)
+             for k, v in batch_np(14, cfg.n_lights, seed=9).items()}
+    roll = torch.rand((1, cfg.num_embed), generator=gen)
+    got = {}
+    for name, mesh, b in (("three", MESH3, batch),
+                          ("one", None, pad_rows(batch, 4))):
+        model = copy.deepcopy(vq0)
+        opt, step = t_dt.make_vq_nfr_step(model, cfg, lxyz, lareas,
+                                          mesh=mesh)
+        ema, ld = step(init_vq_ema_state(cfg.z_dim, cfg.num_embed),
+                       dict(b, _roll=roll), thres, None, 0)
+        got[name] = (model, opt, ema, ld)
+    (m1, o1, e1, l1), (m3, o3, e3, l3) = got["one"], got["three"]
+    assert float(l3["nonfinite_grads"]) == 0.0
+    assert set(l1) == set(l3) and "chr_smooth" in l3
+    for k in l1:
+        np.testing.assert_allclose(float(l3[k]), float(l1[k]), rtol=RTOL,
+                                   atol=ATOL, err_msg=k)
+    for (k, x), y in zip(m3.state_dict().items(), m1.state_dict().values()):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=k)
+    for k in ("m", "v", "vhat"):
+        np.testing.assert_allclose(o3.state[k].numpy(), o1.state[k].numpy(),
+                                   rtol=RTOL, atol=ATOL, err_msg=k)
+    for a, b, name in zip(e3, e1, e1._fields):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)

@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Each kernel is one ``csrc/*.cu`` with a plain C interface. ``nvcc`` compiles
 it for ``sm_90a`` into a shared library under
 ``vqnerf_release_torch/_build/``, at first use, under a name keyed by a hash
-of the source and the flags; ``ctypes`` loads it. A failed build raises with
-the compiler's output.
+of the source and the flags; ``ctypes`` loads it. The host sampler
+(``csrc/fastloader.cpp``) is built the same way by the host compiler
+(``build_host``: ``$CXX``, else ``g++``). A failed build raises with the
+compiler's output.
 """
 
 import ctypes
@@ -15,7 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load",
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "HOST_CXX_FLAGS",
+           "HOST_LIBS", "build", "build_host", "host_compiler", "load",
            "check_tensor", "check_tensors", "count_sass", "sass_functions",
            "sass_inner_loop"]
 
@@ -25,6 +28,13 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the JAX package's native/fastloader Makefile flags without -march=native
+# (a library is keyed by its source and flags, not by the machine), the
+# compile and the link apart: the link names OpenMP's runtime itself, as
+# -fopenmp would, since a relocated g++ may compile OpenMP but lack its
+# own libgomp.spec, which -fopenmp reads at the link
+HOST_CXX_FLAGS = ("-O3", "-fPIC", "-fopenmp", "-std=c++17")
+HOST_LIBS = ("-pthread", "-l:libgomp.so.1")
 
 
 def _tool(name):
@@ -97,28 +107,74 @@ def sass_inner_loop(instructions, marker):
     return max((l[2] for l in inner), key=len, default=[])
 
 
-def build(source, stem, extra_flags=()):
-    """Compile ``source`` unless the library of this source and these flags
-    exists.
+def _run(cmd):
+    """Run a compiler command; its output, or RuntimeError with it."""
+    proc = subprocess.run([str(c) for c in cmd], capture_output=True,
+                          text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"{os.path.basename(str(cmd[0]))} failed "
+                           f"({proc.returncode}): "
+                           f"{' '.join(str(c) for c in cmd)}\n{log}")
+    return log
 
-    Returns (path of the .so, compiler output; empty if nothing was
-    built). Raises RuntimeError with nvcc's output if the build fails."""
+
+def _build(source, stem, flags, compiler, libs=None):
+    """The library of ``source`` built with ``flags`` by ``compiler()`` (a
+    function giving its path, asked only when a build is needed) unless it
+    exists; with ``libs``, compiled to an object first and linked with
+    ``-shared`` and ``libs``. Returns (path of the .so, compiler output;
+    empty if nothing was built)."""
     source = Path(source)
-    flags = [*NVCC_FLAGS, *extra_flags]
-    key = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
+    key = hashlib.sha256(source.read_bytes()
+                         + " ".join([*flags, *(libs or ())]).encode())
     so = BUILD_DIR / f"lib{stem}_{key.hexdigest()[:16]}.so"
     if so.exists():
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    cc = compiler()
+    if libs is None:
+        log = _run([cc, *flags, "-o", tmp, source])
+    else:
+        obj = so.with_suffix(f".{os.getpid()}.o")
+        try:
+            log = _run([cc, *flags, "-c", "-o", obj, source])
+            # the libraries after the object: a linker run --as-needed
+            # drops a library that no object before it uses
+            log += _run([cc, "-shared", "-o", tmp, obj, *libs])
+        finally:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, so)
     return so, log
+
+
+def build(source, stem, extra_flags=()):
+    """Compile the CUDA ``source`` unless the library of this source and
+    these flags exists.
+
+    Returns (path of the .so, compiler output; empty if nothing was
+    built). Raises RuntimeError with nvcc's output if the build fails."""
+    return _build(source, stem, [*NVCC_FLAGS, *extra_flags], _nvcc)
+
+
+def host_compiler():
+    """The host C++ compiler: ``$CXX``, else ``g++``, as a path."""
+    name = os.environ.get("CXX") or "g++"
+    path = shutil.which(name)
+    if path is None:
+        raise RuntimeError(
+            f"the host C++ compiler {name!r} ($CXX, else g++) was not found; "
+            "the port's host sampler library needs it to build")
+    return path
+
+
+def build_host(source, stem):
+    """Compile the C++ ``source`` for the host (``HOST_CXX_FLAGS``, linked
+    with ``HOST_LIBS``) unless its library exists; returns and raises as
+    ``build`` does."""
+    return _build(source, stem, list(HOST_CXX_FLAGS), host_compiler,
+                  libs=HOST_LIBS)
 
 
 def load(so, functions):

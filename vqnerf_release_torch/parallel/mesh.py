@@ -112,6 +112,20 @@ class MeshStreams:
         if len(self.mesh) > 1 and self.mesh[0].type == "cuda":
             self.streams = [torch.cuda.Stream(d) for d in self.mesh]
 
+    def guard(self, tensors):
+        """Mark every CUDA tensor of ``tensors`` as in use by each entry's
+        stream on its device (``Tensor.record_stream``), so that the caching
+        allocator hands its memory to no other work before those streams
+        are done with it (a batch made on another thread, or freed before
+        the streams ran). Does nothing on the CPU, on a mesh of one entry
+        and inside a graph capture."""
+        if self.streams is None or torch.cuda.is_current_stream_capturing():
+            return
+        for t in tensors:
+            for s in self.streams:
+                if t.device == s.device:
+                    t.record_stream(s)
+
     def map(self, fn):
         """[fn(i) for every mesh entry i], entry i's work on its stream."""
         if self.streams is None:

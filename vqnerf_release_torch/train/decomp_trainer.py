@@ -67,7 +67,7 @@ from ..models.ref_nfr import (ref_nfr_forward, ref_nfr_loss_from_sums,
 from ..models.vq_nfr import (vq_encode, vq_nfr_row_sums, vq_nfr_rows,
                              vq_nfr_train_loss)
 from ..ops.vq import VqEmaState, vq_ema_apply
-from ..parallel.mesh import MeshStreams, shard_batch
+from ..parallel.mesh import MeshStreams, pad_rows, shard_batch
 from ..utils.device import resolve_device
 from .graphed import StepGraph
 
@@ -168,10 +168,20 @@ class _Replicas:
         self.lights = [(lxyz.to(d), lareas.to(d)) for d in self.mesh]
         self.streams = MeshStreams(self.mesh)
 
-    def split(self, batch):
+    def split(self, batch, even=False):
         """The batch padded to a multiple of the mesh size and cut in row
-        blocks, all on mesh[0] (``block`` moves one to its device)."""
-        blocks, _ = shard_batch(batch, [self.mesh[0]] * len(self.mesh))
+        blocks, all on mesh[0] (``block`` moves one to its device), each
+        guarded for the streams that read it. ``even``: where that multiple
+        is odd (an odd mesh size), n more alpha-0 rows, so that vq_nfr's
+        pair terms (rows [::2] against [1::2]) see whole pairs; the JAX
+        package fails there."""
+        n_dev = len(self.mesh)
+        n = next(iter(batch.values())).shape[0]
+        padded = -(-n // n_dev) * n_dev
+        if even and padded % 2:
+            batch = pad_rows(batch, padded + n_dev - n)
+        blocks, _ = shard_batch(batch, [self.mesh[0]] * n_dev)
+        self.streams.guard(t for b in blocks for t in b.values())
         return blocks
 
     def block(self, r, blocks):
@@ -270,7 +280,7 @@ def _vq_nfr_step(model, opt, cfg, lxyz, lareas, mesh):
     def step_fn(ema_state, batch, thres, rng, step, lr=None):
         batch = dict(batch)
         roll = batch.pop("_roll", None)
-        blocks = reps.split(batch)
+        blocks = reps.split(batch, even=True)
 
         def encode(r):
             b = reps.block(r, blocks)

@@ -14,10 +14,22 @@ vqnerf_release_tpu/train/loop.py).
     loaded with ``with_ref=True``; per validation the full-view renders.
 
 All three run on ``device`` ("cuda" unless the caller says otherwise) and raise
-when it is not there. Ray sampling stays on the host in numpy under a
-seeded ``RandomState``, the stream the JAX package's tests pin; the code
-dropout draws from a seeded ``torch.Generator`` on the device. A step never
-waits for the device: losses stay there until the epoch ends.
+when it is not there. Ray sampling stays on the host under a seeded
+``RandomState``; the code dropout draws from a seeded ``torch.Generator`` on
+the device. A step never waits for the device: losses stay there until the
+epoch ends.
+
+**The host sampler** (the JAX package's default data path,
+``VQNERF_NATIVE_SAMPLER``): unset or ``1``, the jitter pairs are picked by
+the native library (``data/native.py``, built at first use; a failed build
+raises), one child seed a call drawn from the ``RandomState``
+(``sample_view_pix``), a dispatch's views over a thread pool with the seeds
+drawn first (``sample_view_pix_many``), and on the host-gather path the rows
+gathered natively (``outer_sample``); ``0`` samples in numpy
+(``data/sampler.py``), the stream the JAX package's tests pin. Either way
+every entry point consumes the ``RandomState`` as the JAX package's does.
+Step by step, a background thread (``_prefetch``) samples, gathers and
+copies up to two batches ahead of the steps.
 
 **The scanned dispatch** (the JAX package's default, ``epoch_scan=None``:
 on whenever the views are staged on the device): the epochs run in chunks
@@ -47,21 +59,28 @@ the global batch's loss on the first (``train/decomp_trainer.py``).
 Validation and checkpoints run on the first device.
 """
 
+import contextlib
 import copy
 import json
 import os
+import queue
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from os.path import join
 
 import numpy as np
 import torch
 
 from ..data import io as vio
+from ..data import native as _native
 from ..data.device_sampler import make_device_sampler
 from ..data.device_store import (DeviceViewStore, fits_device_memory,
                                  views_compatible)
-from ..data.sampler import build_vq_eval_set, outer_sample, sample_pix
+from ..data.sampler import build_vq_eval_set
+from ..data.sampler import outer_sample as _outer_sample_np
+from ..data.sampler import sample_pix
 from ..eval.metrics import lpips_impl
 from ..models import decomp_common as dc
 from ..models.nfr_unit import init_nfr_unit, nfr_unit_forward
@@ -79,7 +98,8 @@ from ..utils.vis import vis_view
 from . import decomp_trainer as dt
 
 __all__ = ["train_nfr_unit", "train_vq_nfr", "train_ref_nfr", "save_metas",
-           "elbow_select", "cfg_ckpt_period", "phase_model"]
+           "elbow_select", "cfg_ckpt_period", "phase_model",
+           "sample_view_pix", "sample_view_pix_many", "outer_sample"]
 
 # Full-view validation forwards pass the WHOLE view (background rows too)
 # through the model; at 512 lights the [N, L, 3] BRDF temporaries of a
@@ -102,6 +122,150 @@ def _train_mesh(device, devices):
 def _device_batch(batch, device):
     return {k: torch.as_tensor(v, dtype=torch.float32, device=device)
             for k, v in batch.items()}
+
+
+def _native_mode():
+    """VQNERF_NATIVE_SAMPLER -> 'native' or 'numpy', the one place that
+    reads it: '0' samples in numpy; anything else (unset, '1') natively,
+    building the library at the first call (a failed build raises). Every
+    sampler entry point routes through here, so that all of them consume
+    the RandomState alike."""
+    if os.environ.get("VQNERF_NATIVE_SAMPLER", "") == "0":
+        return "numpy"
+    _native.native_available()
+    return "native"
+
+
+def _native_select(view, n_rays, seed, jitter_mode, alpha_thres):
+    """One native select_pairs call -> [2*n_rays] flat pixel indices."""
+    coords = _native.select_pairs(
+        view.alpha.reshape(view.h, view.w),
+        view.rgb.reshape(view.h, view.w, 3), n_rays,
+        jitter_mode=jitter_mode, alpha_thres=alpha_thres, seed=seed)
+    return coords[:, 0] * view.w + coords[:, 1]
+
+
+def _native_flat_pix(view, n_rays, rng, jitter_mode, alpha_thres):
+    """Native index selection, or None for the numpy path; draws exactly
+    one child seed from ``rng`` a call."""
+    if _native_mode() == "numpy":
+        return None
+    return _native_select(view, n_rays, int(rng.randint(0, 2**31 - 1)),
+                          jitter_mode, alpha_thres)
+
+
+def sample_view_pix(view, n_rays, rng, jitter_mode="random",
+                    alpha_thres=0.9):
+    """[2*n_rays] flat pixel indices of interleaved (pixel, jitter) pairs,
+    natively or in numpy (``_native_mode``; the same contract, different
+    random streams)."""
+    flat = _native_flat_pix(view, n_rays, rng, jitter_mode, alpha_thres)
+    if flat is not None:
+        return flat
+    return sample_pix(view, n_rays, rng, jitter_mode=jitter_mode,
+                      alpha_thres=alpha_thres)
+
+
+_SAMPLER_POOL = None
+_SAMPLER_POOL_LOCK = threading.Lock()
+
+
+def _sampler_pool():
+    """The threads that ``sample_view_pix_many`` maps over (at most 8),
+    made at the first call."""
+    global _SAMPLER_POOL
+    with _SAMPLER_POOL_LOCK:
+        if _SAMPLER_POOL is None:
+            _SAMPLER_POOL = ThreadPoolExecutor(
+                max_workers=min(8, os.cpu_count() or 1),
+                thread_name_prefix="pix-sampler")
+    return _SAMPLER_POOL
+
+
+def sample_view_pix_many(views, n_rays, rng, jitter_mode="random",
+                         alpha_thres=0.9):
+    """``sample_view_pix`` over a list of views, equal to the serial loop
+    bit for bit. Natively, the loop draws only one child seed a view from
+    ``rng``: the seeds are drawn first, serially, and the calls (which
+    release the interpreter lock) run on a thread pool. In numpy ``rng``
+    threads through every call, serially."""
+    if _native_mode() == "native":
+        seeds = [int(rng.randint(0, 2**31 - 1)) for _ in views]
+        return list(_sampler_pool().map(
+            lambda vs: _native_select(vs[0], n_rays, vs[1], jitter_mode,
+                                      alpha_thres), zip(views, seeds)))
+    return [sample_view_pix(v, n_rays, rng, jitter_mode=jitter_mode,
+                            alpha_thres=alpha_thres) for v in views]
+
+
+def outer_sample(view, n_rays, rng, jitter_mode="random", alpha_thres=0.9):
+    """``sample_view_pix`` and the gather of the pairs' rows on the host:
+    the batch dict of the host-gather path (natively gathered on the native
+    path)."""
+    flat = _native_flat_pix(view, n_rays, rng, jitter_mode, alpha_thres)
+    if flat is None:
+        return _outer_sample_np(view, n_rays, rng, jitter_mode=jitter_mode,
+                                alpha_thres=alpha_thres)
+    return _native.gather_batch(view, flat)
+
+
+def _prefetch(iterable, depth=2, device=None):
+    """The items of ``iterable``, taken by a background thread up to
+    ``depth`` ahead of the consumer, so that host sampling, gathering and
+    the copy to the device overlap the steps. The items come in order; an
+    exception of the worker is raised to the consumer after the items
+    before it. On a CUDA ``device`` the worker issues its device work on
+    the stream that is current there when ``_prefetch`` is called (the
+    consumer's), so that work the consumer issues on that stream after it
+    took an item is ordered after the item was made. Closing the generator
+    early stops the worker before it takes another item."""
+    stream = None
+    if device is not None and torch.device(device).type == "cuda":
+        stream = torch.cuda.current_stream(device)
+    return _prefetched(iterable, depth, stream)
+
+
+def _prefetched(iterable, depth, stream):
+    items = queue.Queue(maxsize=depth)
+    done = object()
+    err = []
+    stop = threading.Event()
+
+    def worker():
+        try:
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                it = iter(iterable)
+                while not stop.is_set():
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        break
+                    items.put(item)
+        except BaseException as e:  # raised in the consumer
+            err.append(e)
+        finally:
+            items.put(done)
+
+    thread = threading.Thread(target=worker, daemon=True,
+                              name="batch-prefetch")
+    thread.start()
+    finished = False
+    try:
+        while True:
+            item = items.get()
+            if item is done:
+                finished = True
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        if not finished:  # closed early: let the worker see stop and end
+            stop.set()
+            while items.get() is not done:
+                pass
+        thread.join()
 
 
 def _make_batch_source(train_views, cfg, jitter_mode, device, mesh=None):
@@ -138,14 +302,18 @@ def _make_batch_source(train_views, cfg, jitter_mode, device, mesh=None):
                   "device-memory budget; using the host-gather path" + hint)
 
     def epoch_batches(rng):
-        for vi, view in enumerate(train_views):
-            if store is not None:
-                yield store.gather(vi, sample_pix(
+        """One epoch's batches, sampled, gathered and copied to the device
+        by ``_prefetch``'s thread; nothing else may draw from ``rng`` until
+        the generator is exhausted."""
+        if store is not None:
+            return _prefetch(
+                (store.gather(vi, sample_view_pix(
                     view, cfg.n_rays_per_step, rng, jitter_mode=jitter_mode))
-            else:
-                yield _device_batch(outer_sample(
-                    view, cfg.n_rays_per_step, rng, jitter_mode=jitter_mode),
-                    device)
+                 for vi, view in enumerate(train_views)), device=device)
+        return _prefetch(
+            (_device_batch(outer_sample(
+                view, cfg.n_rays_per_step, rng, jitter_mode=jitter_mode),
+                device) for view in train_views), device=device)
 
     return epoch_batches, store
 
@@ -255,15 +423,16 @@ def _epoch_scan_xs(train_views, cfg, rng, jitter_mode, step0, n_epochs=1,
                    sampler=None, seed=0):
     """The host half of a dispatch of ``n_epochs`` whole epochs, as
     ``EpochScan.stage`` takes it: vi, lrs, and the ray indices pix
-    [E*K, 2n] sampled epoch by epoch (the per-step path's RandomState
-    stream) or, with a device ``sampler``, one seed a step."""
+    [E*K, 2n] sampled epoch by epoch (``sample_view_pix_many``: the
+    per-step path's RandomState stream) or, with a device ``sampler``, one
+    seed a step."""
     vi, steps, lrs = _epoch_scan_xs_nopix(train_views, cfg, step0, n_epochs)
     if sampler is not None:
         return {"vi": vi, "lrs": lrs,
                 "sampling_seeds": _sampling_base_key(seed) + steps}
-    pix = np.stack([sample_pix(v, cfg.n_rays_per_step, rng,
-                               jitter_mode=jitter_mode)
-                    for _ in range(n_epochs) for v in train_views])
+    pix = np.stack(sample_view_pix_many(
+        [v for _ in range(n_epochs) for v in train_views],
+        cfg.n_rays_per_step, rng, jitter_mode=jitter_mode))
     return {"vi": vi, "lrs": lrs, "pix": pix}
 
 
