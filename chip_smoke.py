@@ -95,6 +95,14 @@ fast-vis shadow pass.)
        printed beside), the gradient also against autograd; and, as a
        reading, both kernels built as the design before (the three TF32
        products in one accumulator) on the same net and points;
+   then models/sdf_manual.py ("sdf_manual" lines, sdf_manual_phase) on
+   the trained NeuS's SDF at the point counts the training step's render
+   passes to fields.sdf_value_feature_gradient in the carve and in the
+   tail: sdf and feature equal to it, grad within rtol 1e-4 / atol 1e-5;
+   the gradients of a loss over all three outputs against nested autograd
+   (each scaled by its max, within SDF_MANUAL_GRAD_TOL); sdf and grad
+   against kernel 4 at its tolerance; forward+backward of both paths
+   timed (events, median; device_ms) with their peak memory;
 9. times all four kernels and their plain versions, kernel 3 also at the
    point counts of the NeuS training step's chain: "ms" is one call on a
    busy queue (one pair of CUDA events around a run of calls, over their
@@ -254,7 +262,8 @@ fast-vis shadow pass.)
    and capture_launches_by_step, those of step 13; final_launches and
    final_launches_by_step, those of step 14; host_sampler_launches and
    host_sampler_launches_by_step, those of the host sampler lines of step
-   9), and as the last line
+   9; sdf_manual_launches and sdf_manual_launches_by_step, kernel 4's in
+   the sdf_manual lines of step 8), and as the last line
    {"ok": true, "device": {...}}.
 
 Cuts, all of scale and none of width: 4 train views and 1 validation view
@@ -364,6 +373,11 @@ SDF_AUTO_RTOL, SDF_AUTO_ATOL = 3e-3, 3e-4  # ... against autograd
 SDF_RAYS = 8192  # vis_point_batch 64 x light_tile 128
 SDF_RAGGED_N = 131072 + 77
 SDF_ONE_ACC_FLAGS = ("-DSDF_ONE_ACCUMULATOR",)
+# models/sdf_manual.py against nested autograd: the largest gradient error
+# over each gradient's max. Both are fp32 sums over the phase's 10^5 points
+# in two orders (the JAX test's 2e-5 is for 64 points)
+SDF_MANUAL_GRAD_TOL = 1e-4
+SDF_MANUAL_REPS = 10
 LVIS_POINTS = 300
 LVIS_KERNEL_ATOL = 2e-3  # lvis, kernel path against plain path
 RENDER_FUSED_ATOL = 2e-3  # neus_render, up-sample chain fused against not
@@ -2425,6 +2439,163 @@ def time_neus_steps(runner, device, profile):
         lambda: sdf_kernel.pack_sdf(runner.params.sdf, cfg.sdf), 10)
     print("pack_sdf of the default SDF net: %.3f ms (host clock, "
           "synchronised, median of 10), once a training step" % pack_ms)
+
+
+def _median_event_ms(fn, reps):
+    """Median over reps calls of fn of one pair of CUDA events around each
+    call, the calls on end, after a warm-up call."""
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def _peak_bytes(fn):
+    """Peak device memory of one call of fn above what was allocated
+    before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _nested_vfg(params, x, cfg):
+    """(sdf, feature, grad) by nested autograd, differentiable in the leaf
+    x as well as in the parameters."""
+    out = fields.sdf_apply(params, x, cfg)
+    (grad,) = torch.autograd.grad(out[:, 0].sum(), x, create_graph=True)
+    return out[:, :1], out[:, 1:], grad
+
+
+def _sdf_manual_loss(sdf, feature, grad):
+    """A loss over all three outputs (an Eikonal term and a grad x feature
+    cross term among them): every cotangent is nonzero."""
+    eik = torch.mean((torch.linalg.norm(grad, dim=-1) - 1.0) ** 2)
+    return (torch.sum(torch.sin(sdf)) * 0.3 + eik
+            + torch.sum(feature**2) * 0.01
+            + torch.sum(grad * torch.cos(feature[:, :3])))
+
+
+def _ray_points(runner, n_per_ray, device):
+    """batch_size rays of train view 0 (their own RandomState, so the
+    runner's draws stay as they were), n_per_ray points each uniform
+    between the ray's near and far: [batch_size * n_per_ray, 3]."""
+    rng = np.random.RandomState(SEED)
+    ds = runner.dataset
+    rays = ds.gen_random_rays(0, runner.tcfg.batch_size, rng)
+    near, far = ds.near_far(rays["rays_o"], rays["rays_d"])
+    z = near + (far - near) * rng.rand(len(near), n_per_ray)
+    pts = rays["rays_o"][:, None] + rays["rays_d"][:, None] * z[..., None]
+    return torch.as_tensor(pts.reshape(-1, 3), dtype=torch.float32,
+                           device=device)
+
+
+def sdf_manual_phase(neus, device):
+    """models/sdf_manual.py on the trained NeuS's SDF, at the point counts
+    the training step's render passes to sdf_value_feature_gradient in the
+    carve and in the tail (batch_size x (n_samples + n_importance)): the
+    checks as the module docstring's item 8 says, each a step whose launch
+    counts are read (kernel 4 once); then forward+backward of the manual
+    path and of nested autograd (sdf_value_feature_gradient with
+    create_graph, the training step's), each the gradient of
+    _sdf_manual_loss in every parameter, timed and measured. Returns the
+    steps."""
+    from vqnerf_release_torch.models.sdf_manual import sdf_vfg_manual
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("sdf_manual: TF32 matmuls are on")
+    runner = neus["runner"]
+    params, cfg = neus["model"].sdf, runner.cfg.sdf
+    packed = sdf_kernel.pack_sdf(params, cfg)
+    wrt = list(params.parameters())
+    names = [n for n, _ in params.named_parameters()] + ["x"]
+    steps = {}
+    for phase, c in (("carve", runner.cfg), ("tail", runner._tail_cfg)):
+        if c.n_outside:
+            raise AssertionError("sdf_manual: a background net")
+        pts = _ray_points(runner, c.n_samples + c.n_importance, device)
+        what = "sdf_manual %s, %d rays x %d+%d = %d points" % (
+            phase, runner.tcfg.batch_size, c.n_samples, c.n_importance,
+            len(pts))
+
+        def check(pts=pts, what=what):
+            xm = pts.clone().requires_grad_(True)
+            sdf, feat, grad = sdf_vfg_manual(params, xm, cfg)
+            want = fields.sdf_value_feature_gradient(params, pts, cfg)
+            if not (torch.equal(sdf.detach(), want[0])
+                    and torch.equal(feat.detach(), want[1])):
+                raise AssertionError(f"{what}: sdf or feature differs from "
+                                     "sdf_value_feature_gradient's")
+            e_grad = _compare(grad.detach(), want[2], what + ", grad",
+                              SDF_RTOL, SDF_ATOL)
+            del want
+            k_sdf, k_grad = sdf_kernel.sdf_fwdgrad(packed, pts)
+            e_k = max(_compare(k_sdf, sdf.detach()[:, 0],
+                               what + ", kernel 4 sdf", SDF_RTOL, SDF_ATOL),
+                      _compare(k_grad, grad.detach(),
+                               what + ", kernel 4 grad", SDF_RTOL, SDF_ATOL))
+            got = torch.autograd.grad(_sdf_manual_loss(sdf, feat, grad),
+                                      wrt + [xm])
+            del sdf, feat, grad
+            xn = pts.clone().requires_grad_(True)
+            ref = torch.autograd.grad(
+                _sdf_manual_loss(*_nested_vfg(params, xn, cfg)), wrt + [xn])
+            errs = [float((m - a).abs().max() / (a.abs().max() + 1e-8))
+                    for m, a in zip(got, ref)]
+            worst = int(np.argmax(errs))
+            if not all(torch.isfinite(g).all() for g in got) or \
+                    errs[worst] > SDF_MANUAL_GRAD_TOL:
+                raise AssertionError(
+                    f"{what}: gradients against nested autograd, largest "
+                    f"scaled error {errs[worst]:.3e} in {names[worst]} "
+                    f"(limit {SDF_MANUAL_GRAD_TOL})")
+            print("%s (fp32, TF32 off): sdf and feature equal to "
+                  "sdf_value_feature_gradient's; grad max abs err %.3e "
+                  "(rtol %g, atol %g); the gradients of a loss over all "
+                  "three outputs against nested autograd: largest error "
+                  "over the gradient's max %.3e in %s (limit %g); against "
+                  "kernel 4 (sdf_fwdgrad): max abs err %.3e (rtol %g, atol "
+                  "%g)" % (what, e_grad, SDF_RTOL, SDF_ATOL, errs[worst],
+                           names[worst], SDF_MANUAL_GRAD_TOL, e_k, SDF_RTOL,
+                           SDF_ATOL), flush=True)
+
+        _step(phase, check, steps, label="sdf_manual")
+        if steps[phase]["launches"]["sdf_fwdgrad"] != 1:
+            raise AssertionError(f"{what}: launches "
+                                 f"{steps[phase]['launches']}")
+        for name, vfg in (
+                ("manual", lambda pts=pts: sdf_vfg_manual(params, pts, cfg)),
+                ("nested", lambda pts=pts: fields.sdf_value_feature_gradient(
+                    params, pts, cfg, create_graph=True))):
+            def run(vfg=vfg):
+                torch.autograd.grad(_sdf_manual_loss(*vfg()), wrt)
+            ms = _median_event_ms(run, SDF_MANUAL_REPS)
+            dev_ms, kernels = _device_ms(run, 3)
+            peak = _peak_bytes(run)
+            steps[phase][name] = {"ms": ms, "device_ms": dev_ms,
+                                  "peak_bytes": peak}
+            print("%s, forward+backward %s: %.3f ms (events, median of %d), "
+                  "%.3f ms device (torch.profiler, %d kernels a call), peak "
+                  "%d bytes (%.3f GiB) above the inputs"
+                  % (what, "hand-derived (sdf_vfg_manual)" if name == "manual"
+                     else "nested autograd (sdf_value_feature_gradient, "
+                     "create_graph)", ms, SDF_MANUAL_REPS, dev_ms, kernels,
+                     peak, peak / 2**30), flush=True)
+        st = steps[phase]
+        print("%s: manual / nested %.3f in ms, %.3f in device ms, %.3f in "
+              "peak memory" % (what, st["manual"]["ms"] / st["nested"]["ms"],
+                               st["manual"]["device_ms"]
+                               / st["nested"]["device_ms"],
+                               st["manual"]["peak_bytes"]
+                               / st["nested"]["peak_bytes"]), flush=True)
+    return steps
 
 
 def check_geo_view(view_dir, lxyz, gt_mask, weight_sum, is_train, s_val):
@@ -5269,6 +5440,10 @@ def main():
             vq_entry = check_vq_kernel(trained, cfg, device)
         fwd_entry, fwdgrad_entry = check_sdf_kernels(geo, neus["runner"],
                                                      device)
+        t0 = time.perf_counter()
+        manual_steps = sdf_manual_phase(neus, device)
+        print("sdf_manual phase: %.1f s" % (time.perf_counter() - t0),
+              flush=True)
         time_steps(cfg, trained, lxyz, lareas, device, profile)
         t0 = time.perf_counter()
         scan_steps = scan_phase(cfg, trained, neus, root, device)
@@ -5386,6 +5561,10 @@ def main():
                    for step, st in host_steps.items()}
         entry["host_sampler_launches"] = sum(by_step.values())
         entry["host_sampler_launches_by_step"] = by_step
+        by_step = {step: st["launches"][entry["name"]]
+                   for step, st in manual_steps.items()}
+        entry["sdf_manual_launches"] = sum(by_step.values())
+        entry["sdf_manual_launches_by_step"] = by_step
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [render_entry, vq_entry, fwd_entry,
                                   fwdgrad_entry]}))

@@ -457,6 +457,29 @@ def test_vq_kernel_thousand_calls_on_end(cuda_device, monkeypatch):
         assert torch.equal(out[key], first[1][key]), key
 
 
+@pytest.mark.cuda
+def test_vq_kernel_refused_launches_leave_no_error(cuda_device, monkeypatch):
+    """Two launches the card refuses (more blocks than it can hold at once)
+    each raise with their own error, and the good call after them launches
+    and gives the bits it gave before them: a refused launch leaves no
+    error behind for the next call to report."""
+    kw = dict(decay=0.999, epsilon=1e-5)
+    monkeypatch.setattr(kv, "_scratch", {})
+    args = _vq_inputs(2048, 256, 15, cuda_device, True, seed=7)
+    want = kv.vq_fused_train(*args, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(kv, "grid_blocks", lambda n, sms: 4 * sms)
+        for _ in range(2):
+            with pytest.raises(RuntimeError, match="CUDA error 720"):
+                kv.vq_fused_train(*args, **kw)
+    launches = kv.LAUNCHES
+    got = kv.vq_fused_train(*args, **kw)
+    torch.cuda.synchronize()
+    assert kv.LAUNCHES == launches + 1
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
 def _profiled_device_ms(fn, reps):
     """(device time of one call in ms, kernel launches a call) from
     torch.profiler's kernel durations."""
@@ -834,6 +857,60 @@ def test_sdf_kernel_rejects_bad_inputs(cuda_device):
     assert ks.sdf_fwd(packed, pts[:0]).shape == (0,)
 
 
+def nested_vfg(params, x, cfg):
+    """(sdf, feature, grad) by nested autograd, differentiable in the
+    points x (a leaf that requires grad) and in the parameters: the
+    reference for models/sdf_manual.py."""
+    out = fields.sdf_apply(params, x, cfg)
+    (grad,) = torch.autograd.grad(out[:, 0].sum(), x, create_graph=True)
+    return out[:, :1], out[:, 1:], grad
+
+
+def sdf_manual_loss(sdf, feature, grad):
+    """A loss that reads all three outputs (an Eikonal term and a grad x
+    feature cross term among them), so every cotangent is nonzero."""
+    eik = torch.mean((torch.linalg.norm(grad, dim=-1) - 1.0) ** 2)
+    return (torch.sum(torch.sin(sdf)) * 0.3 + eik
+            + torch.sum(feature**2) * 0.01
+            + torch.sum(grad * torch.cos(feature[:, :3])))
+
+
+def sdf_manual_against_nested(params, x, cfg):
+    """(manual outputs, largest gradient error scaled by the gradient's
+    max) of sdf_manual_loss over every parameter and x, against nested
+    autograd; every manual gradient finite."""
+    from vqnerf_release_torch.models.sdf_manual import sdf_vfg_manual
+    wrt = list(params.parameters())
+    xm = x.detach().clone().requires_grad_(True)
+    xn = x.detach().clone().requires_grad_(True)
+    manual = sdf_vfg_manual(params, xm, cfg)
+    nested = nested_vfg(params, xn, cfg)
+    got = torch.autograd.grad(sdf_manual_loss(*manual), wrt + [xm])
+    want = torch.autograd.grad(sdf_manual_loss(*nested), wrt + [xn])
+    for g in got:
+        assert torch.isfinite(g).all()
+    err = max(float((m - a).abs().max() / (a.abs().max() + 1e-8))
+              for m, a in zip(got, want))
+    return manual, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net,n", [("small", 1000), ("default", 4096)])
+def test_sdf_vfg_manual_matches_nested_autograd(cuda_device, net, n):
+    """models/sdf_manual.py on the card: sdf and feature equal
+    sdf_value_feature_gradient's, grad within the SDF kernels' tolerance,
+    the gradients of a loss over all three outputs within 2e-5 of nested
+    autograd's (scaled by each one's max)."""
+    cfg, params, _ = _sdf_net(net, cuda_device)
+    pts = _sdf_points(n, cuda_device, seed=2)
+    (sdf, feat, grad), err = sdf_manual_against_nested(params, pts, cfg)
+    want_sdf, want_feat, want_grad = fields.sdf_value_feature_gradient(
+        params, pts, cfg)
+    assert torch.equal(sdf, want_sdf) and torch.equal(feat, want_feat)
+    torch.testing.assert_close(grad, want_grad, rtol=SDF_RTOL, atol=SDF_ATOL)
+    assert err < 2e-5, err
+
+
 @pytest.mark.cuda
 def test_neus_occlusion_fused_matches_plain_path(cuda_device):
     """The shadow pass with both kernels against the autograd path, at a
@@ -1115,12 +1192,14 @@ def _graph_views(n, h, w, lights, device_seed=0):
 
 
 @pytest.mark.cuda
-def test_vq_kernel_inside_a_cuda_graph(cuda_device):
+def test_vq_kernel_inside_a_cuda_graph(cuda_device, monkeypatch):
     """vq_fused_train captured in a StepGraph: the replays give the eager
     call's bits, count one launch each, and survive a later eager call that
-    grows the kernel's scratch (the graph keeps the buffer it recorded)."""
+    grows the kernel's scratch (the graph keeps the buffer it recorded).
+    The scratch starts empty: one an earlier test grew would not grow."""
     from vqnerf_release_torch.train.graphed import StepGraph
     kw = dict(decay=0.999, epsilon=1e-5)
+    monkeypatch.setattr(kv, "_scratch", {})
     args = _vq_inputs(2048, 256, 15, cuda_device, True)
     want = kv.vq_fused_train(*args, **kw)
 

@@ -284,9 +284,9 @@ def test_png_codec_gray_alpha_and_bad_input():
     ga = (np.random.RandomState(2).rand(6, 7, 2) * 255).astype(np.uint8)
     data = _filtered_png(ga, [4, 3])
     want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
-    got = t_io.decode_png(data)
-    np.testing.assert_array_equal(got[..., 0], want[..., 0])
-    np.testing.assert_array_equal(got[..., 1], want[..., 3])
+    got = t_io.decode_png(data)  # cv2's BGRA, the gray replicated, as RGBA
+    np.testing.assert_array_equal(got, want[..., [2, 1, 0, 3]])
+    np.testing.assert_array_equal(got, ga[..., [0, 0, 0, 1]])
     with pytest.raises(ValueError, match="not a PNG"):
         t_io.decode_png(b"GIF89a")
     with pytest.raises(ValueError, match="filter type"):

@@ -187,6 +187,32 @@ def test_sdf_functions_match_jax(kw):
         np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
 
 
+def test_softplus100_derivatives_match_jax_softplus():
+    """softplus100's value is the stable form's, bit for bit; its first and
+    second derivatives are jax.nn.softplus(100 x) / 100's, at 0 too, where
+    autograd through the stable form would give 1 in place of 1/2."""
+    x = np.array([-0.05, -1e-3, 0.0, 1e-3, 0.05, 0.3], np.float32)
+
+    def f(v):
+        return jax.nn.softplus(100.0 * v) / 100.0
+
+    d1 = jax.vmap(jax.grad(f))(jnp.asarray(x))
+    d2 = jax.vmap(jax.grad(jax.grad(f)))(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = tf.softplus100(xt)
+    with torch.no_grad():
+        stable = torch.clamp(xt, min=0.0) + torch.log1p(
+            torch.exp(-torch.abs(100.0 * xt))) / 100.0
+    assert torch.equal(y, stable)
+    (g1,) = torch.autograd.grad(y.sum(), xt, create_graph=True)
+    (g2,) = torch.autograd.grad(g1.sum(), xt)
+    assert float(g1[2]) == 0.5
+    np.testing.assert_allclose(g1.detach().numpy(), np.asarray(d1),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(g2.numpy(), np.asarray(d2), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_sdf_gradient_create_graph_is_differentiable():
     """The training slice's Eikonal term differentiates the gradient: with
     create_graph the result carries a graph to the parameters."""

@@ -162,7 +162,7 @@ PNG_SIZES = [(9, 13), (1, 1), (2, 3), (5, 1), (17, 8)]
 def test_png_every_kind_equals_cv2(ctype, depth, interlace):
     """Every colour type at every depth, interlaced or not: palettes
     expanded to RGB, gray below 8 bits scaled to 0..255, gray+alpha as
-    [gray, alpha] where cv2 gives BGRA."""
+    RGBA with the gray replicated, as cv2 gives it (BGRA)."""
     for k, (h, w) in enumerate(PNG_SIZES):
         rs = np.random.RandomState(100 * ctype + depth + k)
         ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
@@ -171,15 +171,10 @@ def test_png_every_kind_equals_cv2(ctype, depth, interlace):
         if ctype == 3:
             plte = rs.randint(0, 256, (1 << depth, 3))
         data = _png_file(samples, depth, ctype, interlace, plte, seed=k)
-        if ctype == 4:  # cv2 replicates the gray into BGR
-            want = cv2.imdecode(np.frombuffer(data, np.uint8),
-                                cv2.IMREAD_UNCHANGED)
-            got = t_io.decode_png(data)
-            np.testing.assert_array_equal(got[..., 0], want[..., 0])
-            np.testing.assert_array_equal(got[..., 1], want[..., 3])
-            continue
         got = _assert_png_decodes_like_cv2(data)
-        if ctype == 3:
+        if ctype == 4:  # cv2 replicates the gray into BGR
+            np.testing.assert_array_equal(got, samples[..., [0, 0, 0, 1]])
+        elif ctype == 3:
             np.testing.assert_array_equal(got, plte[samples[..., 0]])
         elif depth < 8:
             np.testing.assert_array_equal(
@@ -453,6 +448,27 @@ def test_readers_dispatch_on_the_signature_like_cv2(tmp_path):
         f.write(b"GIF89a" + bytes(10))
     with pytest.raises(NotImplementedError, match="neither a PNG nor"):
         t_io.load_img_f32(junk)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_gray_alpha_reads_equal_jax(tmp_path, dtype):
+    """A gray+alpha PNG (written by the port's encoder) reads as the JAX
+    package's cv2 readers read it: [H, W, 4], the gray replicated into
+    RGB, at 8 and 16 bits, through read_image, load_img_f32 and
+    read_rgba16."""
+    top = np.iinfo(dtype).max
+    img = (np.random.RandomState(21).rand(9, 14, 2) * top).astype(dtype)
+    path = str(tmp_path / "gray_alpha.png")
+    t_io.write_png(path, img)
+    want = cv2.imread(path, cv2.IMREAD_UNCHANGED)[..., [2, 1, 0, 3]]
+    got = t_io.read_image(path)
+    assert got.dtype == want.dtype and got.shape == (9, 14, 4)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, img[..., [0, 0, 0, 1]])
+    for fn in ("load_img_f32", "read_rgba16"):
+        got, want = getattr(t_io, fn)(path), getattr(j_io, fn)(path)
+        assert got.dtype == want.dtype and got.shape == want.shape, fn
+        np.testing.assert_array_equal(got, want, err_msg=fn)
 
 
 @pytest.mark.parametrize("kind", ["gray", "gray_alpha", "rgba", "rgb16",

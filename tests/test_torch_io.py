@@ -90,11 +90,12 @@ def test_png_reader_undoes_every_filter(tmp_path, channels, dtype):
     path = str(tmp_path / "filtered.png")
     _filtered_png(path, img)
     got = t_io.read_png(path)
-    want = img[..., 0] if channels == 1 else img
+    # gray+alpha reads as RGBA with the gray replicated, as cv2's BGRA
+    want = (img[..., 0] if channels == 1 else
+            img[..., [0, 0, 0, 1]] if channels == 2 else img)
     np.testing.assert_array_equal(got, want)
-    if channels != 2:  # cv2 turns gray+alpha into BGRA
-        cv = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-        np.testing.assert_array_equal(_to_cv(cv), want)
+    cv = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(_to_cv(cv), want)
 
 
 def test_write_img_matches_jax(tmp_path):

@@ -496,6 +496,9 @@ extern "C" int vq_fused_train_launch(
         smem, static_cast<cudaStream_t>(stream));
     if (err == cudaSuccess) err = cudaGetLastError();
   }
+  // a refused call leaves its error as the runtime's last error too: clear
+  // it, or the next good launch's cudaGetLastError above would return it
+  if (err != cudaSuccess) cudaGetLastError();
   if (previous != device) cudaSetDevice(previous);
   return static_cast<int>(err);
 }

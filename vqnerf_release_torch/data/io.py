@@ -193,9 +193,9 @@ def _png_image(raw, w, h, ch, depth, interlace):
 
 def decode_png(data, what="PNG"):
     """PNG bytes -> uint8 or uint16 array, [H, W] for gray, else [H, W, C]
-    in file order (RGB / RGBA / gray+alpha), as ``cv2.imdecode(...,
-    IMREAD_UNCHANGED)`` decodes it (with its channels in BGR order and gray+
-    alpha as BGRA): gray at depths 1, 2 and 4 scaled to 0..255; a palette
+    in RGB(A) order, as ``cv2.imdecode(..., IMREAD_UNCHANGED)`` decodes it
+    (with its channels in BGR order): gray+alpha as RGBA with the gray
+    replicated; gray at depths 1, 2 and 4 scaled to 0..255; a palette
     expanded to RGB, or to RGBA when a tRNS chunk gives alphas (255 past
     the table's end, black past the palette's); RGB with a tRNS key gets
     alpha 0 where a pixel equals the key and the maximum elsewhere; a tRNS
@@ -242,6 +242,8 @@ def decode_png(data, what="PNG"):
     if ctype == 0:
         img = img[..., 0]
         return img * np.uint8(255 // top) if depth < 8 else img
+    if ctype == 4:
+        return img[..., [0, 0, 0, 1]]
     if ctype == 2 and trns is not None and len(trns) == 6:
         key = np.array(struct.unpack(">HHH", trns)) & top
         alpha = np.where(np.all(img == key, axis=-1), 0, top)
@@ -352,8 +354,8 @@ def imread_color(path):
         img = (img >> 8).astype(np.uint8)
     if img.ndim == 2:
         img = img[..., None]
-    if img.shape[2] in (1, 2):
-        img = np.repeat(img[..., :1], 3, axis=2)
+    if img.shape[2] == 1:
+        img = np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
 
 
@@ -366,8 +368,8 @@ def load_img_f32(path):
 
 def read_rgba16(path, longint=True):
     """uint16 PNG -> uint8 (floor-divide by 256), as the stage-1 loaders
-    do; channels in file order (RGB / RGBA). 8-bit PNGs and JPEGs pass
-    through."""
+    do; channels in RGB(A) order, gray+alpha as RGBA. 8-bit PNGs and JPEGs
+    pass through."""
     img = read_image(str(path))
     if longint and img.dtype == np.uint16:
         img = (img // 256).astype(np.uint8)

@@ -41,11 +41,30 @@ __all__ = [
 SOFTPLUS_BETA = 100.0
 
 
+class _Softplus100(torch.autograd.Function):
+    """The stable form's value with the derivative sigmoid(100 x), itself
+    differentiable. Autograd through the stable form would give 1 at x = 0
+    (clamp's derivative there), where the derivative is 1/2: a layer whose
+    pre-activations are all 0 (the geometric init's skip layer when there
+    is no encoding) would otherwise get twice the JAX package's gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        e = torch.exp(-torch.abs(SOFTPLUS_BETA * x))
+        return torch.clamp(x, min=0.0) + torch.log1p(e) / SOFTPLUS_BETA
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return grad * torch.sigmoid(SOFTPLUS_BETA * x)
+
+
 def softplus100(x):
     """Softplus(beta=100) in the stable form max(x, 0) + log1p(exp(-|100
-    x|)) / 100, which the CUDA kernel uses too."""
-    e = torch.exp(-torch.abs(SOFTPLUS_BETA * x))
-    return torch.clamp(x, min=0.0) + torch.log1p(e) / SOFTPLUS_BETA
+    x|)) / 100, which the CUDA kernel uses too; its derivative is
+    sigmoid(100 x) everywhere, 0 included, as ``jax.nn.softplus``'s."""
+    return _Softplus100.apply(x)
 
 
 @dataclass(frozen=True)

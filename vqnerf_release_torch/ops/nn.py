@@ -16,8 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["ACTS", "SkipMLP", "mlp_init", "Dense", "WNDense", "dense_init",
-           "wn_dense_init", "geometric_sdf_init"]
+__all__ = ["ACTS", "SkipMLP", "mlp_init", "Dense", "WNDense", "wn_fold",
+           "dense_init", "wn_dense_init", "geometric_sdf_init"]
 
 ACTS = {
     None: lambda x: x,
@@ -87,6 +87,13 @@ class Dense(nn.Module):
         return x @ self.w + self.b
 
 
+def wn_fold(v, g):
+    """g * v / max(||v||, 1e-12), the norm over the input dim of each
+    output unit: the plain weight of a weight-normalised layer."""
+    v_norm = torch.linalg.norm(v, dim=0, keepdim=True)
+    return g[None, :] * v / torch.clamp(v_norm, min=1e-12)
+
+
 class WNDense(nn.Module):
     """Weight-normalised dense layer: w = g * v / max(||v||, 1e-12), the
     norm over the input dim of each output unit. ``v`` [d_in, d_out], ``g``
@@ -100,8 +107,7 @@ class WNDense(nn.Module):
 
     def folded(self):
         """The plain weight [d_in, d_out] with the norm folded in."""
-        v_norm = torch.linalg.norm(self.v, dim=0, keepdim=True)
-        return self.g[None, :] * self.v / torch.clamp(v_norm, min=1e-12)
+        return wn_fold(self.v, self.g)
 
     def forward(self, x):
         return x @ self.folded() + self.b

@@ -344,7 +344,7 @@ def _png_b64_to_mask(b64):
                          what="mask PNG")
     if img.ndim == 2:
         return img > 0
-    if img.shape[2] in (2, 4):
+    if img.shape[2] == 4:
         return img[..., -1] > 0
     return img.max(axis=2) > 0
 
