@@ -187,7 +187,15 @@ fast-vis shadow pass.)
    count, size and rate), and `python -m vqnerf_release_torch.cli
    edit-server` as a subprocess (SERVER_LAUNCHER), sent one edit, waited
    for and terminated, which reports its own launch counts and peak memory
-   (kernel 1 launched, every launch of the 16-byte instance);
+   (kernel 1 launched, every launch of the 16-byte instance). Then video
+   frames ("frame phase"; no kernel on its path, every launch count set to
+   0 just before and read as 0 just after): utils/vis.py's make_frame on
+   step 5's 512x512 raw_test view dirs, the layout FRAME_LAYOUT with a
+   uint8 thumbnail of a probe on each view and FRAME_MISSING on one, each
+   equal bit for bit to a numpy composition written in the script, None
+   for an empty dir, and a two-frame make_anim read back with the port's
+   PNG reader (frames, count, loop, delays); its ms per frame printed
+   with the card's name and power limit;
 12. evaluates and imports ("eval and import"; every kernel's launch count
    set to 0 just before each step and read just after): metric-eval
    (family nerf: rgb, kd with the albedo scale, relights under the 8
@@ -346,6 +354,7 @@ from vqnerf_release_torch.train.neus_loop import NeuSRunner
 from vqnerf_release_torch.train.neus_trainer import (make_neus_multi_step,
                                                      make_neus_train_step)
 from vqnerf_release_torch.utils import ckpt as ckpt_util
+from vqnerf_release_torch.utils.vis import make_anim, make_frame
 
 SCENE = "sphere"
 N_VIEWS = 2  # served val views
@@ -3810,6 +3819,126 @@ def video_cli_phase(root, env_dir, device):
     return steps
 
 
+# ---- video frames composed from the served view dirs ---------------------
+
+FRAME_LAYOUT = (("normal", "nn"), ("albedo", "rgb"))
+FRAME_MISSING = (("rgb", "albedo"), ("spec", "no_such_buffer"))
+FRAME_REPS = 5
+
+
+def _compose_reference(batch_dir, layout, light, pad=2):
+    """make_frame's result where every cell found has one size, built
+    independently: a white canvas, each cell read with imread_color and
+    pasted by slicing, blank cells black, the thumbnail in the bottom-left
+    corner of the rgb* cells."""
+    grid = []
+    for row in layout:
+        cells = []
+        for name in row:
+            paths = [os.path.join(batch_dir, f)
+                     for f in (name + ".png", "pred_" + name + ".png")]
+            found = [q for q in paths if name != "nn" and os.path.exists(q)]
+            cells.append(vio.imread_color(found[0]) if found else None)
+        grid.append(cells)
+    sizes = {c.shape for row in grid for c in row if c is not None}
+    if len(sizes) != 1:
+        raise AssertionError(f"{batch_dir}: cells of sizes {sizes}")
+    h, w, _ = sizes.pop()
+    rows, cols = len(grid), len(grid[0])
+    canvas = np.full((rows * (h + pad) - pad, cols * (w + pad) - pad, 3),
+                     255, np.uint8)
+    lh, lw = light.shape[:2]
+    for r, row in enumerate(grid):
+        for c, cell in enumerate(row):
+            y, x = r * (h + pad), c * (w + pad)
+            canvas[y:y + h, x:x + w] = 0 if cell is None else cell
+            if layout[r][c].startswith("rgb") and lh < h and lw < w:
+                canvas[y + h - lh:y + h, x:x + lw] = light[..., :3]
+    return canvas
+
+
+def _apng_frames(path):
+    """Every frame of an APNG that write_apng made (one IHDR, the first
+    frame in IDAT, the others in fdAT), each decoded by the port's PNG
+    reader, with acTL's (frame count, plays) and the fcTL delays in ms."""
+    with open(path, "rb") as f:
+        data = f.read()
+    chunks = list(vio._png_chunks(data))
+    ihdr = [d for k, d in chunks if k == b"IHDR"][0]
+    actl = struct.unpack(">II", [d for k, d in chunks if k == b"acTL"][0])
+    delays = [1000 * num / den for num, den in (
+        struct.unpack(">HH", d[20:24]) for k, d in chunks if k == b"fcTL")]
+    bodies = [d for k, d in chunks if k == b"IDAT"] + [
+        d[4:] for k, d in chunks if k == b"fdAT"]
+    frames = [vio.decode_png(
+        vio._PNG_SIG + vio._png_chunk(b"IHDR", ihdr)
+        + vio._png_chunk(b"IDAT", body) + vio._png_chunk(b"IEND", b""))
+        for body in bodies]
+    return frames, actl, delays
+
+
+def frame_phase(outroot, env_dir, root, smi):
+    """utils/vis.py's make_frame on the served `test` pass's 512x512 view
+    dirs (raw_test): the 2x2 layout with a uint8 light thumbnail (the first
+    probe, tonemapped) on every view, and a layout with a missing name,
+    each held bit for bit against an independent numpy composition; None
+    for an empty dir; a two-frame make_anim read back with the port's PNG
+    reader. No kernel lies on this path: the counts, set to 0 just before,
+    must read 0 just after. Prints frame shapes and ms per frame."""
+    views = sorted(glob.glob(os.path.join(outroot, "raw_test", "batch*")))
+    if len(views) != N_VIEWS:
+        raise AssertionError(f"raw_test holds {views}")
+    probe = vio.sortglob(env_dir, ext=("hdr", "exr"))[0]
+    light = vio.vis_light(vio.read_envmap(probe), h=64)
+    if light.dtype != np.uint8 or light.shape != (64, 128, 3):
+        raise AssertionError(f"thumbnail {light.dtype} {light.shape}")
+    _reset_counts()
+    frames = []
+    for d in views:
+        got = make_frame(d, FRAME_LAYOUT, rgb_embed_light=light)
+        want = _compose_reference(d, FRAME_LAYOUT, light)
+        if got is None or got.dtype != np.uint8 \
+                or not np.array_equal(got, want):
+            raise AssertionError(f"make_frame of {d} differs from numpy's")
+        frames.append(got)
+    missing = make_frame(views[0], FRAME_MISSING, rgb_embed_light=light)
+    if missing is None or not np.array_equal(
+            missing, _compose_reference(views[0], FRAME_MISSING, light)):
+        raise AssertionError("make_frame with a missing name differs")
+    empty = os.path.join(root, "frame_empty")
+    os.makedirs(empty)
+    if make_frame(empty, FRAME_LAYOUT, rgb_embed_light=light) is not None:
+        raise AssertionError("make_frame of an empty dir is not None")
+    t0 = time.perf_counter()
+    for _ in range(FRAME_REPS):
+        make_frame(views[0], FRAME_LAYOUT, rgb_embed_light=light)
+    frame_ms = (time.perf_counter() - t0) * 1e3 / FRAME_REPS
+    anim = os.path.join(root, "frames", "anim.apng")
+    if make_anim(frames, anim, duration=250) != anim:
+        raise AssertionError("make_anim returned another path")
+    back, actl, delays = _apng_frames(anim)
+    if actl != (2, 0) or delays != [250.0, 250.0] or len(back) != 2 \
+            or not all(np.array_equal(a, b) for a, b in zip(back, frames)) \
+            or not np.array_equal(vio.read_png(anim), frames[0]):
+        raise AssertionError(f"make_anim read back: acTL {actl}, delays "
+                             f"{delays}, {len(back)} frames")
+    launches = _launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the frame phase launched {launches}")
+    found = sorted(n for row in FRAME_LAYOUT for n in row if n != "nn"
+                   and any(os.path.exists(os.path.join(views[0], f)) for f in
+                           (n + ".png", "pred_" + n + ".png")))
+    print("frame phase: %d frames of %s (cells %s found) and one of %s with "
+          "a missing name, equal to numpy's bit for bit; None for an empty "
+          "dir; make_anim of 2 frames read back; %.3f ms per frame (%d "
+          "reps, 4 cells of %dx%d); kernel launches %s; %s"
+          % (len(frames), frames[0].shape, found, missing.shape, frame_ms,
+             FRAME_REPS, *vio.imread_color(os.path.join(
+                 views[0], "pred_rgb.png")).shape[:2], launches, smi),
+          flush=True)
+    return {"frame_ms": frame_ms, "shape": frames[0].shape}
+
+
 # ---- reference TF checkpoints, written without TensorFlow ----------------
 
 TF_DTYPES = {np.dtype(np.float32): 1, np.dtype(np.float64): 2,
@@ -5487,6 +5616,9 @@ def main():
                                   "peak_gib": round(v["peak_bytes"] / 2**30,
                                                     3)}
                               for k, v in edit_steps.items()})), flush=True)
+
+        # ---- video frames composed from the served view dirs -------------
+        frame_phase(outroot, paths["env_dir"], root, smi)
 
         # ---- evaluation, and the reference's TF checkpoints imported -----
         t0 = time.perf_counter()

@@ -20,8 +20,21 @@ from os.path import join
 
 import numpy as np
 import pytest
+import torch
 
 from tests import test_acceptance as j_test
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SCENE = j_test.SCENE
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

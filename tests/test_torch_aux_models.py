@@ -34,6 +34,18 @@ from vqnerf_release_torch.ops import geom as t_geom
 from vqnerf_release_torch.ops import math as t_math
 from vqnerf_release_torch.ops import sphere_render as t_sphere
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-5
 SMALL = dict(mlp_width=16, n_freqs_xyz=4)
 

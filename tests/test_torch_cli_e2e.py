@@ -20,6 +20,18 @@ import chip_smoke
 from vqnerf_release_torch.cli import main
 from vqnerf_release_torch.data import io as vio
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SCENE = "lego_3072"  # the nerf family's preset
 # NeuS at the shipped widths with 8+8 samples, 3 steps of 32 rays, a 16^3
 # grid and no tail; stage 2 at tiny widths on 12x12 views without lvis

@@ -45,6 +45,18 @@ from vqnerf_release_torch.pipelines import gen_main as t_gen_main
 from vqnerf_release_torch.pipelines import gen_z as t_gen_z
 from vqnerf_release_torch.utils import profiling
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SUBCOMMANDS = ["geo-train", "gen-geo", "decomp-train", "test", "ini-train",
                "gen-z", "reselect-main", "edit-server", "edit-ui",
                "gen-video", "geo-video", "metric-eval", "cluster-eval"]
@@ -265,17 +277,20 @@ def test_profiling_trace_and_step_timer(tmp_path):
     assert json.load(open(tmp_path / "t" / "steps.json")) == s
 
 
-@pytest.mark.parametrize("name", ["geo", "train", "test", "video"])
+@pytest.mark.parametrize("name",
+                         ["geo", "train", "test", "video", "acceptance"])
 def test_shell_scripts_are_the_jax_ones_on_the_port(name):
-    """scripts/torch_<name>.sh runs the port's CLI with the arguments and
-    defaults of scripts/<name>.sh."""
+    """scripts/torch_<name>.sh runs the port's CLI (or, for acceptance,
+    scripts/torch_acceptance.py) with the arguments and defaults of
+    scripts/<name>.sh."""
     def body(path):
         lines = [ln for ln in open(path).read().splitlines()
                  if ln and not ln.startswith("#")]
         return [ln.replace("vqnerf_release_tpu", "PKG") for ln in lines]
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    got = [ln.replace("vqnerf_release_torch", "PKG") for ln in body(
+    got = [ln.replace("vqnerf_release_torch", "PKG").replace(
+        "/torch_acceptance.py", "/acceptance.py") for ln in body(
         join(repo, "scripts", "torch_%s.sh" % name))]
     assert got == body(join(repo, "scripts", "%s.sh" % name))
     assert os.access(join(repo, "scripts", "torch_%s.sh" % name), os.X_OK)

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import tests.test_edit_web as jax_web_tests
 from tests.test_data_layer import _make_synth_scene
@@ -39,6 +40,18 @@ from vqnerf_release_torch.models import decomp_common as t_dc
 from vqnerf_release_torch.pipelines import edit as t_edit
 from vqnerf_release_torch.pipelines import edit_client as t_client
 from vqnerf_release_torch.pipelines import edit_web as t_web
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 GOLD = t_client.MATERIAL_DB["gold"]
 RED = {"diff": [0.8, 0.05, 0.05], "spec": [-1.0, 0, 0], "rough": [0.4]}

@@ -59,6 +59,18 @@ from vqnerf_release_torch.eval import metric_eval as tme
 from vqnerf_release_torch.eval import metrics as tm
 from vqnerf_release_torch.eval import vis_csv as tvc
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REL = 1e-9
 LPIPS_F32_REL = 1e-6
 UPSCALE_OFF_SHARE = 1e-3

@@ -27,6 +27,18 @@ from vqnerf_release_torch.models import fields as tf
 from vqnerf_release_torch.models import neus as tn
 from vqnerf_release_torch.train import neus_trainer as t_trainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 1e-5, 1e-6
 SMALL_SDF = dict(d_hidden=32, n_layers=4, skip_in=(2,), multires=2, d_out=33)
 SMALL_COLOR = dict(d_feature=32, d_hidden=16, n_layers=2)

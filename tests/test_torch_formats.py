@@ -22,12 +22,25 @@ import zlib
 import cv2
 import numpy as np
 import pytest
+import torch
 
 from vqnerf_release_tpu.data import exr as j_exr
 from vqnerf_release_tpu.data import io as j_io
 from vqnerf_release_torch.data import exr as t_exr
 from vqnerf_release_torch.data import io as t_io
 from vqnerf_release_torch.data import jpeg as t_jpeg
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                         "torch_jpeg")

@@ -4,9 +4,21 @@ cv2, which this test environment has and the GPU machine does not."""
 import cv2
 import numpy as np
 import pytest
+import torch
 
 from vqnerf_release_tpu.data import io as j_io
 from vqnerf_release_torch.data import io as t_io
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _to_cv(img):

@@ -44,6 +44,18 @@ from vqnerf_release_torch.train import loop as t_loop
 from vqnerf_release_torch.train.neus_loop import NeuSRunner
 from vqnerf_release_torch.utils import ckpt as t_ckpt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE = "lego_3072"
 OVERRIDE = ",".join("%s=%s" % kv for kv in SMALL.items())

@@ -29,6 +29,18 @@ from vqnerf_release_torch.kernels import render as kr
 from vqnerf_release_torch.kernels import vq as kv
 from vqnerf_release_torch.ops.light import gen_light_xyz
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 2e-4, 1e-5  # chip_smoke.py's, for the kernel against its twin
 _LIGHT_H = {32: 4, 128: 8, 512: 16}
 

@@ -26,6 +26,18 @@ from vqnerf_release_torch.models import decomp_common as t_dc
 from vqnerf_release_torch.models import ref_nfr as t_ref
 from vqnerf_release_torch.models import vq_nfr as t_vq
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 1e-4, 1e-5
 SMALL = dict(light_h=2, num_embed=4, num_drop=2, z_dim=16, mlp_width=8,
              imh=16, thres_str="0.1;0.2")

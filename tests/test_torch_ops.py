@@ -26,6 +26,18 @@ from vqnerf_release_torch.ops.microfacet import microfacet_brdf as t_brdf
 from vqnerf_release_torch.ops.render import render_equation as t_render
 from vqnerf_release_torch.ops import vq as t_vq
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

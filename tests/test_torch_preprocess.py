@@ -18,6 +18,7 @@ from os.path import join
 import cv2
 import numpy as np
 import pytest
+import torch
 
 from tests.test_preprocess import _write_colmap_model
 from vqnerf_release_tpu.data import merl as j_merl
@@ -32,6 +33,17 @@ from vqnerf_release_torch.preprocess import colmap_model as t_cm
 from vqnerf_release_torch.preprocess import colmap_wrapper as t_cw
 from vqnerf_release_torch.preprocess import data_gen as t_gen
 from vqnerf_release_torch.utils import backup as t_backup
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _assert_same(got, want, what=""):

@@ -48,6 +48,18 @@ from vqnerf_release_torch.train import decomp_trainer as t_dt
 from vqnerf_release_torch.train import loop as t_loop
 from vqnerf_release_torch.utils import ckpt as t_ckpt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 24
 N_STEPS = 5
 TRAIN = dict(SMALL, epochs=2, n_rays_per_step=16)

@@ -21,6 +21,18 @@ from vqnerf_release_torch.kernels import render as kr
 from vqnerf_release_torch.ops.render import \
     fused_render_equation as t_fused_render_equation
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 2e-4, 1e-5
 
 

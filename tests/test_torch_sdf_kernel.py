@@ -22,6 +22,18 @@ from vqnerf_release_torch.interop.jax_params import from_jax
 from vqnerf_release_torch.kernels import sdf as ks
 from vqnerf_release_torch.models import fields as tf
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NETS = {
     "default": dict(),
     "scale2": dict(scale=2.0),

@@ -27,6 +27,18 @@ from vqnerf_release_torch.models import fields as tf
 from vqnerf_release_torch.models import sdf_manual
 from vqnerf_release_torch.models.sdf_manual import sdf_vfg_manual
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BASE = dict(d_hidden=64, n_layers=4, d_out=65, multires=6, skip_in=(2,),
             scale=1.5)
 CASES = {"jax_test": {}, "multires0": dict(multires=0),

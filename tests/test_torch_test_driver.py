@@ -19,9 +19,22 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tests.test_data_layer import _make_synth_scene
 from tests.test_torch_models import SMALL, jax_params
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIGHT_H = 4  # 8-pixel-wide probes: cv2 writes them run-length encoded
@@ -271,7 +284,8 @@ def test_port_runs_without_jax_or_cv2():
     from its checkpoint, and the capture front end and file formats (the
     preprocessing modules, a JPEG decode, an EXR probe, the BRDF sphere)
     load neither jax nor cv2 nor any module of the JAX package."""
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    # one thread, as the module pins it: the suite's workers share the host
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)

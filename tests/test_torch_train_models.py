@@ -28,6 +28,18 @@ from vqnerf_release_torch.models import decomp_common as t_dc
 from vqnerf_release_torch.models import nfr_unit as t_nfr
 from vqnerf_release_torch.models import vq_nfr as t_vq
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RENDERED = ("rgb", "rgb_diff", "rgb_spec", "vq_rgb", "rgb_pred_linear",
             "vq_rgb_linear")
 N = 24  # 12 jitter pairs

@@ -35,6 +35,18 @@ from vqnerf_release_torch.models import decomp_common as t_dc
 from vqnerf_release_torch.ops.vq import init_vq_ema_state as t_init_ema
 from vqnerf_release_torch.train import decomp_trainer as t_dt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_STEPS = 5
 N = 24
 

@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tests.test_dtu_pipeline import _make_dtu_scene
 from tests.test_gen_geo import _lookat_c2w
@@ -43,6 +44,18 @@ from vqnerf_release_torch.interop.jax_params import from_jax
 from vqnerf_release_torch.models import decomp_common as t_dc
 from vqnerf_release_torch.pipelines import gen_geo as t_geo
 from vqnerf_release_torch.pipelines import gen_video as t_gv
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 RTOL, ATOL = 1e-4, 1e-5
 NEAR, FAR = 0.5, 3.5

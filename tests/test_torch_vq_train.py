@@ -25,6 +25,18 @@ from vqnerf_release_torch.kernels import vq as t_kernel
 from vqnerf_release_torch.ops import kmeans as t_kmeans
 from vqnerf_release_torch.ops import vq as t_vq
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the suite's workers share the
+    host, and a pool of spinning threads a worker turns these tests'
+    small operations into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-5
 KW = dict(commitment_cost=0.1, decay=0.999, epsilon=1e-5, is_training=True)
 

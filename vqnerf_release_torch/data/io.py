@@ -300,17 +300,25 @@ def write_png(path, img):
 
 def write_apng(path, frames, duration_ms=1000):
     """Frames of one shape and dtype -> an animated PNG that loops forever;
-    the first frame is also the still image."""
+    the first frame is also the still image. ``duration_ms`` is one delay
+    for every frame or a list of one a frame (whole milliseconds, at most
+    65535)."""
     parts = [_png_parts(f, "write_apng") for f in frames]
     ihdr, _, (w, h) = parts[0]
     if any(p[0] != ihdr for p in parts):
         raise ValueError("write_apng: frames differ in shape or dtype")
+    if isinstance(duration_ms, (list, tuple)):
+        if len(duration_ms) != len(parts):
+            raise ValueError("write_apng: one duration a frame")
+        delays = list(duration_ms)
+    else:
+        delays = [duration_ms] * len(parts)
     out = [_PNG_SIG, ihdr,
            _png_chunk(b"acTL", struct.pack(">II", len(parts), 0))]
     seq = 0
     for i, (_, data, _) in enumerate(parts):
         out.append(_png_chunk(b"fcTL", struct.pack(
-            ">IIIIIHHBB", seq, w, h, 0, 0, duration_ms, 1000, 0, 0)))
+            ">IIIIIHHBB", seq, w, h, 0, 0, delays[i], 1000, 0, 0)))
         seq += 1
         if i == 0:
             out.append(_png_chunk(b"IDAT", data))
