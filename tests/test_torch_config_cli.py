@@ -12,7 +12,8 @@ JAX package's, on the CPU:
     ``from_jax``: the .npy files at rtol 1e-5 / atol 1e-6, the PNGs equal;
   * ``reselect_main`` on a validation directory the test writes: the same
     k and the same moved marker;
-  * ``utils/profiling``: the trace written, ``None`` a no-op;
+  * ``utils/profiling``: the trace and the spans written, ``None`` a
+    no-op;
   * ``scripts/torch_{geo,train,test,video}.sh``: the JAX scripts' commands
     on the port's CLI.
 """
@@ -265,16 +266,13 @@ def test_profiling_trace_and_step_timer(tmp_path):
     with profiling.trace(None):
         pass
     with profiling.trace(str(tmp_path / "prof")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with profiling.span("matmul", step=3):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
     assert (tmp_path / "prof" / "key_averages.txt").exists()
-    timer = profiling.StepTimer(str(tmp_path / "t" / "steps.json"))
-    for _ in range(3):
-        timer.start()
-        timer.stop(torch.ones(()))
-    s = timer.summary()
-    assert s["steps"] == 3 and s["best_ms"] <= s["p50_ms"] <= s["p90_ms"]
-    assert json.load(open(tmp_path / "t" / "steps.json")) == s
+    spans = json.load(open(tmp_path / "prof" / "spans.json"))["spans"]
+    assert [(s["name"], s["step"]) for s in spans] == [("matmul", 3)]
+    assert spans[0]["start_ns"] <= spans[0]["end_ns"]
 
 
 @pytest.mark.parametrize("name",

@@ -52,6 +52,13 @@ from . import config as vcfg
 
 __all__ = ["main"]
 
+_PROFILE_HELP = ("write a torch.profiler trace there: trace.json (Chrome "
+                 "trace format), the operator table, spans.json (the "
+                 "program's spans and counters) and idle_gaps.json (the "
+                 "device's longest idle gaps, each labelled with the span "
+                 "and the runtime call open in it)")
+
+
 def _add_common(p):
     p.add_argument("scene")
     p.add_argument("--data-root", required=True)
@@ -616,8 +623,7 @@ def main(argv=None):
     p.add_argument("--n-samples", type=int, default=0,
                    help="shrink the sampler for smoke runs")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace (trace.json, Chrome "
-                        "trace format) and its operator table there")
+                   help=_PROFILE_HELP)
     p.set_defaults(fn=cmd_geo_train)
 
     p = sub.add_parser("gen-geo")
@@ -687,8 +693,7 @@ def main(argv=None):
     p.add_argument("--preset-override", default="",
                    help="k=v,... overrides onto the family preset")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace (trace.json, Chrome "
-                        "trace format) and its operator table there")
+                   help=_PROFILE_HELP)
     p.add_argument("--debug", action="store_true",
                    help="1 epoch, single train view and single validation "
                         "view (the reference's trainvali.py --debug)")

@@ -68,6 +68,7 @@ from ..models.vq_nfr import (vq_encode, vq_nfr_row_sums, vq_nfr_rows,
                              vq_nfr_train_loss)
 from ..ops.vq import VqEmaState, vq_ema_apply
 from ..parallel.mesh import MeshStreams, pad_rows, shard_batch
+from ..utils import profiling
 from ..utils.device import resolve_device
 from .graphed import StepGraph
 
@@ -427,22 +428,29 @@ class EpochScan:
         if not 0 < n <= self.rows:
             raise ValueError(f"a chunk of {n} steps; this scan stages 1 to "
                              f"{self.rows}")
-        self.vi[:n].copy_(torch.from_numpy(np.asarray(vi, np.int64)))
-        self.lr[:n].copy_(torch.from_numpy(np.asarray(lrs, np.float32)))
-        if self.sampler is None:
-            self.pix[:n].copy_(torch.from_numpy(np.asarray(pix, np.int64)))
-        else:
-            for j, seed in enumerate(sampling_seeds):
-                self._sampling_gen.manual_seed(int(seed))
-                jidx, u = self.sampler.draw(self._sampling_gen)
-                if jidx is not None:
-                    self.jidx[j].copy_(jidx)
-                self.u[j].copy_(u)
-        if self.roll is not None:
-            k = self.roll.shape[-1]
-            for j in range(n):  # _draw_roll's draw, one a step
-                self.roll[j].copy_(torch.rand(
-                    (1, k), generator=roll_gen, device=self.roll.device))
+        with profiling.span("scan.stage") as sp:
+            vi = np.asarray(vi, np.int64)
+            lrs = np.asarray(lrs, np.float32)
+            self.vi[:n].copy_(torch.from_numpy(vi))
+            self.lr[:n].copy_(torch.from_numpy(lrs))
+            if self.sampler is None:
+                pix = np.asarray(pix, np.int64)
+                self.pix[:n].copy_(torch.from_numpy(pix))
+            else:
+                for j, seed in enumerate(sampling_seeds):
+                    self._sampling_gen.manual_seed(int(seed))
+                    jidx, u = self.sampler.draw(self._sampling_gen)
+                    if jidx is not None:
+                        self.jidx[j].copy_(jidx)
+                    self.u[j].copy_(u)
+            if self.roll is not None:
+                k = self.roll.shape[-1]
+                for j in range(n):  # _draw_roll's draw, one a step
+                    self.roll[j].copy_(torch.rand(
+                        (1, k), generator=roll_gen, device=self.roll.device))
+            if sp:  # the host arrays copied over
+                profiling.count("h2d_bytes", vi.nbytes + lrs.nbytes + (
+                    pix.nbytes if self.sampler is None else 0))
         return n
 
     def run(self, n):

@@ -46,6 +46,7 @@ import torch
 from ..kernels import render as krender
 from ..kernels import sdf as ksdf
 from ..kernels import vq as kvq
+from ..utils import profiling
 
 __all__ = ["StepGraph", "launch_counts", "REPLAYS"]
 
@@ -107,38 +108,43 @@ class StepGraph:
 
     def _capture(self):
         """The first step eagerly on a side stream, then the capture."""
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self._step()
-        current.wait_stream(side)
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        if self._others:  # one pool id for the graph on every card
-            self._pool = torch.cuda.graph_pool_handle()
-        try:
-            with torch.cuda.device(self.device), torch.cuda.graph(
-                    graph, pool=self._pool):
-                for i in self._others:
-                    torch._C._cuda_beginAllocateToPool(i, self._pool)
-                try:
-                    self._step()
-                finally:
+        profiling.count("graph.captures")
+        with profiling.span("graph.capture"):
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self._step()
+            current.wait_stream(side)
+            before = launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            if self._others:  # one pool id for the graph on every card
+                self._pool = torch.cuda.graph_pool_handle()
+            try:
+                with torch.cuda.device(self.device), torch.cuda.graph(
+                        graph, pool=self._pool):
                     for i in self._others:
-                        torch._C._cuda_endAllocateToPool(i, self._pool)
-        except Exception as e:
-            raise RuntimeError(
-                "capturing the training step as a CUDA graph failed; the "
-                "step must not synchronise with the host, allocate outside "
-                "the graph's pool or draw random numbers (%s)" % e) from e
-        after = launch_counts()
-        self.launches_per_replay = {k: after[k] - before[k] for k in after}
-        _add_counts(self.launches_per_replay, -1)  # the capture launched none
-        # the VQ kernel's scratch as the graph recorded it: a later eager
-        # call that grows the scratch must not free these buffers
-        self._pinned = kvq.scratch_buffers()
-        self.graph = graph
+                        torch._C._cuda_beginAllocateToPool(i, self._pool)
+                    try:
+                        self._step()
+                    finally:
+                        for i in self._others:
+                            torch._C._cuda_endAllocateToPool(i, self._pool)
+            except Exception as e:
+                raise RuntimeError(
+                    "capturing the training step as a CUDA graph failed; the "
+                    "step must not synchronise with the host, allocate "
+                    "outside the graph's pool or draw random numbers (%s)"
+                    % e) from e
+            after = launch_counts()
+            self.launches_per_replay = {k: after[k] - before[k]
+                                        for k in after}
+            # the capture launched none
+            _add_counts(self.launches_per_replay, -1)
+            # the VQ kernel's scratch as the graph recorded it: a later eager
+            # call that grows the scratch must not free these buffers
+            self._pinned = kvq.scratch_buffers()
+            self.graph = graph
 
     def close(self):
         """Free the graph and its private memory pool (a later ``run``
@@ -156,16 +162,18 @@ class StepGraph:
                              f"1 to {self.rows}")
         self.counter.zero_()
         if self.device.type != "cuda":
-            for _ in range(n):
-                self._step()
+            with profiling.span("graph.replay"):
+                for _ in range(n):
+                    self._step()
             return self.out[:n]
         first = 0
         if self.graph is None:
             self._capture()
             first = 1
         global REPLAYS
-        for _ in range(n - first):
-            self.graph.replay()
+        with profiling.span("graph.replay"):
+            for _ in range(n - first):
+                self.graph.replay()
         self.replays += n - first
         REPLAYS += n - first
         _add_counts(self.launches_per_replay, n - first)

@@ -92,6 +92,7 @@ from ..ops.math import rgb2chromaticity
 from ..ops.vq import VqEmaState, init_vq_ema_state
 from ..parallel.mesh import get_mesh
 from ..utils import ckpt as ckpt_util
+from ..utils import profiling
 from ..utils.device import resolve_device
 from ..utils.html import write_vali_index
 from ..utils.vis import vis_view
@@ -189,13 +190,23 @@ def sample_view_pix_many(views, n_rays, rng, jitter_mode="random",
     ``rng``: the seeds are drawn first, serially, and the calls (which
     release the interpreter lock) run on a thread pool. In numpy ``rng``
     threads through every call, serially."""
+    cause = profiling.current()  # the span the pool's selections belong to
+    parent, step = (cause.id, cause.step) if cause else (None, None)
     if _native_mode() == "native":
         seeds = [int(rng.randint(0, 2**31 - 1)) for _ in views]
-        return list(_sampler_pool().map(
-            lambda vs: _native_select(vs[0], n_rays, vs[1], jitter_mode,
-                                      alpha_thres), zip(views, seeds)))
-    return [sample_view_pix(v, n_rays, rng, jitter_mode=jitter_mode,
-                            alpha_thres=alpha_thres) for v in views]
+
+        def select(vs):
+            with profiling.span("sampler.select", parent=parent, step=step):
+                return _native_select(vs[0], n_rays, vs[1], jitter_mode,
+                                      alpha_thres)
+        return list(_sampler_pool().map(select, zip(views, seeds)))
+    out = []
+    for v in views:
+        with profiling.span("sampler.select"):
+            out.append(sample_view_pix(v, n_rays, rng,
+                                       jitter_mode=jitter_mode,
+                                       alpha_thres=alpha_thres))
+    return out
 
 
 def outer_sample(view, n_rays, rng, jitter_mode="random", alpha_thres=0.9):
@@ -426,20 +437,23 @@ def _epoch_scan_xs(train_views, cfg, rng, jitter_mode, step0, n_epochs=1,
     [E*K, 2n] sampled epoch by epoch (``sample_view_pix_many``: the
     per-step path's RandomState stream) or, with a device ``sampler``, one
     seed a step."""
-    vi, steps, lrs = _epoch_scan_xs_nopix(train_views, cfg, step0, n_epochs)
-    if sampler is not None:
-        return {"vi": vi, "lrs": lrs,
-                "sampling_seeds": _sampling_base_key(seed) + steps}
-    pix = np.stack(sample_view_pix_many(
-        [v for _ in range(n_epochs) for v in train_views],
-        cfg.n_rays_per_step, rng, jitter_mode=jitter_mode))
-    return {"vi": vi, "lrs": lrs, "pix": pix}
+    with profiling.span("loop.sample", step=int(step0)):
+        vi, steps, lrs = _epoch_scan_xs_nopix(train_views, cfg, step0,
+                                              n_epochs)
+        if sampler is not None:
+            return {"vi": vi, "lrs": lrs,
+                    "sampling_seeds": _sampling_base_key(seed) + steps}
+        pix = np.stack(sample_view_pix_many(
+            [v for _ in range(n_epochs) for v in train_views],
+            cfg.n_rays_per_step, rng, jitter_mode=jitter_mode))
+        return {"vi": vi, "lrs": lrs, "pix": pix}
 
 
 def _rows_to_dicts(rows, keys):
     """Loss rows [n, len(keys)] on the device -> n {name: float}, one copy
     from the device."""
-    mat = rows.cpu().numpy().astype(np.float64)
+    with profiling.span("loop.fetch"):
+        mat = rows.cpu().numpy().astype(np.float64)
     return [{k: float(mat[j, i]) for i, k in enumerate(keys)}
             for j in range(mat.shape[0])]
 

@@ -59,6 +59,7 @@ from ..ops.marching_cubes import marching_cubes
 from ..ops.occupancy import (build_occ_grid, interior_fraction,
                              ray_occupied_span)
 from ..utils import ckpt as ckpt_util
+from ..utils import profiling
 from ..utils.device import resolve_device
 from .loop import _sync_scalar_dicts
 from .neus_trainer import (NeuSTrainConfig, make_neus_multi_step,
@@ -207,17 +208,22 @@ class NeuSRunner:
 
     # -- training ----------------------------------------------------------
     def _host_batch(self):
-        n = self.dataset.n_images
-        img_idx = int(self._image_perm[self._perm_i % n])
-        data = self.dataset.gen_random_rays(img_idx, self.tcfg.batch_size,
-                                            self.rng)
-        near, far = self.dataset.near_far(data["rays_o"], data["rays_d"])
-        self._perm_i += 1
-        if self._perm_i % n == 0:
-            self._image_perm[:] = self.rng.permutation(n)
-        batch = {**data, "near": near, "far": far,
-                 "valid": np.ones((self.tcfg.batch_size, 1), np.float32)}
-        return {k: self._to_device(v) for k, v in batch.items()}
+        with profiling.span("neus.host_batch", step=self.iter_step):
+            n = self.dataset.n_images
+            img_idx = int(self._image_perm[self._perm_i % n])
+            data = self.dataset.gen_random_rays(
+                img_idx, self.tcfg.batch_size, self.rng)
+            near, far = self.dataset.near_far(data["rays_o"], data["rays_d"])
+            self._perm_i += 1
+            if self._perm_i % n == 0:
+                self._image_perm[:] = self.rng.permutation(n)
+            batch = {**data, "near": near, "far": far,
+                     "valid": np.ones((self.tcfg.batch_size, 1), np.float32)}
+            with profiling.span("neus.h2d") as sp:
+                if sp:  # the bytes each copy lands on the device
+                    profiling.count("h2d_bytes", 4 * sum(
+                        np.size(v) for v in batch.values()))
+                return {k: self._to_device(v) for k, v in batch.items()}
 
     def tail_start(self, end=None):
         """The first step of the tail phase (``end`` when there is none): a
@@ -233,7 +239,8 @@ class NeuSRunner:
                 self.iter_step - self._occ_built_at
                 < self.tcfg.occ_update_freq):
             return
-        self._occ_grid = self._build_occ()
+        with profiling.span("neus.occ_rebuild", step=self.iter_step):
+            self._occ_grid = self._build_occ()
         self._occ_built_at = self.iter_step
         self.occ_builds.append(self.iter_step)
         if self._carve_alt is None and self.iter_step >= self.tcfg.warm_up_end:

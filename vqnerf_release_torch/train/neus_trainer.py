@@ -41,6 +41,7 @@ import torch
 from ..kernels import sdf as sdf_kernel
 from ..models.neus import NeuSConfig, fused_sdf_enabled, neus_render
 from ..ops.occupancy import ray_occupied_span
+from ..utils import profiling
 from .graphed import StepGraph
 
 __all__ = ["NeuSTrainConfig", "neus_lr_factor", "cos_anneal_ratio",
@@ -240,58 +241,59 @@ def make_neus_train_step(model, cfg: NeuSConfig, tcfg: NeuSTrainConfig,
 
     def step_fn(batch, step, occ_grid=None, rand=None, generator=None,
                 lr=None, anneal=None):
-        if with_occ and occ_grid is None:
-            raise ValueError("this step takes the occupancy grid")
-        if not with_occ:
-            occ_grid = None
-        if anneal is None:
-            anneal = cos_anneal_ratio(step, tcfg)
-        fused = fused_sdf_enabled(use_fused_sdf, batch["rays_o"])
-        # the current weights, packed once for every chain of this step
-        packed = (sdf_kernel.pack_sdf(model.sdf, cfg.sdf)
-                  if fused and cfg.n_importance > 0 else None)
-        extras = {}
-        if active_cap is not None:
-            out, batch, extras = two_tier(batch, rand, generator, anneal,
-                                          occ_grid, fused, packed)
-        else:
-            out = render(cfg, batch, slice(None), rand, generator, anneal,
-                         occ_grid, fused, packed)
-        valid = batch["valid"]
-        if tcfg.mask_weight > 0:
-            mask = (batch["mask"] > 0.5).to(torch.float32) * valid
-        else:
-            mask = torch.ones_like(batch["mask"]) * valid
-        mask_sum = torch.sum(mask) + 1e-5
-        color_err = (out["color_fine"] - batch["rgb"]) * mask
-        color_loss = torch.sum(torch.abs(color_err)) / mask_sum
-        mse = torch.sum(color_err ** 2) / (mask_sum * 3.0)
-        psnr = 20.0 * torch.log10(1.0 / torch.sqrt(mse))
-        eikonal_loss = out["gradient_error"]
-        w = torch.clamp(out["weight_sum"], 1e-3, 1.0 - 1e-3)
-        bce = -(batch["mask"] * torch.log(w)
-                + (1.0 - batch["mask"]) * torch.log(1.0 - w))
-        mask_loss = torch.sum(bce * valid) / torch.clamp(torch.sum(valid),
-                                                         min=1.0)
-        loss = (color_loss + eikonal_loss * tcfg.igr_weight
-                + mask_loss * tcfg.mask_weight)
+        with profiling.span("neus.step", step=step):
+            if with_occ and occ_grid is None:
+                raise ValueError("this step takes the occupancy grid")
+            if not with_occ:
+                occ_grid = None
+            if anneal is None:
+                anneal = cos_anneal_ratio(step, tcfg)
+            fused = fused_sdf_enabled(use_fused_sdf, batch["rays_o"])
+            # the current weights, packed once for every chain of this step
+            packed = (sdf_kernel.pack_sdf(model.sdf, cfg.sdf)
+                      if fused and cfg.n_importance > 0 else None)
+            extras = {}
+            if active_cap is not None:
+                out, batch, extras = two_tier(batch, rand, generator, anneal,
+                                              occ_grid, fused, packed)
+            else:
+                out = render(cfg, batch, slice(None), rand, generator, anneal,
+                             occ_grid, fused, packed)
+            valid = batch["valid"]
+            if tcfg.mask_weight > 0:
+                mask = (batch["mask"] > 0.5).to(torch.float32) * valid
+            else:
+                mask = torch.ones_like(batch["mask"]) * valid
+            mask_sum = torch.sum(mask) + 1e-5
+            color_err = (out["color_fine"] - batch["rgb"]) * mask
+            color_loss = torch.sum(torch.abs(color_err)) / mask_sum
+            mse = torch.sum(color_err ** 2) / (mask_sum * 3.0)
+            psnr = 20.0 * torch.log10(1.0 / torch.sqrt(mse))
+            eikonal_loss = out["gradient_error"]
+            w = torch.clamp(out["weight_sum"], 1e-3, 1.0 - 1e-3)
+            bce = -(batch["mask"] * torch.log(w)
+                    + (1.0 - batch["mask"]) * torch.log(1.0 - w))
+            mask_loss = torch.sum(bce * valid) / torch.clamp(torch.sum(valid),
+                                                             min=1.0)
+            loss = (color_loss + eikonal_loss * tcfg.igr_weight
+                    + mask_loss * tcfg.mask_weight)
 
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, params)]
-        if lr is None:
-            lr = tcfg.learning_rate * neus_lr_factor(step, tcfg)
-        ok = opt.step(grads, lr, loss)
-        metrics = {"loss": loss, "color_loss": color_loss,
-                   "eikonal_loss": eikonal_loss, "mask_loss": mask_loss,
-                   "psnr": psnr, "s_val": torch.mean(out["s_val"]),
-                   **extras}
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if opt.guard:
-            metrics["nonfinite_grads"] = 1.0 - ok.to(torch.float32)
-        metrics["lr"] = (lr if torch.is_tensor(lr) else torch.tensor(
-            lr, dtype=torch.float32, device=loss.device))
-        return metrics
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, params)]
+            if lr is None:
+                lr = tcfg.learning_rate * neus_lr_factor(step, tcfg)
+            ok = opt.step(grads, lr, loss)
+            metrics = {"loss": loss, "color_loss": color_loss,
+                       "eikonal_loss": eikonal_loss, "mask_loss": mask_loss,
+                       "psnr": psnr, "s_val": torch.mean(out["s_val"]),
+                       **extras}
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if opt.guard:
+                metrics["nonfinite_grads"] = 1.0 - ok.to(torch.float32)
+            metrics["lr"] = (lr if torch.is_tensor(lr) else torch.tensor(
+                lr, dtype=torch.float32, device=loss.device))
+            return metrics
 
     return opt, step_fn
 
