@@ -80,6 +80,11 @@ fast-vis shadow pass.)
        and a whole 512x512 view in one call (as apply_edit launches it);
        rtol 2e-4, atol 1e-5 (a 512-term fp32 sum taken in another order),
        and the fused vq_fast_render against the eager;
+     fused_brdf_render_maps: the relight pass's maps (the learned light,
+       the probes, the OLATs) over a 49,152-ray chunk of a view and over
+       its ragged last chunk, lvis given, one launch of the vector
+       instance each, at the same tolerance; timed beside its plain twin,
+       a view's device time the chunks' sum;
      vq_fused_train: N = 2,048, 65,536 and a ragged 1,000 rows of a train
        view (strided, so background rows are in), K = 15 and 8, with and
        without dropped codes, in two stages: (i) indices equal to the plain
@@ -182,8 +187,9 @@ fast-vis shadow pass.)
    its defaults (kernels 3 and 4 launched; each frame's 8 files and
    metadata finite), gen-video in the five modes with the probes and an
    edit workspace written with edit_client (kernel 1 in recon, gen_comps,
-   edit and vq_dcomps, none in relight, whose probes take the plain
-   path; video.avi of recon and gen_comps held to its header's frame
+   edit and vq_dcomps; in relight, whose learned light and probes are
+   rendered together, the multi-map kernel alone; video.avi of recon and
+   gen_comps held to its header's frame
    count, size and rate), and `python -m vqnerf_release_torch.cli
    edit-server` as a subprocess (SERVER_LAUNCHER), sent one edit, waited
    for and terminated, which reports its own launch counts and peak memory
@@ -261,7 +267,9 @@ fast-vis shadow pass.)
    1e-5 with kernel 2 once a step, each step's time beside one device's;
 15. prints the pass times, peak device memory of each path, each
    subcommand's seconds, the script's total, a {"kernels": [...]} line with
-   all four kernels (each with ms, device_ms, plain_ms, bound_ms; kernel
+   all five kernels (each with ms, device_ms, plain_ms, bound_ms; the
+   multi-map kernel's launches are run_test's and, by step, those its
+   render_instances record in the edit, eval, capture and final steps; kernel
    3's launches are those of NeuS training and extraction, given apart on
    an earlier line; cli_launches, the launches of step 10, and
    cli_launches_by_subcommand; edit_video_launches and
@@ -2099,6 +2107,102 @@ def check_render_kernel(vq, cfg, view, lxyz, lareas, device):
     }
 
 
+def check_render_maps_kernel(vq, cfg, view, lxyz, lareas, env_dir, device):
+    """The multi-map kernel against its plain twin at the relight pass's
+    chunks of a served view (49,152 rows through the sphere, and the view's
+    ragged last chunk), lvis given, under the pass's maps: the learned
+    light, the probes and the OLATs; returns the kernels-line entry without
+    its launch count."""
+    batch = {k: torch.as_tensor(x, device=device)
+             for k, x in view.as_batch().items() if k != "ref"}
+    _, probes, _, olats = load_novel_lights(env_dir, cfg.light_h)
+    maps = torch.cat([dc.get_light(vq).reshape(1, -1, 3)] + [
+        torch.as_tensor(m, dtype=torch.float32, device=device)
+        for m in (probes, olats)])
+    e, l = maps.shape[0], cfg.n_lights
+    table = render_kernel.pack_light_maps(lxyz, lareas, maps)
+    n_view = batch["xyz"].shape[0]
+    first_ragged = (n_view - 1) // _RAY_CHUNK * _RAY_CHUNK
+    runs = {}
+    for what, rows in (("chunk", slice(2 * _RAY_CHUNK, 3 * _RAY_CHUNK)),
+                       ("ragged last chunk", slice(first_ragged, n_view))):
+        args = kernel_inputs(vq, cfg, {k: v[rows] for k, v in batch.items()},
+                             lxyz, lareas)[:7] + [table]
+        before = dict(render_kernel.LAUNCHES_BY_INSTANCE)
+        got = render_kernel.fused_brdf_render_maps(*args)
+        want = render_kernel.fused_brdf_render_maps_reference(*args)
+        torch.cuda.synchronize()
+        before["maps_vector"] += 1
+        if render_kernel.LAUNCHES_BY_INSTANCE != before:
+            raise AssertionError(f"multi-map {what}: not one launch of the "
+                                 "vector instance")
+        err = _compare(got, want, "fused_brdf_render_maps, " + what)
+        n = args[0].shape[0]
+        print("fused_brdf_render_maps vs plain version, %s %dx%dx%d: max abs "
+              "err %.3e" % (what, n, l, e, err))
+        runs[what] = (args, n, err)
+
+    # every input read once, the outputs written once; per pair the
+    # benchmark's count (benchmark/counts/decomp.py): the light direction
+    # 12 operations, the GGX BRDF 75, the weight 12, and 6 a map
+    def bound(n):
+        nbytes = 4 * (n * (5 * 3 + 1) + n * l + (4 + 3 * e) * l + n * 3 * e)
+        ops = (12 + 75 + 12 + 6 * e) * n * l
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * ops / FP32_OPS_PER_S
+        return max(bytes_ms, ops_ms), bytes_ms, ops_ms, nbytes, ops
+
+    args, n, _ = runs["chunk"]
+    ms = _time_ms(lambda: render_kernel.fused_brdf_render_maps(*args))
+    device_ms, per_call = _device_ms(
+        lambda: render_kernel.fused_brdf_render_maps(*args))
+    plain_ms = _time_ms(
+        lambda: render_kernel.fused_brdf_render_maps_reference(*args), reps=3)
+    bound_ms, bytes_ms, ops_ms, nbytes, ops = bound(n)
+    print("fused_brdf_render_maps at %d rays x %d lights x %d maps: %.4f ms a "
+          "call (events around 50 calls), %.4f ms of device time a call in "
+          "%.1f launches (torch.profiler); plain version %.4f ms; bound %.4f "
+          "ms (%d bytes: %.4f ms; %d operations: %.4f ms): %.1f%% of it by "
+          "device time" % (n, l, e, ms, device_ms, per_call, plain_ms,
+                           bound_ms, nbytes, bytes_ms, ops, ops_ms,
+                           100 * bound_ms / device_ms))
+    ragged, n_ragged, _ = runs["ragged last chunk"]
+    ragged_device_ms, _ = _device_ms(
+        lambda: render_kernel.fused_brdf_render_maps(*ragged))
+    ragged_plain_ms = _time_ms(
+        lambda: render_kernel.fused_brdf_render_maps_reference(*ragged),
+        reps=3)
+    ragged_bound_ms = bound(n_ragged)[0]
+    # a view is its full chunks and the ragged one
+    full = first_ragged // _RAY_CHUNK
+    view_device_ms = full * device_ms + ragged_device_ms
+    view_bound_ms, view_bytes_ms, view_ops_ms, _, _ = bound(n_view)
+    print("fused_brdf_render_maps at the ragged %d rays: %.4f ms of device "
+          "time; plain version %.4f ms; bound %.4f ms. A %d-row view (%d "
+          "chunks and the ragged one): %.4f ms of device time against a bound "
+          "of %.4f ms (bytes %.4f ms, operations %.4f ms)"
+          % (n_ragged, ragged_device_ms, ragged_plain_ms, ragged_bound_ms,
+             n_view, full, view_device_ms, view_bound_ms, view_bytes_ms,
+             view_ops_ms))
+    return {
+        "name": "fused_brdf_render_maps", "route": "cuda",
+        "source": "vqnerf_release_torch/csrc/render_kernel.cu",
+        "replaces": None,  # the JAX package relights through plain ops
+        "maps": e,
+        "max_abs_err": max(err for _, _, err in runs.values()),
+        "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call computes it
+        "ragged": {"rays": n_ragged, "device_ms": ragged_device_ms,
+                   "plain_ms": ragged_plain_ms, "bound_ms": ragged_bound_ms},
+        "whole_view": {"rays": n_view, "device_ms": view_device_ms,
+                       "bound_ms": view_bound_ms,
+                       "bound_by": ("bytes" if view_bytes_ms >= view_ops_ms
+                                    else "operations")},
+    }
+
+
 def render_issue_floors(pairs):
     """The issue floor of the render kernel's light loop, from the machine
     code of the built library: for each instance of the kernel, the
@@ -3388,12 +3492,19 @@ def _step(name, fn, steps, label="edit/video"):
     return out
 
 
-def _assert_vector_render(step, name):
+def _assert_vector_render(step, name, relit=False):
+    """Kernel 1 launched, and with ``relit`` the multi-map kernel too (a
+    relight pass), every launch of their 16-byte instances; without
+    ``relit`` no multi-map launch."""
     n = step["launches"]["fused_brdf_render"]
-    if n <= 0 or step["render_instances"] != {"vector": n, "scalar": 0}:
+    inst = step["render_instances"]
+    if n <= 0 or inst["vector"] != n or inst["scalar"] \
+            or inst.get("maps_scalar") \
+            or (inst.get("maps_vector", 0) > 0) != relit:
         raise AssertionError(f"{name}: render kernel launches {n}, by "
-                             f"instance {step['render_instances']}; every "
-                             "launch must be of the 16-byte instance")
+                             f"instance {inst}; every launch must be of the "
+                             "16-byte instances, the multi-map kernel's "
+                             + ("in a relight pass" if relit else "none"))
 
 
 def _most_common_code(embed):
@@ -3729,10 +3840,13 @@ def video_cli_phase(root, env_dir, device):
         name = "gen-video " + mode
         n = steps[name]["launches"]["fused_brdf_render"]
         # the ref_fast_render of recon and gen_comps and the vq_fast_render
-        # of edit and vq_dcomps take the kernel; relight's probes do not
+        # of edit and vq_dcomps take kernel 1; relight's learned light and
+        # probes the multi-map kernel alone
         if mode == "relight":
-            if n:
-                raise AssertionError(f"{name} launched the render kernel")
+            inst = steps[name]["render_instances"]
+            if n or inst["maps_scalar"] or not inst["maps_vector"]:
+                raise AssertionError(f"{name}: kernel 1 launched {n} times, "
+                                     f"the multi-map kernel {inst}")
         else:
             _assert_vector_render(steps[name], name)
         d = os.path.join(ref_out, "vis_video", mode)
@@ -4523,7 +4637,7 @@ def eval_import_phase(root, paths, serve_root, device):
                  "imh=%d" % CLI_IMH, "--device", str(device)]
     _step("test (TF-imported)", lambda: cli.main(test_argv), steps,
           "eval and import")
-    _assert_vector_render(steps["test (TF-imported)"], "test (TF-imported)")
+    _assert_vector_render(steps["test (TF-imported)"], "test (TF-imported)", relit=True)
     served = os.path.join(ref_out, "vis_test", "latest")
     again = os.path.join(vcfg.train_outdir(fresh, GEO_SCENE, "ref_nfr"),
                          "vis_test", "latest")
@@ -4908,7 +5022,7 @@ def exr_relight_steps(cfg, vq, ref, ds, vali_dir, paths, root, device,
             run_test, ref, vq, cfg, one, outs[key], env_dir,
             vali_epoch_dir=vali_dir, data_root=paths["data_root"],
             scene_name=SCENE, device=device), steps, label="capture")
-        _assert_vector_render(steps["test " + key], "capture test " + key)
+        _assert_vector_render(steps["test " + key], "capture test " + key, relit=True)
 
     def relit(key):
         d = os.path.join(outs[key], "pd_relit", "batch%09d" % 0)
@@ -5295,7 +5409,7 @@ def import_parallel_phase(root, paths, device):
                 "imh=%d" % CLI_IMH, "--device", str(device)]
     report = _step("acceptance", lambda: acc.main(
         acc_argv + ["--ref-scores", own]), steps, label)
-    _assert_vector_render(steps["acceptance"], "acceptance test")
+    _assert_vector_render(steps["acceptance"], "acceptance test", relit=True)
     stray = {k: v for k, v in steps["acceptance"]["launches"].items()
              if v and k != "fused_brdf_render"}
     rows = report["comparison"]
@@ -5520,10 +5634,14 @@ def main():
         peak = torch.cuda.max_memory_allocated()
         if render_launches <= 0:
             raise AssertionError("run_test never launched the render kernel")
-        if render_kernel.LAUNCHES_BY_INSTANCE != {"vector": render_launches,
-                                                  "scalar": 0}:
+        # pd_relit: one multi-map launch a chunk of a served view
+        relit = N_VIEWS * -(-cfg.imh * cfg.imh // _RAY_CHUNK)
+        if render_kernel.LAUNCHES_BY_INSTANCE != {
+                "vector": render_launches, "scalar": 0,
+                "maps_vector": relit, "maps_scalar": 0}:
             raise AssertionError(
-                "run_test at 512 lights left the 16-byte instance: %s"
+                "run_test at 512 lights left the 16-byte instances, or its "
+                "relight pass did not take one multi-map launch a chunk: %s"
                 % render_kernel.LAUNCHES_BY_INSTANCE)
         if info["n_vq"] != n_vq:
             raise AssertionError(f"n_vq {info['n_vq']} != {n_vq}")
@@ -5566,6 +5684,8 @@ def main():
         with torch.inference_mode():
             render_entry = check_render_kernel(vq, cfg, view, lxyz, lareas,
                                                device)
+            maps_entry = check_render_maps_kernel(
+                vq, cfg, view, lxyz, lareas, paths["env_dir"], device)
             vq_entry = check_vq_kernel(trained, cfg, device)
         fwd_entry, fwdgrad_entry = check_sdf_kernels(geo, neus["runner"],
                                                      device)
@@ -5587,6 +5707,7 @@ def main():
         print("host sampler phase: %.1f s" % (time.perf_counter() - t0),
               flush=True)
         render_entry["launches"] = render_launches
+        maps_entry["launches"] = relit
         vq_entry["launches"] = trained["launches"]
         fwd_entry["launches"] = neus["launches"] + geo["launches"]["sdf_fwd"]
         fwdgrad_entry["launches"] = geo["launches"]["sdf_fwdgrad"]
@@ -5697,9 +5818,19 @@ def main():
                    for step, st in manual_steps.items()}
         entry["sdf_manual_launches"] = sum(by_step.values())
         entry["sdf_manual_launches_by_step"] = by_step
+    # the multi-map kernel's launches, by instance in each step that
+    # records them (its launches are not among _launch_counts')
+    for label, steps in (("edit_video", edit_steps), ("eval_import",
+                                                      eval_steps),
+                         ("capture", capture_steps), ("final", final_steps)):
+        by_step = {step: st["render_instances"]["maps_vector"]
+                   + st["render_instances"]["maps_scalar"]
+                   for step, st in steps.items() if "render_instances" in st}
+        maps_entry[label + "_launches"] = sum(by_step.values())
+        maps_entry[label + "_launches_by_step"] = by_step
     print("total: %.1f s" % (time.perf_counter() - t_start))
-    print(json.dumps({"kernels": [render_entry, vq_entry, fwd_entry,
-                                  fwdgrad_entry]}))
+    print(json.dumps({"kernels": [render_entry, maps_entry, vq_entry,
+                                  fwd_entry, fwdgrad_entry]}))
     print("nvidia-smi:", smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -10,7 +10,9 @@ neither jax nor cv2, so it runs on a machine that has only PyTorch:
 Tolerance of the render kernel, rtol=2e-4, atol=1e-5: the JAX kernel test's
 own (tests/test_pallas_render.py), for a sum over L lights in another order.
 Its vector and scalar instances, its variants behind macros and the 16-byte
-loads in its machine code are checked here too.
+loads in its machine code are checked here too. The multi-map kernel of the
+same source is held at that tolerance to its twin and, at the relight pass's
+chunks, to the plain relight path on the card.
 
 The VQ kernel is held to its plain version in two stages, so that a
 near-tie does not look like a fault: (i) equal indices except on rows whose
@@ -42,6 +44,7 @@ from vqnerf_release_torch.kernels import vq as kv
 from vqnerf_release_torch.models import fields
 from vqnerf_release_torch.models import decomp_common as dc
 from vqnerf_release_torch.models.nfr_unit import init_nfr_unit
+from vqnerf_release_torch.models import vq_nfr
 from vqnerf_release_torch.models.vq_nfr import init_vq_nfr
 from vqnerf_release_torch.ops.render import fused_render_equation
 from vqnerf_release_torch.ops.vq import VqEmaState, init_vq_ema_state
@@ -251,6 +254,304 @@ def test_render_kernel_variants(cuda_device, monkeypatch):
               "(rough 0.05-0.95), %.3e (rough 0.02-0.1); ptxas %s; %s"
               % (name, ms, ms_null, float((got - want).abs().max()),
                  float((got_low - want_low).abs().max()), registers, spills))
+
+
+def _maps_args(t, n_maps, seed, with_lvis=True):
+    """The per-ray inputs of ``t`` with unit normals, its lvis and a table
+    of ``n_maps`` maps: skies with a bright sun and, every third, an OLAT of
+    200. Unit normals, as the geometry buffers hold: the plain relight path
+    (the twin) weights a light by its cosine to the normal as given, the
+    kernels to the normalised one."""
+    t["normal"] = t["normal"] / t["normal"].norm(dim=1, keepdim=True)
+    l = t["lxyz"].shape[0]
+    g = torch.Generator(device=t["xyz"].device).manual_seed(seed)
+    maps = torch.rand((n_maps, l, 3), generator=g, device=t["xyz"].device)
+    maps[:, l // 3] += 20.0
+    maps[2::3] = 0.0
+    maps[2::3, l // 2] = 200.0
+    table = kr.pack_light_maps(t["lxyz"], t["lareas"], maps)
+    return [t[k] for k in _PER_RAY] + [t["lvis"] if with_lvis else None,
+                                       table], maps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,light_h,n_lights,n_maps,with_lvis,instance", [
+    (49152, 16, None, 21, True, "maps_vector"),   # a relight chunk
+    (16384, 16, None, 21, True, "maps_vector"),   # a view's ragged last
+    (1000, 16, None, 21, False, "maps_vector"),
+    (1000, 16, None, 2, True, "maps_vector"),     # 2 maps, a pass of 24
+    (1000, 16, None, 30, True, "maps_vector"),    # two passes of 24
+    (37, 16, 510, 21, True, "maps_scalar"),
+    (1, 26, None, 9, True, "maps_vector"),        # 1,352 lights: 8 a pass
+])
+def test_maps_kernel_matches_twin(cuda_device, n, light_h, n_lights,
+                                  n_maps, with_lvis, instance):
+    """The multi-map kernel against its plain twin at the render kernel's
+    tolerance; one launch a pass, of the instance the launcher chooses."""
+    t = _inputs(n, light_h, cuda_device, seed=n + n_maps, n_lights=n_lights)
+    args, _ = _maps_args(t, n_maps, seed=n_maps, with_lvis=with_lvis)
+    l = args[7].shape[1]
+    per_pass = 24 if (4 + 3 * 24) * 4 * l <= 232448 else 8
+    before = dict(kr.LAUNCHES_BY_INSTANCE)
+    launches = kr.LAUNCHES
+    got = kr.fused_brdf_render_maps(*args)
+    torch.cuda.synchronize()
+    after = dict(before)
+    after[instance] += -(-n_maps // per_pass)
+    assert kr.LAUNCHES_BY_INSTANCE == after and kr.LAUNCHES == launches
+    assert got.shape == (n, n_maps, 3)
+    want = kr.fused_brdf_render_maps_reference(*args)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    print("%d rays x %d lights x %d maps: max abs err %.3e"
+          % (n, l, n_maps, float((got - want).abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [49152, 16384])
+def test_maps_kernel_rounds_as_the_plain_relight_path(cuda_device, n):
+    """At the relight pass's chunks (49,152 rows, and a 512x512 view's last
+    16,384), the multi-map kernel against the plain relight path on the
+    card (render_equation over microfacet_brdf, as vq_fast_render computed
+    it before), at the render kernel's tolerance over roughness 0.05-0.95:
+    its chain into the GGX term rounds as that path's (whose sum and dot
+    orders PyTorch takes for these shapes), where the GGX peak turns a last
+    bit of cos_nh into relative errors of 1e-3 and more. Kernel 1's gap to
+    the same path is printed beside it."""
+    from vqnerf_release_torch.ops.microfacet import microfacet_brdf
+    from vqnerf_release_torch.ops.render import render_equation
+    t = _inputs(n, 16, cuda_device, seed=11)
+    args, maps = _maps_args(t, 21, seed=11)
+    surf2c = t["surf2c"] / t["surf2c"].norm(dim=1, keepdim=True)
+    args[2] = surf2c
+    surf2l = dc.calc_ldir(t["lxyz"], t["xyz"])
+    brdf, _, _ = microfacet_brdf(surf2l, surf2c, t["normal"],
+                                 albedo=t["albedo"], rough=t["rough"],
+                                 f0=t["f0"])
+    plain = render_equation(brdf, surf2l, t["normal"], t["lareas"], maps,
+                            light_vis=t["lvis"], probe_batch=True)
+    del brdf, surf2l
+    clip = lambda x: torch.clamp(x, 0.0, 1.0)  # noqa: E731
+    got = clip(kr.fused_brdf_render_maps(*args))
+    one = clip(torch.stack([kr.fused_brdf_render(
+        *args[:7], kr.pack_lights(t["lxyz"], t["lareas"], maps[e]))
+        for e in range(21)], dim=1))
+    units = lambda a: float(((a - plain).abs()  # noqa: E731
+                             / (ATOL + RTOL * plain.abs())).max())
+    print("%d rows, against the plain relight path, in units of the "
+          "tolerance: multi-map kernel %.3f, kernel 1 %.3f"
+          % (n, units(got), units(one)))
+    torch.testing.assert_close(got, plain, rtol=RTOL, atol=ATOL)
+
+
+def _cublas_version():
+    """cuBLAS' version as the library PyTorch loaded reports it, or None."""
+    import ctypes
+    try:
+        lib = ctypes.CDLL("libcublas.so.%s" % torch.version.cuda.split(".")[0])
+        parts = []
+        for prop in range(3):  # MAJOR_VERSION, MINOR_VERSION, PATCH_LEVEL
+            v = ctypes.c_int(0)
+            if lib.cublasGetProperty(prop, ctypes.byref(v)) != 0:
+                return None
+            parts.append(str(v.value))
+        return ".".join(parts)
+    except (OSError, AttributeError):
+        return None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [49152, 16384])
+def test_torch_keeps_the_orders_the_maps_kernel_copies(cuda_device, n):
+    """The multi-map kernel's chain into the GGX term (AS_TORCH in the
+    source) copies two orders that PyTorch and cuBLAS choose on the card
+    for the plain relight path's shapes, and that no API promises:
+    torch.sum over a last dimension of 3 (safe_l2_normalize) adds
+    (x^2 + z^2) + y^2, and einsum("nlk,nk->nl") over 3 (microfacet_brdf's
+    cosines, a batched gemv) gives z b_z + fma(y, b_y, x b_x). Held bit for
+    bit at the relight pass's chunks (49,152 rows and a 512x512 view's last
+    16,384, 512 lights): a PyTorch or cuBLAS that orders them otherwise
+    fails here, and the relight cell's limit on its sRGB renders is then to
+    be derived again. Prints the versions held."""
+    from vqnerf_release_torch.ops.math import safe_l2_normalize
+    t = _inputs(n, 16, cuda_device, seed=3)
+    v = t["lxyz"][None] - t["xyz"][:, None]  # [N, L, 3]
+    x, y, z = v.unbind(-1)
+    ss = torch.sum(torch.square(v), dim=2)
+    h = safe_l2_normalize(v, axis=2)
+    nrm = safe_l2_normalize(t["normal"], axis=1)
+    dot = torch.einsum("nlk,nk->nl", h, nrm)
+    hx, hy, hz = h.unbind(-1)
+    by = lambda i: nrm[:, None, i]  # noqa: E731
+    want_dot = hz * by(2) + kr._fma(hy, by(1), hx * by(0))
+    print("torch %s, CUDA %s, cuBLAS %s, %d rows: sums of squares %d of %d "
+          "as (x^2 + z^2) + y^2, dot products %d of %d as z b_z + fma(y, "
+          "b_y, x b_x)" % (torch.__version__, torch.version.cuda,
+                           _cublas_version(), n,
+                           int((ss == (x * x + z * z) + y * y).sum()),
+                           ss.numel(), int((dot == want_dot).sum()),
+                           dot.numel()))
+    assert torch.equal(ss, (x * x + z * z) + y * y)
+    assert torch.equal(dot, want_dot)
+
+
+@pytest.mark.cuda
+def test_maps_kernel_takes_the_scalar_instance_off_alignment(cuda_device):
+    """An lvis 4 bytes off a 16-byte boundary takes the scalar instance,
+    which sums in kernel 1's scalar order: within the tolerance of the
+    twin."""
+    t = _inputs(1000, 16, cuda_device, seed=5)
+    args, _ = _maps_args(t, 21, seed=5)
+    flat = torch.empty((1000 * 512 + 1,), device=cuda_device)
+    off = flat[1:].view(1000, 512)
+    off.copy_(t["lvis"])
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    before = kr.LAUNCHES_BY_INSTANCE["maps_scalar"]
+    got = kr.fused_brdf_render_maps(*args[:6], off, args[7])
+    torch.cuda.synchronize()
+    assert kr.LAUNCHES_BY_INSTANCE["maps_scalar"] == before + 1
+    torch.testing.assert_close(got, kr.fused_brdf_render_maps_reference(
+        *args), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_maps_kernel_rejects_bad_inputs(cuda_device):
+    t = _inputs(64, 4, cuda_device)
+    args, _ = _maps_args(t, 3, seed=0)
+    bad = list(args)
+    bad[7] = args[7][:-1].contiguous()
+    with pytest.raises(ValueError, match="rows"):
+        kr.fused_brdf_render_maps(*bad)
+    bad = list(args)
+    bad[6] = args[6][:, :-1].contiguous()
+    with pytest.raises(ValueError, match="shape"):
+        kr.fused_brdf_render_maps(*bad)
+    wide = _inputs(4, 33, cuda_device)  # 2,178 lights: no pass fits
+    wide_args, _ = _maps_args(wide, 3, seed=0)
+    with pytest.raises(ValueError, match="lights"):
+        kr.fused_brdf_render_maps(*wide_args)
+
+
+@pytest.mark.cuda
+def test_render_maps_library_holds_16_byte_loads(cuda_device):
+    """The multi-map vector instances read lvis with LDG.E.128 and each
+    map's row of the table with LDS.128; registers hold the sums (no
+    local memory)."""
+    functions = kr.kbuild.sass_functions(kr.build()[0])
+    for maps in (8, 24):
+        for lvis in ("1", "0"):
+            key = "render_maps_kernelILi4ELb%sELi%dE" % (lvis, maps)
+            found = [ins for name, ins in functions.items() if key in name]
+            assert len(found) == 1, (key, list(functions))
+            assert _sass_count(found[0], r"LDS\.128") >= 4 + 3 * maps
+            assert _sass_count(found[0], r"\b(LDL|STL)") == 0
+            if lvis == "1":
+                assert _sass_count(found[0], _LDG_128) >= 1
+
+
+def _relight_model_and_view(device, imh=512, seed=0):
+    """vq_nfr at the relight cell's widths (random weights) and one
+    imh x imh view of a sphere seen from +z with random lvis."""
+    cfg = dc.DecompConfig()
+    gen = torch.Generator().manual_seed(seed)
+    nfr = init_nfr_unit(gen, cfg)
+    centers = torch.rand((cfg.num_embed, cfg.z_dim), generator=gen)
+    model = init_vq_nfr(gen, cfg, nfr, centers)[0].to(device).eval()
+    ys, xs = torch.meshgrid(torch.linspace(-1, 1, imh, device=device),
+                            torch.linspace(-1, 1, imh, device=device),
+                            indexing="ij")
+    xy = torch.stack((xs, ys), -1).reshape(-1, 2) * 0.7
+    r2 = (xy * xy).sum(-1, keepdim=True)
+    inside = r2 < 0.36
+    z = torch.sqrt(torch.clamp(0.36 - r2, min=0.0))
+    xyz = torch.cat((xy, z), -1)
+    g = torch.Generator(device=device).manual_seed(seed)
+    view = {"xyz": xyz, "normal": xyz / 0.6, "alpha": inside.float(),
+            "rayo": torch.tensor([[0.0, 0.0, 3.0]], device=device).expand(
+                xyz.shape[0], 3).contiguous(),
+            "lvis": torch.rand((xyz.shape[0], cfg.n_lights), generator=g,
+                               device=device)}
+    return cfg, model, view
+
+
+def _relight_maps(cfg, device, seed=1):
+    g = torch.Generator(device=device).manual_seed(seed)
+    l = cfg.n_lights
+    probes = 0.2 + torch.rand((16, l, 3), generator=g, device=device)
+    probes[:, 37] += 20.0
+    olats = torch.zeros((4, l, 3), device=device)
+    for k in range(4):
+        olats[k, 128 + 8 * k] = 200.0
+    return probes, olats
+
+
+@pytest.mark.cuda
+def test_vq_fast_render_relights_a_view_in_six_launches(cuda_device,
+                                                        monkeypatch):
+    """A whole 512x512 view through vq_fast_render in the relight pass's
+    chunks of 49,152 rows under 16 probes and 4 OLATs: 6 launches of the
+    multi-map kernel (one a chunk, every map in it), none of kernel 1, no
+    plain relight; every output within the relight cell's limits of the
+    plain path (maps 2e-5, sRGB renders 2e-4)."""
+    from vqnerf_release_torch.utils import profiling
+    cfg, model, view = _relight_model_and_view(cuda_device)
+    lxyz, lareas = dc.light_constants(cfg, cuda_device)
+    probes, olats = _relight_maps(cfg, cuda_device)
+    calls = []
+    monkeypatch.setattr(profiling, "count",
+                        lambda name, n=1: calls.append((name, n)))
+    chunk, n = 49152, view["xyz"].shape[0]
+    out = {}
+    for fused in (True, False):
+        c = dc.DecompConfig(use_fused_render=fused)
+        before = dict(kr.LAUNCHES_BY_INSTANCE)
+        with torch.inference_mode():
+            preds = [vq_nfr.vq_fast_render(
+                model, {k: v[i:i + chunk] for k, v in view.items()}, c,
+                lxyz, lareas, novel_probes=probes, novel_olat=olats)
+                for i in range(0, n, chunk)]
+        torch.cuda.synchronize()
+        out[fused] = {k: torch.cat([p[k] for p in preds]) for k in preds[0]}
+        if fused:
+            assert kr.LAUNCHES_BY_INSTANCE == dict(
+                before, maps_vector=before["maps_vector"] + 6)
+    assert calls == [("render.relight_fused", 1),
+                     ("render.relight_fused.maps", 21)] * 6 + [
+        ("render.relight_plain", 1), ("render.relight_plain.maps", 21)] * 6
+    gaps = {k: float((out[True][k] - out[False][k]).abs().max())
+            for k in out[False]}
+    print("relight view, multi-map kernel against the plain path:", gaps)
+    for k in ("basecolor", "albedo", "spec", "rough"):
+        assert gaps[k] <= 2e-5, k
+    for k in ("rgb", "rgb_probes", "rgb_olat"):
+        assert gaps[k] <= 2e-4, k
+
+
+@pytest.mark.cuda
+def test_relight_chunk_memory_far_under_the_plain_path(cuda_device):
+    """The peak memory of one relight chunk (49,152 rows, 21 maps) above
+    what it starts from: the multi-map path holds no [N, L, 3] tensor
+    (302 MB each at this size), the plain path several."""
+    cfg, model, view = _relight_model_and_view(cuda_device)
+    lxyz, lareas = dc.light_constants(cfg, cuda_device)
+    probes, olats = _relight_maps(cfg, cuda_device)
+    chunk = {k: v[:49152] for k, v in view.items()}
+    peak = {}
+    for fused in (True, False):
+        c = dc.DecompConfig(use_fused_render=fused)
+        with torch.inference_mode():
+            vq_nfr.vq_fast_render(model, chunk, c, lxyz, lareas,
+                                  novel_probes=probes, novel_olat=olats)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            vq_nfr.vq_fast_render(model, chunk, c, lxyz, lareas,
+                                  novel_probes=probes, novel_olat=olats)
+            torch.cuda.synchronize()
+        peak[fused] = torch.cuda.max_memory_allocated() - base
+    print("relight chunk peak above its start: multi-map %.1f MB, plain "
+          "%.1f MB" % (peak[True] / 1e6, peak[False] / 1e6))
+    assert peak[True] * 8 < peak[False]
+    assert peak[True] < 302_000_000
 
 
 @pytest.mark.cuda

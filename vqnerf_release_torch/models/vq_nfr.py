@@ -20,8 +20,10 @@ from ..ops.colorspace import linear2srgb, srgb2linear
 from ..ops.math import (clip_preserve_gradient, rgb2chromaticity,
                         safe_l2_normalize)
 from ..ops.microfacet import microfacet_brdf
-from ..ops.render import fused_render_equation, render_equation
+from ..ops.render import (fused_render_equation, fused_render_maps,
+                          render_equation)
 from ..ops.vq import init_vq_ema_state, vq_ema_apply, vq_lookup
+from ..utils import profiling
 from . import decomp_common as dc
 
 __all__ = ["VqNfr", "init_vq_nfr", "vq_encode", "vq_nfr_forward",
@@ -74,13 +76,20 @@ def _decode_vq(model, z_vq, cfg):
     return vq_albedo, model.spec_vq(z_vq), model.rough_vq(z_vq)
 
 
-def _geom(batch, cfg, lxyz):
+def _view_geom(batch, cfg):
+    """What a render takes from the batch but the [N, L, 3] light
+    directions, which the fused kernels form themselves."""
     mask = (batch["alpha"][:, 0] > 0).to(torch.float32)
     xyz, normal, rayo = batch["xyz"], batch["normal"], batch["rayo"]
     lvis = batch.get("lvis") if cfg.is_nerf else None
     surf2c = dc.calc_vdir(rayo, xyz)
-    surf2l = dc.calc_ldir(lxyz, xyz)
     normal_pred = dc.normal_correct(normal, surf2c)
+    return mask, xyz, surf2c, normal_pred, lvis
+
+
+def _geom(batch, cfg, lxyz):
+    mask, xyz, surf2c, normal_pred, lvis = _view_geom(batch, cfg)
+    surf2l = dc.calc_ldir(lxyz, xyz)
     return mask, xyz, surf2c, surf2l, normal_pred, lvis
 
 
@@ -330,10 +339,15 @@ def _edit(src, val, em):
     return torch.where(val[0] < 0, src, src * (1 - em) + em * val)
 
 
+def _relit(rgb, cfg, m):
+    """The output of renders [N, E, 3] under E maps."""
+    return (linear2srgb(rgb) if cfg.is_nerf else rgb) * m[:, :, None]
+
+
 def _relight(brdf, surf2l, normal_pred, lareas, envs, lvis, gamma, cfg, m):
     rgb = render_equation(brdf, surf2l, normal_pred, lareas, envs,
                           light_vis=lvis, gamma=gamma, probe_batch=True)
-    return (linear2srgb(rgb) if cfg.is_nerf else rgb) * m[:, :, None]
+    return _relit(rgb, cfg, m)
 
 
 def vq_fast_render(model, batch, cfg: dc.DecompConfig, lxyz, lareas,
@@ -347,7 +361,7 @@ def vq_fast_render(model, batch, cfg: dc.DecompConfig, lxyz, lareas,
     edit_material: dict diff/spec/rough of [3]/[3]/[1] values.
     dst_env: optional [L, 3] envmap in place of the learned light.
     """
-    mask, xyz, surf2c, surf2l, normal_pred, lvis = _geom(batch, cfg, lxyz)
+    mask, xyz, surf2c, normal_pred, lvis = _view_geom(batch, cfg)
     z_enc, z_norm = vq_encode(model, xyz, cfg)
 
     embed_ind = None
@@ -372,40 +386,61 @@ def vq_fast_render(model, batch, cfg: dc.DecompConfig, lxyz, lareas,
 
     light = dc.get_light(model) if dst_env is None else dst_env
     gamma = None if cfg.is_nerf else dc.get_gamma(model)
-    relight = novel_probes is not None or novel_olat is not None
-    if dc.fused_render_enabled(cfg, xyz.device) and not relight:
-        rgb_pred = fused_render_equation(
-            xyz, normal_pred, surf2c, s_albedo, rough, s_spec, lvis,
-            lareas, lxyz, light, gamma=gamma)
+    m = mask[:, None]
+    # the relight maps by output key, each [E, L, 3], and their outputs
+    envs = {k: e for k, e in (("rgb_probes", novel_probes),
+                              ("rgb_olat", novel_olat)) if e is not None}
+    relit = {}
+    fused = dc.fused_render_enabled(cfg, xyz.device)
+    if fused and envs:
+        # the learned light (or dst_env) and every map in one launch, the
+        # output finished in one pass and split
+        maps = torch.cat([light.reshape(1, -1, 3)]
+                         + [e.reshape(e.shape[0], -1, 3)
+                            for e in envs.values()])
+        out = _relit(fused_render_maps(
+            xyz, normal_pred, surf2c, s_albedo, rough, s_spec, lvis, lareas,
+            lxyz, maps, gamma=gamma), cfg, m)
+        rgb = out[:, 0]
+        relit = dict(zip(envs, torch.split(
+            out[:, 1:], [e.shape[0] for e in envs.values()], dim=1)))
     else:
-        brdf, _, _ = microfacet_brdf(
-            surf2l, surf2c, normal_pred, albedo=s_albedo, rough=rough,
-            f0=s_spec)
-        rgb_pred = render_equation(
-            brdf, surf2l, normal_pred, lareas, light, light_vis=lvis,
-            gamma=gamma)
+        if fused:
+            rgb_pred = fused_render_equation(
+                xyz, normal_pred, surf2c, s_albedo, rough, s_spec, lvis,
+                lareas, lxyz, light, gamma=gamma)
+        else:
+            surf2l = dc.calc_ldir(lxyz, xyz)
+            brdf, _, _ = microfacet_brdf(
+                surf2l, surf2c, normal_pred, albedo=s_albedo, rough=rough,
+                f0=s_spec)
+            rgb_pred = render_equation(
+                brdf, surf2l, normal_pred, lareas, light, light_vis=lvis,
+                gamma=gamma)
+            relit = {k: _relight(brdf, surf2l, normal_pred, lareas, e, lvis,
+                                 gamma, cfg, m) for k, e in envs.items()}
+        rgb = (linear2srgb(rgb_pred) if cfg.is_nerf else rgb_pred) * m
+    if envs:
+        path = "render.relight_fused" if fused else "render.relight_plain"
+        profiling.count(path)
+        profiling.count(path + ".maps", 1 + sum(e.shape[0]
+                                                for e in envs.values()))
 
     if opt_scale is not None and vis_scale:
         basecolor = linear2srgb(basecolor) * opt_scale
         spec = linear2srgb(spec) * opt_scale
 
-    m = mask[:, None]
     pred = {
         "alpha": batch.get("pred_alpha", batch["alpha"]),
         "basecolor": basecolor * m,
         "albedo": albedo * m,
         "spec": spec * m,
         "rough": rough * m,
-        "rgb": (linear2srgb(rgb_pred) if cfg.is_nerf else rgb_pred) * m,
+        "rgb": rgb,
     }
     if embed_ind is not None:
         pred["embed"] = embed_ind.to(torch.int32) * mask.to(torch.int32)
-    if novel_probes is not None:
-        pred["rgb_probes"] = _relight(brdf, surf2l, normal_pred, lareas,
-                                      novel_probes, lvis, gamma, cfg, m)
-    if novel_olat is not None:
-        pred["rgb_olat"] = _relight(brdf, surf2l, normal_pred, lareas,
-                                    novel_olat, lvis, gamma, cfg, m)
+    pred.update(relit)
     return pred
 
 

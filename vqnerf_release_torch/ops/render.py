@@ -5,15 +5,18 @@ vqnerf_release_tpu/ops/render.py):
 
 then the learned gamma for real (non-'nerf') data, and a clip to [0, 1].
 ``light`` is one map ([Lh, Lw, 3] or [L, 3]) or, with ``probe_batch``, a
-stack of E envmaps [E, L, 3] rendered by one einsum.
+stack of E envmaps [E, L, 3] rendered by one einsum. The fused renders
+compute the same through the kernels of ``kernels/render.py``: one map
+(``fused_render_equation``) or a stack of E (``fused_render_maps``).
 """
 
 import torch
 
-from ..kernels.render import fused_brdf_render, pack_lights
+from ..kernels.render import (fused_brdf_render, fused_brdf_render_maps,
+                              pack_light_maps, pack_lights)
 from .math import clip_preserve_gradient
 
-__all__ = ["render_equation", "fused_render_equation"]
+__all__ = ["render_equation", "fused_render_equation", "fused_render_maps"]
 
 
 def _finish(rgb, gamma):
@@ -55,4 +58,19 @@ def fused_render_equation(xyz, normal, surf2c, albedo, rough, f0, lvis,
         xyz.contiguous(), normal.contiguous(), surf2c.contiguous(),
         albedo.contiguous(), rough.contiguous(), f0.contiguous(),
         None if lvis is None else lvis.contiguous(), packed)
+    return _finish(rgb, gamma)
+
+
+def fused_render_maps(xyz, normal, surf2c, albedo, rough, f0, lvis, lareas,
+                      lxyz, lights, gamma=None):
+    """Render under each of the E maps ``lights`` [E, L, 3] through the
+    multi-map kernel (``kernels/render.py::fused_brdf_render_maps``), which
+    evaluates each ray-light pair's BRDF once for all maps and never holds
+    an [N, L, 3] tensor; then render_equation's gamma and clip on every
+    map. Returns [N, E, 3], as render_equation with ``probe_batch``."""
+    rgb = fused_brdf_render_maps(
+        xyz.contiguous(), normal.contiguous(), surf2c.contiguous(),
+        albedo.contiguous(), rough.contiguous(), f0.contiguous(),
+        None if lvis is None else lvis.contiguous(),
+        pack_light_maps(lxyz, lareas, lights))
     return _finish(rgb, gamma)
