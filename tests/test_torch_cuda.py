@@ -21,6 +21,10 @@ output against the plain version fed the kernel's indices and evaluated in
 float64, at rtol 1e-5 / atol 1e-6. It is one cooperative launch a call, and
 equal inputs must give equal bits, call after call.
 
+A relight call's per-row half replayed as a CUDA graph
+(``train/graphed.py::CallGraphs``) is held to the eager call bit for bit,
+call after call, with outputs that no later replay overwrites.
+
 The two SDF kernels are held to their plain versions at rtol 1e-4 / atol
 1e-5 (sums of up to 256 terms taken in another order than cuBLAS takes
 them, each product split in three TF32 products on the tensor cores,
@@ -514,8 +518,13 @@ def test_vq_fast_render_relights_a_view_in_six_launches(cuda_device,
         if fused:
             assert kr.LAUNCHES_BY_INSTANCE == dict(
                 before, maps_vector=before["maps_vector"] + 6)
-    assert calls == [("render.relight_fused", 1),
-                     ("render.relight_fused.maps", 21)] * 6 + [
+    # the fused calls replay a CUDA graph of each chunk shape, captured on
+    # its first call: 49,152 rows (chunks 1-5) and 16,384 (chunk 6)
+    fused_call = [("render.relight_fused", 1),
+                  ("render.relight_fused.maps", 21)]
+    capture = [("render.relight_graph.captures", 1)] + fused_call
+    replay = [("render.relight_graph.replays", 1)] + fused_call
+    assert calls == capture + replay * 4 + capture + [
         ("render.relight_plain", 1), ("render.relight_plain.maps", 21)] * 6
     gaps = {k: float((out[True][k] - out[False][k]).abs().max())
             for k in out[False]}
@@ -524,6 +533,111 @@ def test_vq_fast_render_relights_a_view_in_six_launches(cuda_device,
         assert gaps[k] <= 2e-5, k
     for k in ("rgb", "rgb_probes", "rgb_olat"):
         assert gaps[k] <= 2e-4, k
+
+
+def _eager_relight(model, chunk, cfg, lxyz, lareas, probes, olats):
+    """vq_fast_render's outputs as the eager path gives them: with grad on
+    no call replays a graph."""
+    with torch.enable_grad():
+        out = vq_nfr.vq_fast_render(model, chunk, cfg, lxyz, lareas,
+                                    novel_probes=probes, novel_olat=olats)
+    return {k: v.detach() for k, v in out.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [49152, 16384])
+def test_relight_graph_replays_equal_the_eager_call(cuda_device, rows):
+    """At the relight pass's two chunk shapes, with the learned light, 16
+    probes, 4 OLATs and lvis: the first call (eager, then the capture) and
+    two replays equal the eager render bit for bit on every output key,
+    and return the caller's alpha."""
+    cfg, model, view = _relight_model_and_view(cuda_device)
+    lxyz, lareas = dc.light_constants(cfg, cuda_device)
+    probes, olats = _relight_maps(cfg, cuda_device)
+    chunk = {k: v[:rows] for k, v in view.items()}
+    want = _eager_relight(model, chunk, cfg, lxyz, lareas, probes, olats)
+    with torch.inference_mode():
+        got = [vq_nfr.vq_fast_render(model, chunk, cfg, lxyz, lareas,
+                                     novel_probes=probes, novel_olat=olats)
+               for _ in range(3)]
+    torch.cuda.synchronize()
+    for out in got:
+        assert out["alpha"] is chunk["alpha"]
+        assert list(out) == list(want)
+        for k, v in want.items():
+            assert out[k].shape == v.shape, k
+            assert torch.equal(out[k], v), k
+
+
+@pytest.mark.cuda
+def test_relight_graph_calls_return_fresh_outputs(cuda_device):
+    """Five consecutive replays on five different chunks of a view, kept
+    until all are issued, as a request keeps its chunks: five distinct
+    outputs, each its own chunk's eager render bit for bit (no output is a
+    graph buffer that a later replay overwrites)."""
+    cfg, model, view = _relight_model_and_view(cuda_device)
+    lxyz, lareas = dc.light_constants(cfg, cuda_device)
+    probes, olats = _relight_maps(cfg, cuda_device)
+    chunk = 49152
+    chunks = [{k: v[i:i + chunk] for k, v in view.items()}
+              for i in range(0, 5 * chunk, chunk)]
+    with torch.inference_mode():
+        vq_nfr.vq_fast_render(model, chunks[0], cfg, lxyz, lareas,
+                              novel_probes=probes, novel_olat=olats)
+        got = [vq_nfr.vq_fast_render(model, c, cfg, lxyz, lareas,
+                                     novel_probes=probes, novel_olat=olats)
+               for c in chunks]
+    want = [_eager_relight(model, c, cfg, lxyz, lareas, probes, olats)
+            for c in chunks]
+    torch.cuda.synchronize()
+    assert len({out["basecolor"].data_ptr() for out in got}) == 5
+    for i, (out, ref) in enumerate(zip(got, want)):
+        for k, v in ref.items():
+            assert torch.equal(out[k], v), (i, k)
+    for a, b in zip(got, got[1:]):
+        for k in ("basecolor", "rough", "rgb_probes"):
+            assert not torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_relight_graph_counts_captures_replays_and_launches(cuda_device,
+                                                            monkeypatch):
+    """Two 512x512 views in the relight pass's chunks: one capture a chunk
+    shape, a replay for every later call; the multi-map kernel's launch
+    counter still rises by 6 a view and the relight counters by one a
+    call. A call with grad on runs eagerly: no capture, no replay."""
+    from vqnerf_release_torch.utils import profiling
+    cfg, model, view = _relight_model_and_view(cuda_device)
+    lxyz, lareas = dc.light_constants(cfg, cuda_device)
+    probes, olats = _relight_maps(cfg, cuda_device)
+    counts = {}
+
+    def count(name, n=1):
+        counts[name] = counts.get(name, 0) + n
+
+    monkeypatch.setattr(profiling, "count", count)
+    chunk, n = 49152, view["xyz"].shape[0]
+    for _ in range(2):
+        before = kr.LAUNCHES_BY_INSTANCE["maps_vector"]
+        with torch.inference_mode():
+            for i in range(0, n, chunk):
+                vq_nfr.vq_fast_render(
+                    model, {k: v[i:i + chunk] for k, v in view.items()},
+                    cfg, lxyz, lareas, novel_probes=probes,
+                    novel_olat=olats)
+        torch.cuda.synchronize()
+        assert kr.LAUNCHES_BY_INSTANCE["maps_vector"] == before + 6
+    assert counts == {"render.relight_graph.captures": 2,
+                      "render.relight_graph.replays": 10,
+                      "render.relight_fused": 12,
+                      "render.relight_fused.maps": 12 * 21}
+    with torch.enable_grad():
+        vq_nfr.vq_fast_render(model, {k: v[:chunk] for k, v in view.items()},
+                              cfg, lxyz, lareas, novel_probes=probes,
+                              novel_olat=olats)
+    assert counts["render.relight_graph.captures"] == 2
+    assert counts["render.relight_graph.replays"] == 10
+    assert counts["render.relight_fused"] == 13
 
 
 @pytest.mark.cuda

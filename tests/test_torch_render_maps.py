@@ -232,3 +232,37 @@ def test_vq_fast_render_without_maps_counts_nothing(monkeypatch):
             out[fused] = vq_nfr.vq_fast_render(model, batch, c, lxyz, lareas)
     assert calls == []
     _assert_within(out[True]["rgb"], out[False]["rgb"])
+
+
+def test_vq_fast_render_relight_on_the_cpu_never_captures(monkeypatch):
+    """A relight call on the CPU (the fused render on, probes and OLATs
+    given) never reaches the CUDA graphs, under inference mode, under
+    no_grad or with grad on: the same outputs bit for bit in all three, in
+    the order they always had, with the caller's alpha."""
+    cfg, model, batch = _model_and_batch("nerf", light_h=4)
+    batch["pred_alpha"] = batch["alpha"].clone()
+    l = cfg.n_lights
+    probes = torch.rand((16, l, 3), generator=torch.Generator().manual_seed(2))
+    olats = torch.zeros((4, l, 3))
+    olats[:, 5] = 200.0
+
+    def no_graph(*args, **kw):
+        raise AssertionError("a CPU call reached the CUDA graphs")
+
+    monkeypatch.setattr(vq_nfr, "_RELIGHT_GRAPHS", no_graph)
+    c = dc.DecompConfig(**{**cfg.__dict__, "use_fused_render": True})
+    lxyz, lareas = dc.light_constants(c, "cpu")
+    out = {}
+    for mode in (torch.inference_mode, torch.no_grad, torch.enable_grad):
+        with mode():
+            out[mode] = vq_nfr.vq_fast_render(
+                model, batch, c, lxyz, lareas, novel_probes=probes,
+                novel_olat=olats)
+    want = out[torch.enable_grad]
+    assert want["rgb"].requires_grad
+    for got in out.values():
+        assert got["alpha"] is batch["pred_alpha"]
+        assert list(got) == ["alpha", "basecolor", "albedo", "spec", "rough",
+                             "rgb", "rgb_probes", "rgb_olat"]
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k

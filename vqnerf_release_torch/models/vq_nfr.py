@@ -23,6 +23,7 @@ from ..ops.microfacet import microfacet_brdf
 from ..ops.render import (fused_render_equation, fused_render_maps,
                           render_equation)
 from ..ops.vq import init_vq_ema_state, vq_ema_apply, vq_lookup
+from ..train.graphed import CallGraphs
 from ..utils import profiling
 from . import decomp_common as dc
 
@@ -350,6 +351,14 @@ def _relight(brdf, surf2l, normal_pred, lareas, envs, lvis, gamma, cfg, m):
     return _relit(rgb, cfg, m)
 
 
+# the per-row half of relight calls, replayed as CUDA graphs
+_RELIGHT_GRAPHS = CallGraphs("render.relight_graph")
+# the batch keys the per-row half reads (the alpha returned is the caller's)
+_ROW_KEYS = ("alpha", "xyz", "normal", "rayo")
+# what the render takes from the per-row half, under these keys
+_RENDER_IN = ("_m", "_surf2c", "_normal", "_albedo", "_rough", "_f0")
+
+
 def vq_fast_render(model, batch, cfg: dc.DecompConfig, lxyz, lareas,
                    novel_probes=None, novel_olat=None, opt_scale=None,
                    edit_mask=None, edit_material=None, dst_env=None,
@@ -360,8 +369,63 @@ def vq_fast_render(model, batch, cfg: dc.DecompConfig, lxyz, lareas,
     novel_probes/novel_olat: [E, L, 3] stacked envmaps or None.
     edit_material: dict diff/spec/rough of [3]/[3]/[1] values.
     dst_env: optional [L, 3] envmap in place of the learned light.
+
+    Two halves: the per-row half (the view's geometry, the MLPs, the maps)
+    and the render under the lights. In a relight call on CUDA with grad
+    off (probes or OLATs given, the fused render on, no edit, no embed,
+    the staged tensors on the batch's device), the per-row half replays a
+    CUDA graph of its signature (``train/graphed.py``'s ``CallGraphs``):
+    the same kernels on the call's rows and opt_scale, copied into the
+    graph's buffers, and on the model's parameters where they lie. The
+    render, one launch of the multi-map kernel and its finish, reads lvis,
+    the lights and the half's outputs where they lie. Every other call runs
+    both halves eagerly.
     """
-    mask, xyz, surf2c, normal_pred, lvis = _view_geom(batch, cfg)
+    envs = {k: e for k, e in (("rgb_probes", novel_probes),
+                              ("rgb_olat", novel_olat)) if e is not None}
+    device = batch["xyz"].device
+    fused = dc.fused_render_enabled(cfg, device)
+    inputs = None
+    if (fused and envs and device.type == "cuda" and edit_mask is None
+            and not gen_embed and not torch.is_grad_enabled()):
+        inputs = dict({k: batch[k] for k in _ROW_KEYS}, opt_scale=opt_scale)
+        if not all(t is None or torch.is_tensor(t) and t.device == device
+                   for t in inputs.values()):
+            inputs = None
+    if inputs is None:
+        rows = _per_row(model, batch, cfg, opt_scale=opt_scale,
+                        edit_mask=edit_mask, edit_material=edit_material,
+                        gen_embed=gen_embed, thres=thres, rng=rng,
+                        vis_scale=vis_scale)
+    else:
+        rows = _RELIGHT_GRAPHS(
+            lambda t: _per_row(model, t, cfg, opt_scale=t["opt_scale"],
+                               vis_scale=vis_scale),
+            inputs, key=(cfg, vis_scale), reads=tuple(model.parameters()))
+    lit = _render(model, batch, [rows.pop(k) for k in _RENDER_IN], cfg,
+                  lxyz, lareas, fused, envs, dst_env)
+    if envs:
+        path = "render.relight_fused" if fused else "render.relight_plain"
+        profiling.count(path)
+        profiling.count(path + ".maps", 1 + sum(e.shape[0]
+                                                for e in envs.values()))
+    pred = {"alpha": batch.get("pred_alpha", batch["alpha"])}
+    pred.update((k, rows.pop(k)) for k in ("basecolor", "albedo", "spec",
+                                           "rough"))
+    pred["rgb"] = lit.pop("rgb")
+    pred.update(rows)  # the embed
+    pred.update(lit)
+    return pred
+
+
+def _per_row(model, batch, cfg, opt_scale=None, edit_mask=None,
+             edit_material=None, gen_embed=False, thres=None, rng=None,
+             vis_scale=False):
+    """``vq_fast_render``'s per-row half: its masked basecolor, albedo, spec
+    and rough (and embed), then what its render takes, under
+    ``_RENDER_IN``: the mask [N, 1], surf2c, the corrected normal, and the
+    albedo, rough and f0 that light the rows."""
+    mask, xyz, surf2c, normal_pred, _ = _view_geom(batch, cfg)
     z_enc, z_norm = vq_encode(model, xyz, cfg)
 
     embed_ind = None
@@ -383,15 +447,36 @@ def vq_fast_render(model, batch, cfg: dc.DecompConfig, lxyz, lareas,
         s_albedo, s_spec = albedo * opt_scale, spec * opt_scale
     else:
         s_albedo, s_spec = albedo, spec
+    if opt_scale is not None and vis_scale:
+        basecolor = linear2srgb(basecolor) * opt_scale
+        spec = linear2srgb(spec) * opt_scale
 
+    m = mask[:, None]
+    out = {
+        "basecolor": basecolor * m,
+        "albedo": albedo * m,
+        "spec": spec * m,
+        "rough": rough * m,
+    }
+    if embed_ind is not None:
+        out["embed"] = embed_ind.to(torch.int32) * mask.to(torch.int32)
+    out.update(zip(_RENDER_IN, (m, surf2c, normal_pred, s_albedo, rough,
+                                s_spec)))
+    return out
+
+
+def _render(model, batch, render_in, cfg, lxyz, lareas, fused, envs,
+            dst_env):
+    """``vq_fast_render``'s render of the rows ``render_in`` (the per-row
+    half's, in ``_RENDER_IN``'s order) under the learned light (or dst_env)
+    and the relight maps ``envs`` {output key: [E, L, 3]}: {"rgb", and a
+    key a stack}."""
+    m, surf2c, normal_pred, s_albedo, rough, s_spec = render_in
+    xyz = batch["xyz"]
+    lvis = batch.get("lvis") if cfg.is_nerf else None
     light = dc.get_light(model) if dst_env is None else dst_env
     gamma = None if cfg.is_nerf else dc.get_gamma(model)
-    m = mask[:, None]
-    # the relight maps by output key, each [E, L, 3], and their outputs
-    envs = {k: e for k, e in (("rgb_probes", novel_probes),
-                              ("rgb_olat", novel_olat)) if e is not None}
     relit = {}
-    fused = dc.fused_render_enabled(cfg, xyz.device)
     if fused and envs:
         # the learned light (or dst_env) and every map in one launch, the
         # output finished in one pass and split
@@ -420,28 +505,7 @@ def vq_fast_render(model, batch, cfg: dc.DecompConfig, lxyz, lareas,
             relit = {k: _relight(brdf, surf2l, normal_pred, lareas, e, lvis,
                                  gamma, cfg, m) for k, e in envs.items()}
         rgb = (linear2srgb(rgb_pred) if cfg.is_nerf else rgb_pred) * m
-    if envs:
-        path = "render.relight_fused" if fused else "render.relight_plain"
-        profiling.count(path)
-        profiling.count(path + ".maps", 1 + sum(e.shape[0]
-                                                for e in envs.values()))
-
-    if opt_scale is not None and vis_scale:
-        basecolor = linear2srgb(basecolor) * opt_scale
-        spec = linear2srgb(spec) * opt_scale
-
-    pred = {
-        "alpha": batch.get("pred_alpha", batch["alpha"]),
-        "basecolor": basecolor * m,
-        "albedo": albedo * m,
-        "spec": spec * m,
-        "rough": rough * m,
-        "rgb": rgb,
-    }
-    if embed_ind is not None:
-        pred["embed"] = embed_ind.to(torch.int32) * mask.to(torch.int32)
-    pred.update(relit)
-    return pred
+    return {"rgb": rgb, **relit}
 
 
 def vq_fast_embed(model, batch, cfg: dc.DecompConfig, thres=None, rng=None):

@@ -39,7 +39,28 @@ stage the draws.
 The kernels count their launches in Python, so a capture counts the kernels
 it records but launches none; ``StepGraph`` takes the capture's counts back
 and adds them once per replay instead.
+
+``CallGraphs`` replays a call rather than a step: ``fn(staged)``, a function
+of a dict of CUDA tensors that returns a dict of new tensors of one dtype,
+none of them a view of its inputs. It keeps one captured graph per call
+signature (the caller's key, the device, its current stream, inference mode
+or not, each input's dtype and shape or None, and the address, dtype and
+shape of each tensor the call reads in place), the least recently used first
+out past ``SIZE``, each private pool freed with its graph. A call copies its
+inputs into the graph's own buffers and replays; the tensors it reads in
+place (model parameters, constants) are read where they lie, and the graph
+keeps them alive, so an address in a signature names them alone while the
+graph lives. Its outputs land in one block that every call copies once: the
+returned dict is made of views into that copy, which no later replay
+overwrites. A signature's first call stages its inputs, runs ``fn`` eagerly
+on a side stream (its result is the call's, and it warms cuBLAS and the
+kernels) and then captures, as ``StepGraph._capture`` does; a capture that
+fails raises. The counters ``<name>.captures`` and ``<name>.replays``
+(``utils/profiling.py``) say how often each happens.
 """
+
+import collections
+import threading
 
 import torch
 
@@ -48,7 +69,7 @@ from ..kernels import sdf as ksdf
 from ..kernels import vq as kvq
 from ..utils import profiling
 
-__all__ = ["StepGraph", "launch_counts", "REPLAYS"]
+__all__ = ["StepGraph", "CallGraphs", "launch_counts", "REPLAYS"]
 
 REPLAYS = 0  # graph replays of every StepGraph, for the smoke's report
 
@@ -178,3 +199,106 @@ class StepGraph:
         REPLAYS += n - first
         _add_counts(self.launches_per_replay, n - first)
         return self.out[:n]
+
+
+class _Call:
+    """One captured call: its input buffers, graph and output block, and
+    the kernel launches a replay makes."""
+
+    def __init__(self, inputs, reads, device):
+        self.reads = reads  # their storage, alive while the graph lives
+        self.static = {k: None if t is None else
+                       torch.empty(t.shape, dtype=t.dtype, device=device)
+                       for k, t in inputs.items()}
+        self.graph = self.block = None
+        self.layout, self.launches = [], {}
+
+    def _stage(self, inputs):
+        for k, t in self.static.items():
+            if t is not None:
+                t.copy_(inputs[k])
+
+    def capture(self, fn, inputs):
+        """``fn`` eagerly on a side stream, then the capture; returns the
+        eager result."""
+        self._stage(inputs)
+        current = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            first = fn(self.static)
+        current.wait_stream(side)
+        for t in first.values():
+            t.record_stream(current)
+        if len({t.dtype for t in first.values()}) != 1:
+            raise ValueError("a graphed call returns tensors of one dtype")
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                out = fn(self.static)
+                self.block = torch.cat([t.reshape(-1) for t in out.values()])
+        except Exception as e:
+            raise RuntimeError(
+                "capturing the call as a CUDA graph failed; it must not "
+                "synchronise with the host or draw random numbers (%s)"
+                % e) from e
+        after = launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after}
+        _add_counts(self.launches, -1)  # the capture launched none
+        at = 0
+        for k, t in out.items():
+            self.layout.append((k, at, at + t.numel(), t.shape))
+            at += t.numel()
+        self.graph = graph
+        return first
+
+    def replay(self, inputs):
+        self._stage(inputs)
+        self.graph.replay()
+        _add_counts(self.launches, 1)
+        block = self.block.clone()
+        return {k: block[a:b].view(shape) for k, a, b, shape in self.layout}
+
+    def close(self):
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.static = self.block = self.reads = None
+
+
+class CallGraphs:
+    """Calls replayed as one CUDA graph per signature, at most ``SIZE``;
+    see the module docstring. ``name`` prefixes the counters."""
+
+    SIZE = 4
+
+    def __init__(self, name):
+        self.name = name
+        self._calls = collections.OrderedDict()
+        # a call stages, replays and copies out under it: a graph's buffers
+        # serve one call at a time
+        self._lock = threading.Lock()
+
+    def __call__(self, fn, inputs, key, reads):
+        """``fn(staged)`` for ``inputs`` {name: CUDA tensor or None}, all on
+        one device; ``key``: what else decides ``fn``'s program (hashable);
+        ``reads``: the tensors ``fn`` reads in place."""
+        device = next(t.device for t in inputs.values() if t is not None)
+        sig = (key, device, torch.cuda.current_stream(device).cuda_stream,
+               torch.is_inference_mode_enabled(),
+               tuple((k,) if t is None else (k, t.dtype, t.shape)
+                     for k, t in inputs.items()),
+               tuple((t.data_ptr(), t.dtype, t.shape) for t in reads))
+        with self._lock, torch.cuda.device(device):
+            call = self._calls.get(sig)
+            if call is not None:
+                self._calls.move_to_end(sig)
+                profiling.count(self.name + ".replays")
+                return call.replay(inputs)
+            while len(self._calls) >= self.SIZE:
+                self._calls.popitem(last=False)[1].close()
+            profiling.count(self.name + ".captures")
+            call = _Call(inputs, tuple(t.detach() for t in reads), device)
+            first = call.capture(fn, inputs)
+            self._calls[sig] = call
+            return first
